@@ -1,0 +1,161 @@
+"""First-use build of the CUDA kernels in ``kernels/csrc``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The library lives in
+``kernels/build/<hash>/`` where the hash covers the sources and the
+compiler flags, so an edited source rebuilds and an unchanged one is reused
+within a checkout. The build is written under a temporary name and renamed
+into place, so concurrent first users do not see a half-written file.
+
+A build failure raises ``KernelBuildError`` with the compiler's output.
+
+``python -m segmif_tpu_torch.kernels._build`` builds the library with
+``-Xptxas -v`` and prints the compiler's per-kernel register, shared
+memory and spill report.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC", "-lineinfo"]
+LIB_NAME = "libsegmif_kernels.so"
+
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int
+_i64 = ctypes.c_int64
+_f32 = ctypes.c_float
+
+# C entry points: name -> argtypes (every pointer and the stream are
+# c_void_p; every C function returns cudaGetLastError() as an int)
+SIGNATURES = {
+    "segmif_sr_attention": [_vp, _vp, _vp, _vp,            # q k v out
+                            _i32, _i32, _i32, _i32, _i32,  # B N M H D
+                            _i64, _i64, _i64,              # q strides b n h
+                            _i64, _i64, _i64,              # k strides
+                            _i64, _i64, _i64,              # v strides
+                            _f32, _i32, _vp],              # scale dtype stream
+    "segmif_sr_attention_max_m": [_i32],                   # D -> max M
+    "segmif_ffm_grams": [_vp, _vp, _vp, _vp, _vp,          # x1 x2 s w b
+                         _vp, _vp,                         # partial out
+                         _i32, _i32, _i32, _i32,           # B N chunk nchunk
+                         _i32, _vp],                       # dtype stream
+    "segmif_ffm_apply": [_vp, _vp, _vp, _vp, _vp,          # x1 x2 s w b
+                         _vp, _vp, _vp,                    # mats be lnp
+                         _vp, _vp,                         # o1 o2
+                         _i32, _i32, _i32,                 # B N chunk
+                         _i32, _vp],                       # dtype stream
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of this process's build
+
+
+def nvcc_path() -> Optional[str]:
+    """nvcc from CUDA_HOME, /usr/local/cuda or PATH; None if absent."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    return shutil.which("nvcc")
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(extra: List[str]) -> str:
+    h = hashlib.sha256()
+    for p in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    return h.hexdigest()[:16]
+
+
+def compile_library(extra_flags: Optional[List[str]] = None) -> tuple:
+    """Compile csrc/*.cu into the hashed build directory (if not built).
+
+    Returns (library path, compiler output). Raises KernelBuildError."""
+    extra = list(extra_flags or [])
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    out_dir = BUILD_ROOT / _digest(extra)
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc] + NVCC_FLAGS + extra + ["-o", str(tmp)] + \
+        [str(p) for p in sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, lib_path)
+    return lib_path, log
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            path, _ = compile_library()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.segmif_error_string.argtypes = [ctypes.c_int]
+            lib.segmif_error_string.restype = ctypes.c_char_p
+            build_seconds = time.perf_counter() - t0
+            _lib = lib
+        return _lib
+
+
+def refuse_grad(*ts: torch.Tensor) -> None:
+    """The kernels are forward-only (serving): raise if autograd would
+    need a gradient through them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the CUDA kernels are forward-only (serving); call them under "
+            "torch.inference_mode() or torch.no_grad()")
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().segmif_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+if __name__ == "__main__":
+    lib_path, report = compile_library(["-Xptxas", "-v"])
+    print(f"built {lib_path}")
+    print(report)

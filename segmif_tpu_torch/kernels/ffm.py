@@ -1,0 +1,279 @@
+"""The folded CrossPath (feature-fusion module), counterpart of
+``segmif_tpu/kernels/pallas_ffm.py``.
+
+Interaction 'both', no token weight or gram slice. Inputs x1, x2 (the two
+fusion branches) and s (the projected seg tap) are [B, ..., C] with
+C = 64; the weight dict ``w`` has the JAX layout ([in, out] kernels):
+wp1..3 [C, 2C], bp1..3 [2C], wkv1..3 [C, 2C], we1..2 [2C, C], be1..2 [C],
+ln1/2_scale and _bias [C].
+
+ - ``crosspath_folded_ref``: the plain folded maths (``crosspath_folded_xla``).
+ - ``crosspath_grams`` / ``crosspath_apply_rows``: pass A and pass B, CUDA
+   kernels in ``csrc/ffm.cu`` on CUDA tensors (replacing ``_grams_pallas``
+   and ``_apply_pallas``), their plain versions on CPU tensors.
+ - ``crosspath_fused``: grams -> per-head contexts and end-projection fold
+   (tiny [B, C, C] matrices, plain torch) -> apply.
+ - ``crosspath_apply``: CPU tensors take the plain folded maths, CUDA
+   tensors the two kernels.
+
+Pass A returns only the three 64x64 gram blocks the contexts read
+(y1^T y1, y2^T y2, u3^T u3, where r_i = relu(x_i Wp_i + bp_i) = [y_i, u_i]);
+pass B takes the four folded context matrices unpadded, [B, 4, C, C]:
+M0 applies to y3 and M1 to u1 (output 1), M2 to y3 and M3 to u2 (output 2).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from . import _build
+from .attention import linear_ctx_blockdiag_from_gram
+
+LN_EPS = 1e-5
+_TILE = 64
+
+
+def _layer_norm(t: torch.Tensor, gamma: torch.Tensor,
+                beta: torch.Tensor) -> torch.Tensor:
+    """f32 LayerNorm over the last dim with the E[t^2] - mu^2 variance the
+    TPU kernels use."""
+    mu = t.mean(-1, keepdim=True)
+    var = ((t * t).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return (t - mu) * torch.rsqrt(var + LN_EPS) * gamma + beta
+
+
+def _relu_proj(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """relu(x w + b) in f32, rounded to x's dtype, returned as f32."""
+    return torch.relu(x.float() @ w + b).to(x.dtype).float()
+
+
+def crosspath_folded_ref(x1: torch.Tensor, x2: torch.Tensor,
+                         s: torch.Tensor, w: Dict, scale: float,
+                         num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain folded CrossPath; any leading layout [B, ..., C]. The grams
+    are [2C, 2C] blocks of the full r_i gram and the contexts apply as
+    K = 2C products against zero-padded [2C, C] folded matrices, as in
+    ``crosspath_folded_xla``. Arithmetic in f32; outputs in x1's dtype."""
+    dim = x1.shape[-1]
+    dt = x1.dtype
+    b = x1.shape[0]
+
+    def proj(x, i):
+        return _relu_proj(x, w[f"wp{i}"].to(dt).float(),
+                          w[f"bp{i}"].to(dt).float())
+
+    r1, r2, r3 = proj(x1, 1), proj(x2, 2), proj(s, 3)
+
+    def gram(r):
+        t = r.reshape(b, -1, r.shape[-1])
+        return t.transpose(1, 2) @ t
+
+    g1, g2, g3 = gram(r1), gram(r2), gram(r3)
+    bd_s = linear_ctx_blockdiag_from_gram(g3[:, dim:, dim:], w["wkv3"],
+                                          scale, num_heads)
+    bd_1 = linear_ctx_blockdiag_from_gram(g1[:, :dim, :dim], w["wkv1"],
+                                          scale, num_heads)
+    bd_2 = linear_ctx_blockdiag_from_gram(g2[:, :dim, :dim], w["wkv2"],
+                                          scale, num_heads)
+    z = torch.zeros_like(bd_s)
+
+    def fold(bd, we_half, top):
+        m = (bd @ we_half.float()).to(dt).float()
+        return torch.cat([m, z] if top else [z, m], dim=-2)
+
+    def apply(r, m):   # [B, ..., 2C] x [B, 2C, C]
+        return (r.reshape(b, -1, r.shape[-1]) @ m).reshape(
+            r.shape[:-1] + (m.shape[-1],))
+
+    o1 = (apply(r3, fold(bd_1, w["we1"][:dim], True))
+          + apply(r1, fold(bd_s, w["we1"][dim:], False)) + w["be1"].float())
+    o2 = (apply(r3, fold(bd_2, w["we2"][:dim], True))
+          + apply(r2, fold(bd_s, w["we2"][dim:], False)) + w["be2"].float())
+    out1 = _layer_norm(x1.float() + o1, w["ln1_scale"].float(),
+                       w["ln1_bias"].float())
+    out2 = _layer_norm(x2.float() + o2, w["ln2_scale"].float(),
+                       w["ln2_bias"].float())
+    return out1.to(dt), out2.to(dt)
+
+
+# ------------------------------------------------------------ half weights
+
+def _halves(wp: torch.Tensor, bp: torch.Tensor, dt: torch.dtype, picks):
+    """wp [3, C, 2C], bp [3, 2C] -> the 64-wide projections named by
+    ``picks`` ((projection, half) pairs; half 0 is y, the first C columns,
+    half 1 is u) as ([3, C, C], [3, C]) f32, rounded to dt first."""
+    c = wp.shape[1]
+    w = torch.stack([wp[i, :, h * c:(h + 1) * c] for i, h in picks])
+    b = torch.stack([bp[i, h * c:(h + 1) * c] for i, h in picks])
+    return w.to(dt).float().contiguous(), b.to(dt).float().contiguous()
+
+
+_GRAM_PICKS = ((0, 0), (1, 0), (2, 1))    # y1, y2, u3
+_APPLY_PICKS = ((2, 0), (0, 1), (1, 1))   # y3, u1, u2
+
+
+# ------------------------------------------------------------------ pass A
+
+def crosspath_grams_ref(x1, x2, s, wp, bp) -> torch.Tensor:
+    """Plain pass A. x_i [B, N, C]; wp [3, C, 2C]; bp [3, 2C] ->
+    [B, 3, C, C] f32: y1^T y1, y2^T y2, u3^T u3."""
+    w, b = _halves(wp, bp, x1.dtype, _GRAM_PICKS)
+    out = []
+    for i, x in enumerate((x1, x2, s)):
+        r = _relu_proj(x, w[i], b[i])
+        out.append(r.transpose(1, 2) @ r)
+    return torch.stack(out, 1)
+
+
+def _check_tokens(name: str, *ts: torch.Tensor) -> None:
+    x = ts[0]
+    if x.dim() != 3 or x.shape[-1] != 64:
+        raise ValueError(f"{name}: tokens must be [B, N, 64], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {x.dtype}; the kernel takes f32 "
+                         "or bf16")
+    for t in ts:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: inputs differ in shape, dtype or "
+                             "device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and "
+                             "16-byte aligned")
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
+    """Pass A: [B, 3, C, C] f32 grams. CPU tensors take the plain version;
+    CUDA tensors launch ``segmif_ffm_grams``: per-(image, token-chunk)
+    partial grams, then an in-order sum over the chunks."""
+    if x1.device.type == "cpu":
+        return crosspath_grams_ref(x1, x2, s, wp, bp)
+    if x1.device.type != "cuda":
+        raise ValueError(f"crosspath_grams: unsupported device {x1.device}")
+    _build.refuse_grad(x1, x2, s, wp, bp)
+    _check_tokens("crosspath_grams", x1, x2, s)
+    bsz, n, c = x1.shape
+    w, b = _halves(wp.to(x1.device), bp.to(x1.device), x1.dtype,
+                  _GRAM_PICKS)
+    tiles = math.ceil(n / _TILE)
+    per_image = max(1, min(tiles, math.ceil(4 * _sm_count(x1.device) / bsz)))
+    chunk = math.ceil(tiles / per_image) * _TILE
+    n_chunks = math.ceil(n / chunk)
+    partial = torch.empty((bsz, n_chunks, 3, c, c), dtype=torch.float32,
+                          device=x1.device)
+    out = torch.empty((bsz, 3, c, c), dtype=torch.float32, device=x1.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    with torch.cuda.device(x1.device):
+        err = lib.segmif_ffm_grams(
+            x1.data_ptr(), x2.data_ptr(), s.data_ptr(), w.data_ptr(),
+            b.data_ptr(), partial.data_ptr(), out.data_ptr(), bsz, n, chunk,
+            n_chunks, _build.DTYPE_CODES[x1.dtype], stream)
+    _build.check(err, "crosspath_grams")
+    crosspath_grams.launches += 1
+    return out
+
+
+crosspath_grams.launches = 0
+
+
+# ------------------------------------------------------------------ pass B
+
+def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
+    """Plain pass B. mats [B, 4, C, C]; be [2, C]; lnp [2, 2, C]
+    (LayerNorm (scale, bias) per output) -> (o1, o2) [B, N, C]."""
+    dt = x1.dtype
+    w, b = _halves(wp, bp, dt, _APPLY_PICKS)
+    y3 = _relu_proj(s, w[0], b[0])
+    u1 = _relu_proj(x1, w[1], b[1])
+    u2 = _relu_proj(x2, w[2], b[2])
+    m = mats.to(dt).float()
+    be = be.float()
+    lnp = lnp.float()
+    o1 = y3 @ m[:, 0] + u1 @ m[:, 1] + be[0]
+    o2 = y3 @ m[:, 2] + u2 @ m[:, 3] + be[1]
+    out1 = _layer_norm(x1.float() + o1, lnp[0, 0], lnp[0, 1])
+    out2 = _layer_norm(x2.float() + o2, lnp[1, 0], lnp[1, 1])
+    return out1.to(dt), out2.to(dt)
+
+
+def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
+    """Pass B. CPU tensors take the plain version; CUDA tensors launch
+    ``segmif_ffm_apply`` (token tiles of 64, up to 16 tiles a block)."""
+    if x1.device.type == "cpu":
+        return crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp)
+    if x1.device.type != "cuda":
+        raise ValueError(
+            f"crosspath_apply_rows: unsupported device {x1.device}")
+    _build.refuse_grad(x1, x2, s, wp, bp, mats, be, lnp)
+    _check_tokens("crosspath_apply_rows", x1, x2, s)
+    bsz, n, c = x1.shape
+    if mats.shape != (bsz, 4, c, c) or be.shape != (2, c) or \
+            lnp.shape != (2, 2, c):
+        raise ValueError("crosspath_apply_rows: mats/be/lnp shapes "
+                         f"{tuple(mats.shape)} {tuple(be.shape)} "
+                         f"{tuple(lnp.shape)}")
+    dev = x1.device
+    w, b = _halves(wp.to(dev), bp.to(dev), x1.dtype, _APPLY_PICKS)
+    m = mats.to(dev).to(x1.dtype).float().contiguous()
+    be = be.to(dev).float().contiguous()
+    lnp = lnp.to(dev).float().contiguous()
+    tiles = math.ceil(n / _TILE)
+    per_block = min(16, max(1, math.ceil(tiles * bsz
+                                         / (8 * _sm_count(dev)))))
+    o1 = torch.empty_like(x1)
+    o2 = torch.empty_like(x2)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.segmif_ffm_apply(
+            x1.data_ptr(), x2.data_ptr(), s.data_ptr(), w.data_ptr(),
+            b.data_ptr(), m.data_ptr(), be.data_ptr(), lnp.data_ptr(),
+            o1.data_ptr(), o2.data_ptr(), bsz, n, per_block * _TILE,
+            _build.DTYPE_CODES[x1.dtype], stream)
+    _build.check(err, "crosspath_apply_rows")
+    crosspath_apply_rows.launches += 1
+    return o1, o2
+
+
+crosspath_apply_rows.launches = 0
+
+
+# --------------------------------------------------------------- assembled
+
+def crosspath_fused(x1, x2, s, w: Dict, scale: float, num_heads: int):
+    """Two-pass CrossPath on [B, N, C] tokens: pass A grams, the tiny
+    context/fold step in plain torch, pass B."""
+    dim = x1.shape[-1]
+    wp = torch.stack([w["wp1"], w["wp2"], w["wp3"]])
+    bp = torch.stack([w["bp1"], w["bp2"], w["bp3"]])
+    grams = crosspath_grams(x1, x2, s, wp, bp)
+    bd_1 = linear_ctx_blockdiag_from_gram(grams[:, 0], w["wkv1"], scale,
+                                          num_heads)
+    bd_2 = linear_ctx_blockdiag_from_gram(grams[:, 1], w["wkv2"], scale,
+                                          num_heads)
+    bd_s = linear_ctx_blockdiag_from_gram(grams[:, 2], w["wkv3"], scale,
+                                          num_heads)
+    we1, we2 = w["we1"].float(), w["we2"].float()
+    mats = torch.stack([bd_1 @ we1[:dim], bd_s @ we1[dim:],
+                        bd_2 @ we2[:dim], bd_s @ we2[dim:]], 1)
+    be = torch.stack([w["be1"], w["be2"]]).float()
+    lnp = torch.stack([torch.stack([w["ln1_scale"], w["ln1_bias"]]),
+                       torch.stack([w["ln2_scale"], w["ln2_bias"]])]).float()
+    return crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp)
+
+
+def crosspath_apply(x1, x2, s, w: Dict, scale: float, num_heads: int):
+    """CPU tensors: ``crosspath_folded_ref``. CUDA tensors: the two
+    kernels (``crosspath_fused``); x1, x2, s must then be [B, N, 64]
+    contiguous token views."""
+    if x1.device.type == "cpu":
+        return crosspath_folded_ref(x1, x2, s, w, scale, num_heads)
+    return crosspath_fused(x1, x2, s, w, scale, num_heads)

@@ -1,0 +1,177 @@
+"""MiT (Mix Vision Transformer), the SegFormer encoder, in PyTorch
+(counterpart of ``segmif_tpu/models/mit.py``).
+
+Feature maps are NHWC and tokens [B, N, C] at the public surface, as in the
+JAX package; convs run on NCHW views of the same bytes (channels_last).
+Module names follow the reference state dict (``patch_embed1.proj``,
+``block1.0.attn.q``, ``block1.0.mlp.dwconv.dwconv``, ``norm1``, ...).
+Inference only: stochastic depth is the identity.
+
+ - GELU is exact (erf).
+ - LayerNorm eps: 1e-6 for block and stage norms, 1e-5 for the
+   patch-embed and sr norms.
+ - The depthwise 3x3 of Mix-FFN is a grouped conv.
+ - Attention goes through ``kernels.attention.sr_attention``: the CUDA
+   kernel on CUDA tensors, plain PyTorch on CPU tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.attention import sr_attention
+from ..ops.image import nchw, nhwc
+
+
+@dataclasses.dataclass(frozen=True)
+class MiTConfig:
+    embed_dims: Tuple[int, ...] = (64, 128, 320, 512)
+    depths: Tuple[int, ...] = (3, 4, 18, 3)
+    num_heads: Tuple[int, ...] = (1, 2, 5, 8)
+    sr_ratios: Tuple[int, ...] = (8, 4, 2, 1)
+    mlp_ratios: Tuple[int, ...] = (4, 4, 4, 4)
+    qkv_bias: bool = True
+    patch_sizes: Tuple[int, ...] = (7, 3, 3, 3)
+    strides: Tuple[int, ...] = (4, 2, 2, 2)
+
+
+MIT_VARIANTS = {
+    "mit_b0": MiTConfig(embed_dims=(32, 64, 160, 256), depths=(2, 2, 2, 2)),
+    "mit_b1": MiTConfig(depths=(2, 2, 2, 2)),
+    "mit_b2": MiTConfig(depths=(3, 4, 6, 3)),
+    "mit_b3": MiTConfig(depths=(3, 4, 18, 3)),
+    "mit_b4": MiTConfig(depths=(3, 8, 27, 3)),
+    "mit_b5": MiTConfig(depths=(3, 6, 40, 3)),
+}
+
+
+def _tokens_to_nchw(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return nchw(x.reshape(x.shape[0], h, w, x.shape[-1]))
+
+
+def _nchw_to_tokens(x: torch.Tensor) -> torch.Tensor:
+    b, c = x.shape[0], x.shape[1]
+    return nhwc(x).reshape(b, -1, c)
+
+
+class OverlapPatchEmbed(nn.Module):
+    """Strided overlapping conv patch embedding + LayerNorm over tokens."""
+
+    def __init__(self, in_chans: int, embed_dim: int, patch_size: int,
+                 stride: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride,
+                              padding=patch_size // 2)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor):
+        """x: NHWC -> (tokens [B, h*w, E], h, w)."""
+        y = self.proj(nchw(x))
+        h, w = y.shape[2], y.shape[3]
+        return self.norm(_nchw_to_tokens(y)), h, w
+
+
+class EfficientSelfAttention(nn.Module):
+    """Spatially-reduced self-attention: K/V from an sr-strided conv of the
+    token grid."""
+
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.scale = (dim // num_heads) ** -0.5
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        b, n, c = x.shape
+        heads = self.num_heads
+        q = self.q(x).unflatten(-1, (heads, c // heads))
+        xs = x
+        if self.sr_ratio > 1:
+            xs = self.norm(_nchw_to_tokens(self.sr(_tokens_to_nchw(x, h, w))))
+        kv = self.kv(xs)
+        k = kv[..., :c].unflatten(-1, (heads, c // heads))
+        v = kv[..., c:].unflatten(-1, (heads, c // heads))
+        out = sr_attention(q, k, v, self.scale)
+        return self.proj(out.reshape(b, n, c))
+
+
+class DWConv(nn.Module):
+    """Depthwise 3x3 'same' conv on a token grid."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 3, 1, 1, groups=dim)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        return _nchw_to_tokens(self.dwconv(_tokens_to_nchw(x, h, w)))
+
+
+class MixFFN(nn.Module):
+    """fc1 -> depthwise 3x3 conv -> GELU (exact) -> fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.dwconv = DWConv(hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        y = F.gelu(self.dwconv(self.fc1(x), h, w), approximate="none")
+        return self.fc2(y)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int,
+                 mlp_ratio: int, qkv_bias: bool):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = EfficientSelfAttention(dim, num_heads, sr_ratio, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = MixFFN(dim, dim * mlp_ratio)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), h, w)
+        return x + self.mlp(self.norm2(x), h, w)
+
+
+class MixVisionTransformer(nn.Module):
+    def __init__(self, config: MiTConfig, in_chans: int = 3):
+        super().__init__()
+        self.config = config
+        cin = in_chans
+        for i in range(4):
+            e = config.embed_dims[i]
+            setattr(self, f"patch_embed{i + 1}", OverlapPatchEmbed(
+                cin, e, config.patch_sizes[i], config.strides[i]))
+            setattr(self, f"block{i + 1}", nn.ModuleList(
+                Block(e, config.num_heads[i], config.sr_ratios[i],
+                      config.mlp_ratios[i], config.qkv_bias)
+                for _ in range(config.depths[i])))
+            setattr(self, f"norm{i + 1}", nn.LayerNorm(e, eps=1e-6))
+            cin = e
+
+    def forward(self, x: torch.Tensor, stages: int = 4) -> List[torch.Tensor]:
+        """x: NHWC image. Returns the first ``stages`` stage feature maps
+        (NHWC, at 1/4, 1/8, 1/16, 1/32 resolution). Stopping early skips
+        the later stages' work entirely."""
+        outs = []
+        b = x.shape[0]
+        for i in range(stages):
+            x, h, w = getattr(self, f"patch_embed{i + 1}")(x)
+            for blk in getattr(self, f"block{i + 1}"):
+                x = blk(x, h, w)
+            x = getattr(self, f"norm{i + 1}")(x)
+            x = x.reshape(b, h, w, x.shape[-1])
+            outs.append(x)
+        return outs
