@@ -12,15 +12,19 @@ line):
  3. build the hand-written kernels from segmif_tpu_torch/kernels/csrc
     (nvcc, sm_90a) and print the build time;
  4. hold each kernel against its plain PyTorch version at the main-path
-    shapes (mit_b3, 480x640, batch 8) in f32 and bf16, and time both;
+    shapes (mit_b3, 480x640, batch 8) in f32 and bf16, and time both; the
+    DRDB growth chain, tail and whole block (against ``drdb_chain``),
+    held per element, also at an odd 100x172, with the block's peak
+    device memory; at the odd shape, faults planted in the DRDB kernels'
+    biases must fail those checks;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
     pair) and static-guide mode; check the outputs and that every request
     launched the kernels (sr-attention 35 / 28 times, FFM grams and apply
-    twice each);
- 6. hold the batch-1 f32 pipeline on the card (kernels) against the same
-    weights on the CPU (plain versions);
+    twice each, DRDB growth and tail 4 times each);
+ 6. hold the batch-1 f32 pipeline on the card (kernels, the DRDB's
+    included) against the same weights on the CPU (plain versions);
  7. print pairs/s for both serving modes, timed with CUDA events.
 
 The line before the last is the kernels JSON; the last line is
@@ -57,6 +61,34 @@ APPLY_TOL = {  # absolute; LayerNorm outputs are below 8 in magnitude
     "float32": (1e-4, "f32 sums in another order, scaled by the "
                       "LayerNorm's 1/std"),
     "bfloat16": (6.25e-2, "two bf16 steps (2^-5) at magnitudes up to 8"),
+}
+# DRDB, per element: |got - ref| <= atol + rtol * (|ref| + |ref - x|),
+# the second term only for the tail and the block, whose output is x plus
+# a bottleneck term rounded on its own. (rtol, atol, why); the measured
+# worst cases are from the H100 at [8, 64, 480, 640], 4 seeds. A dropped
+# conv or tail bias (up to 0.04 and 0.067 at torch's init) exceeds every
+# bf16 limit; phase 4 plants such faults and checks that they fail.
+GROWTH_TOL = {
+    "float32": (1e-4, 1e-4, "f32 sums in other orders; cuDNN's f32 conv "
+                            "algorithms (measured up to 5e-6)"),
+    "bfloat16": (2 ** -7, 2 ** -7,
+                 "one bf16 step of the element (the kernel rounds "
+                 "conv + bias once, cuDNN rounds the conv, then adds the "
+                 "bias), plus earlier r's steps carried through the next "
+                 "conv (measured up to 3.9e-3)"),
+}
+TAIL_TOL = {
+    "float32": (1e-4, 1e-4, "f32 sums in another order (measured 0)"),
+    "bfloat16": (2 ** -7, 2 ** -10,
+                 "one bf16 step of the output and of the bottleneck term: "
+                 "both sides round the same f32 accumulator, summed in "
+                 "another order (measured 0)"),
+}
+BLOCK_TOL = {
+    "float32": (1e-4, 1e-4, "as the growth chain (measured up to 1.5e-6)"),
+    "bfloat16": (2 ** -7, 2 ** -6,
+                 "the tail's steps, plus the growth chain's steps carried "
+                 "through the bottleneck (measured up to 7.4e-3)"),
 }
 # batch-1 f32 pipeline, card vs CPU, relative to the reference's largest
 # magnitude: f32 sums in other orders through ~50 layers on two devices
@@ -190,6 +222,153 @@ def kernel_checks(dev):
     return res
 
 
+def drdb_inputs(gen, b, h, w, dtype, dev):
+    """x as the trunk holds it (an NCHW view on channels_last memory) and
+    the DRDB's weights at torch's default conv init."""
+    import torch
+
+    x = torch.randn((b, h, w, 64), generator=gen).to(dev, dtype)
+
+    def conv(o, i, k):
+        bound = (i * k * k) ** -0.5
+        wt = (torch.rand((o, i, k, k), generator=gen) * 2 - 1) * bound
+        bs = (torch.rand((o,), generator=gen) * 2 - 1) * bound
+        return wt.to(dev, dtype), bs.to(dev, dtype)
+
+    return (x.permute(0, 3, 1, 2), [conv(32, 64 + 32 * t, 3)
+                                    for t in range(5)], conv(64, 224, 1))
+
+
+def worst(got, want, tol, x=None):
+    """(largest |got - ref| / limit, largest |got - ref|) over every
+    element of a tensor or of a tuple of tensors, where limit = atol +
+    rtol * (|ref| + |ref - x|), the last term only when x is given."""
+    import torch
+
+    rtol, atol, _ = tol
+    gs, ws = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    ratio = err = 0.0
+    for g, e in zip(gs, ws):
+        d = (g.float() - e.float()).abs()
+        ref = e.float().abs()
+        if x is not None:
+            ref += (e.float() - x.float()).abs()
+        ratio = max(ratio, (d / (atol + rtol * ref)).max().item())
+        err = max(err, d.max().item())
+    return ratio, err
+
+
+def compare(label, kernel, plain, tol, timed, x=None):
+    """Run kernel() and plain() (a tensor or a tuple of tensors each),
+    hold every element to tol = (rtol, atol, why) as ``worst`` does,
+    print, and time both if asked. Returns (kernel output, largest error,
+    kernel ms, plain ms); the times are None when not timed."""
+    got, want = kernel(), plain()
+    ratio, err = worst(got, want, tol, x)
+    rtol, atol, why = tol
+    ms = pms = None
+    times = ""
+    if timed:
+        ms, pms = time_pair(kernel, plain)
+        times = f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+    print(f"{label}: max_abs_err {err:.3e}, worst error/limit {ratio:.3f} "
+          f"(atol {atol:g} + rtol {rtol:g} per element: {why}){times}",
+          flush=True)
+    check(ratio <= 1.0, f"{label} error {err} exceeds its limit")
+    return got, err, ms, pms
+
+
+def planted_faults(x, dconvs, wb, bb, tols, label):
+    """Run the kernels with a fault planted in their arguments (a dropped
+    conv 1 or conv 5 bias, a dropped or channel-shifted tail bias) against
+    the plain versions on the true arguments; each must fail the check."""
+    import torch
+
+    from segmif_tpu_torch.kernels.drdb import (drdb_growth, drdb_growth_ref,
+                                               drdb_tail, drdb_tail_ref)
+
+    def drop(t):
+        return [(w, torch.zeros_like(b) if i == t else b)
+                for i, (w, b) in enumerate(dconvs)]
+
+    ref = drdb_growth_ref(x, dconvs)
+    rs = drdb_growth(x, dconvs)   # the tail reads the kernel's buffer
+    tref = drdb_tail_ref(x, rs, wb, bb)
+    faults = (
+        ("conv 1 bias dropped", drdb_growth(x, drop(0)), ref, "growth", None),
+        ("conv 5 bias dropped", drdb_growth(x, drop(4)), ref, "growth", None),
+        ("tail bias dropped", drdb_tail(x, rs, wb, torch.zeros_like(bb)),
+         tref, "tail", x),
+        ("tail bias shifted one channel", drdb_tail(x, rs, wb, bb.roll(1)),
+         tref, "tail", x),
+    )
+    for name, got, want, which, resid in faults:
+        ratio, err = worst(got, want, tols[which], resid)
+        print(f"planted fault, {label}, {name}: max_abs_err {err:.3e}, "
+              f"worst error/limit {ratio:.3f} (the {which} check fails, as "
+              f"it must)", flush=True)
+        check(ratio > 1.0, f"{label}: the {which} check passes a kernel "
+                           f"run with the {name}")
+
+
+def drdb_checks(dev):
+    """Phase 4, DRDB. Returns {kernel: {max_abs_err, ms, plain_ms}} for
+    the growth chain and the tail (times: bf16 at the main-path shape)."""
+    import torch
+
+    from segmif_tpu_torch.kernels.drdb import (drdb_block, drdb_chain,
+                                               drdb_growth, drdb_growth_ref,
+                                               drdb_tail, drdb_tail_ref)
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+           for k in ("drdb_growth", "drdb_tail")}
+    for (b, h, w), timed in (((BATCH, H, W), True), ((2, 100, 172), False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x, dconvs, (wb, bb) = drdb_inputs(gen, b, h, w, dtype, dev)
+            shape = f"{dname} [{b}, 64, {h}, {w}]"
+            tols = {"growth": GROWTH_TOL[dname], "tail": TAIL_TOL[dname]}
+            rs, gerr, gms, gpms = compare(
+                f"drdb_growth {shape}", lambda: drdb_growth(x, dconvs),
+                lambda: drdb_growth_ref(x, dconvs), tols["growth"], timed)
+            # the tail reads the growth buffer's slices, as on the path
+            out, terr, tms, tpms = compare(
+                f"drdb_tail {shape}", lambda: drdb_tail(x, rs, wb, bb),
+                lambda: drdb_tail_ref(x, rs, wb, bb), tols["tail"], timed,
+                x)
+            check(out.is_contiguous(memory_format=torch.channels_last),
+                  "drdb_tail output is not channels_last")
+            for name, err, ms, pms in (("drdb_growth", gerr, gms, gpms),
+                                       ("drdb_tail", terr, tms, tpms)):
+                r = res[name]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if timed and dtype == torch.bfloat16:
+                    r.update(ms=ms, plain_ms=pms)
+            del rs, out
+            compare(f"drdb_block {shape} vs drdb_chain",
+                    lambda: drdb_block(x, dconvs, (wb, bb)),
+                    lambda: drdb_chain(x, dconvs, (wb, bb)),
+                    BLOCK_TOL[dname], timed, x)
+            if not timed:
+                planted_faults(x, dconvs, wb, bb, tols, shape)
+            if timed and dtype == torch.bfloat16:
+                for name, fn in (("drdb_block", drdb_block),
+                                 ("drdb_chain", drdb_chain)):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    y = fn(x, dconvs, (wb, bb))
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated(dev) - base
+                    print(f"{name} {shape}: peak device memory above its "
+                          f"input {peak / 2**20:.1f} MiB", flush=True)
+                    del y
+            del x, dconvs
+            torch.cuda.empty_cache()
+    return res
+
+
 def requests(gen, n_req, batch, dev):
     import torch
 
@@ -214,6 +393,7 @@ def main() -> int:
           f"segmif_tpu_torch imported from {pkg}, not from this checkout")
     from segmif_tpu_torch.kernels import _build
     from segmif_tpu_torch.kernels.attention import sr_attention
+    from segmif_tpu_torch.kernels.drdb import drdb_growth, drdb_tail
     from segmif_tpu_torch.kernels.ffm import (crosspath_apply_rows,
                                               crosspath_grams)
     from segmif_tpu_torch.models.network import JointPipeline, init_params
@@ -241,6 +421,8 @@ def main() -> int:
 
     # phase 4: kernels vs plain at main-path shapes
     kres = kernel_checks(dev)
+    with torch.inference_mode():
+        kres.update(drdb_checks(dev))
 
     # phase 6 first half: the CPU reference at batch 1, f32 (same weights)
     model = init_params(JointPipeline("mit_b3"),
@@ -270,15 +452,19 @@ def main() -> int:
 
     # phase 5: the main path, bf16 batch 8, both serving modes
     model.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
     reqs = requests(gen, REQUESTS, BATCH, dev)
     guide = torch.rand((BATCH, H, W, 3), generator=gen).to(dev)
     counters = {"sr_attention": sr_attention,
                 "ffm_grams": crosspath_grams,
-                "ffm_apply": crosspath_apply_rows}
+                "ffm_apply": crosspath_apply_rows,
+                "drdb_growth": drdb_growth,
+                "drdb_tail": drdb_tail}
     expect = {"default": {"sr_attention": 35, "ffm_grams": 2,
-                          "ffm_apply": 2},
+                          "ffm_apply": 2, "drdb_growth": 4, "drdb_tail": 4},
               "static_guide": {"sr_attention": 28, "ffm_grams": 2,
-                               "ffm_apply": 2}}
+                               "ffm_apply": 2, "drdb_growth": 4,
+                               "drdb_tail": 4}}
     serves = {"default": make_serving_fn(model),
               "static_guide": make_serving_fn(model, guide_rgb=guide)}
     totals = {k: 0 for k in counters}
@@ -322,7 +508,7 @@ def main() -> int:
         print(f"throughput {mode}: {BATCH * iters / sec:.3f} pairs/s "
               f"({1e3 * sec / iters:.2f} ms per batch of {BATCH}, bf16, "
               f"{H}x{W}, mit_b3)", flush=True)
-    print(f"peak device memory: "
+    print(f"peak device memory, serving (phases 5 and 7): "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
           flush=True)
 
@@ -332,6 +518,10 @@ def main() -> int:
                          "segmif_tpu/kernels/pallas_attention.py:59"),
         "ffm_grams": (src + "ffm.cu", "segmif_tpu/kernels/pallas_ffm.py:231"),
         "ffm_apply": (src + "ffm.cu", "segmif_tpu/kernels/pallas_ffm.py:304"),
+        "drdb_growth": (src + "drdb.cu",
+                        "segmif_tpu/kernels/pallas_drdb.py:211"),
+        "drdb_tail": (src + "drdb.cu",
+                      "segmif_tpu/kernels/pallas_drdb_tail.py:66"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

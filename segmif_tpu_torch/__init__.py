@@ -8,7 +8,8 @@ Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
    ``kernels/csrc/sr_attention.cu`` on CUDA tensors, plain PyTorch on CPU.
  - ``kernels.ffm``: the folded CrossPath (feature-fusion module) as a
    grams pass and an apply pass, CUDA kernels in ``kernels/csrc/ffm.cu``.
- - ``kernels.drdb``: the dilated residual dense block (plain convs).
+ - ``kernels.drdb``: the dilated residual dense block; CUDA kernels
+   ``kernels/csrc/drdb.cu`` (growth chain, concat-free tail).
  - ``models``: MiT encoder, SegFormer head, fusion network, and the joint
    fuse-then-segment pipeline, with the reference PyTorch state-dict keys.
  - ``convert``: JAX ``JointPipeline`` variables (numpy) -> ``state_dict``.

@@ -1,8 +1,9 @@
 """First-use build of the CUDA kernels in ``kernels/csrc``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
-plain C interface, loaded with ``ctypes``. The library lives in
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), all started together, and the
+objects are linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``. The library lives in
 ``kernels/build/<hash>/`` where the hash covers the sources and the
 compiler flags, so an edited source rebuilds and an unchanged one is reused
 within a checkout. The build is written under a temporary name and renamed
@@ -31,8 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-lineinfo"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-lineinfo"]
 LIB_NAME = "libsegmif_kernels.so"
 
 _vp = ctypes.c_void_p
@@ -58,6 +59,13 @@ SIGNATURES = {
                          _vp, _vp, _vp,                    # mats be lnp
                          _vp, _vp,                         # o1 o2
                          _i32, _i32, _i32,                 # B N chunk
+                         _i32, _vp],                       # dtype stream
+    "segmif_drdb_growth": [_vp, _i64, _vp, _vp, _vp,       # x x_ps rs w b
+                           _i32, _i32, _i32,               # B H W
+                           _i32, _vp],                     # dtype stream
+    "segmif_drdb_tail": [_vp, _i64,                        # x x_ps
+                         _vp, _vp, _vp, _vp, _vp, _i64,    # r1..r5 r_ps
+                         _vp, _vp, _vp, _i64,              # wb bb out npix
                          _i32, _vp],                       # dtype stream
 }
 
@@ -108,14 +116,30 @@ def compile_library(extra_flags: Optional[List[str]] = None) -> tuple:
     if lib_path.exists():
         return lib_path, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc] + NVCC_FLAGS + extra + ["-o", str(tmp)] + \
-        [str(p) for p in sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
+    procs = []
+    for src in sources():   # nvcc reads the file type from the suffix
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc] + NVCC_FLAGS + extra + ["-c", "-o", str(obj), str(src)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", False
+    for cmd, _, proc in procs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        failed |= proc.returncode != 0
+    if not failed:
+        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)] + \
+            [str(obj) for _, obj, _ in procs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        failed = proc.returncode != 0
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text(log)
+    if failed:
+        raise KernelBuildError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib_path)
     return lib_path, log
 

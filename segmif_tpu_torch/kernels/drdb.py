@@ -1,10 +1,22 @@
 """The dilated residual dense block (DRDB), counterpart of
-``segmif_tpu/kernels/pallas_drdb.py::drdb_xla``.
+``segmif_tpu/kernels/pallas_drdb.py`` and ``pallas_drdb_tail.py``.
 
-Five dilated (2) 3x3 convs with dense concat growth, a 1x1 bottleneck and
-a residual: the plain conv chain, as the JAX default runs it. The TPU's
-whole-block and tail kernels (``drdb_pallas``, ``drdb_tail_pallas``) are
-still to be ported; their Hopper kernel lands here.
+Five dilated (2) 3x3 convs with dense growth (+32 channels each), a 1x1
+bottleneck, relu and a residual. Activations are NCHW views on
+channels_last memory (the fusion trunk's layout); weights are the
+``nn.Conv2d`` OIHW tensors.
+
+ - ``drdb_chain``: the plain conv chain with ``torch.cat`` growth (the
+   JAX default ``drdb_xla``).
+ - ``drdb_growth_ref`` / ``drdb_tail_ref``: the plain growth chain
+   (r1..r5, counterpart of ``_growth_rs(..., dil=2)``) and the plain tail
+   (``_tail_xla``).
+ - ``drdb_growth`` / ``drdb_tail``: CUDA kernels in ``csrc/drdb.cu`` on
+   CUDA tensors (replacing the TPU kernels ``_drdb_pallas_impl`` and
+   ``_tail_impl``), the plain versions on CPU tensors. The growth kernel
+   writes r1..r5 into one [B, H, W, 160] buffer; the tail reads x and
+   the buffer's slices through their strides, so no concat exists.
+ - ``drdb_block``: growth then tail; what ``DRDB.forward`` runs.
 """
 from __future__ import annotations
 
@@ -13,7 +25,14 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 Conv = Tuple[torch.Tensor, torch.Tensor]   # (OIHW weight, bias)
+
+C = 64          # trunk channels
+G = 32          # growth per conv
+NCONV = 5
+KC = 32         # input channels per chunk the growth kernel stages
 
 
 def drdb_chain(x: torch.Tensor, dconvs: Sequence[Conv],
@@ -25,3 +44,173 @@ def drdb_chain(x: torch.Tensor, dconvs: Sequence[Conv],
         feat = torch.cat([feat, torch.relu(y)], dim=1)
     w, b = bottleneck
     return x + torch.relu(F.conv2d(feat, w, b))
+
+
+def drdb_growth_ref(x: torch.Tensor,
+                    dconvs: Sequence[Conv]) -> Tuple[torch.Tensor, ...]:
+    """Plain growth chain: r_t = relu(conv_t([x, r1..r_{t-1}])), each
+    conv's output (bias included) in x's dtype. Returns (r1..r5), each
+    [B, 32, H, W]."""
+    rs = []
+    for w, b in dconvs:
+        feat = torch.cat([x, *rs], dim=1)
+        rs.append(torch.relu(F.conv2d(feat, w, b, padding=2, dilation=2)))
+    return tuple(rs)
+
+
+def drdb_tail_ref(x: torch.Tensor, rs: Sequence[torch.Tensor],
+                  wb: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """Plain tail: the 1x1 bottleneck over [x, r1..r5] rounded to x's
+    dtype, then bias, relu and the residual in that dtype. wb: [64, 224,
+    1, 1]; bb: [64]."""
+    y = F.conv2d(torch.cat([x, *rs], dim=1), wb)
+    return x + torch.relu(y + bb.to(x.dtype)[:, None, None])
+
+
+def _pixel_stride(t: torch.Tensor, channels: int, what: str) -> int:
+    """The element stride between pixels of an NCHW view whose channels
+    are contiguous and whose pixels are evenly spaced (channels_last
+    memory, or a channel slice of it). Raises on any other layout."""
+    if t.dim() != 4 or t.shape[1] != channels:
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"[B, {channels}, H, W]")
+    b, c, h, w = t.shape
+    ps = t.stride(3)
+    want = (h * w * ps, 1, w * ps, ps)
+    if any(n > 1 and s != e for n, s, e in zip(t.shape, t.stride(), want)):
+        raise ValueError(
+            f"{what}: strides {t.stride()}; the kernel reads channels_last "
+            f"memory with contiguous channels, expected {want}")
+    if ps < channels or (ps * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(f"{what}: pixel stride {ps} or address not "
+                         "16-byte aligned")
+    return ps
+
+
+def _check_dtype_device(x: torch.Tensor, ts: Sequence[torch.Tensor],
+                        what: str) -> None:
+    if x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{what}: dtype {x.dtype}; the kernel takes f32 "
+                         "or bf16")
+    for t in ts:
+        if t.dtype != x.dtype:
+            raise ValueError(f"{what}: dtypes {x.dtype} and {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
+
+
+def pack_growth_weights(dconvs: Sequence[Conv],
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The five convs' OIHW weights, per 32-channel input chunk, as the
+    growth kernel stages them: [chunk][tap][n][k] for bf16 (the mma B
+    operand) and [chunk][tap][k][n] for f32. Flat, 20 chunks of
+    9 x 32 x 32."""
+    parts = []
+    for w, _ in dconvs:
+        o, cin = w.shape[:2]
+        wk = w.to(dtype).reshape(o, cin // KC, KC, 9)   # [n, chunk, k, tap]
+        order = (1, 3, 0, 2) if dtype == torch.bfloat16 else (1, 3, 2, 0)
+        parts.append(wk.permute(*order).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
+def pack_tail_weights(wb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The bottleneck [64, 224, 1, 1] as the tail kernel stages it:
+    [n][k] for bf16, [k][n] for f32."""
+    w = wb.to(dtype).reshape(wb.shape[0], wb.shape[1])
+    return (w if dtype == torch.bfloat16 else w.t()).contiguous()
+
+
+def drdb_growth(x: torch.Tensor,
+                dconvs: Sequence[Conv]) -> Tuple[torch.Tensor, ...]:
+    """x: [B, 64, H, W] -> (r1..r5), each [B, 32, H, W].
+
+    CPU tensors take ``drdb_growth_ref``. CUDA tensors launch the growth
+    kernel five times (one wrapper call, one count); the r_t are channel
+    slices of one channels_last [B, H, W, 160] buffer."""
+    if x.device.type == "cpu":
+        return drdb_growth_ref(x, dconvs)
+    if x.device.type != "cuda":
+        raise ValueError(f"drdb_growth: unsupported device {x.device}")
+    ws = [t for wb in dconvs for t in wb]
+    _build.refuse_grad(x, *ws)
+    if len(dconvs) != NCONV:
+        raise ValueError(f"drdb_growth: {len(dconvs)} convs, expected 5")
+    for t, (w, b) in enumerate(dconvs):
+        if w.shape != (G, C + G * t, 3, 3) or b.shape != (G,):
+            raise ValueError(f"drdb_growth: conv {t + 1} weight "
+                             f"{tuple(w.shape)} bias {tuple(b.shape)}")
+    _check_dtype_device(x, ws, "drdb_growth")
+    x_ps = _pixel_stride(x, C, "drdb_growth x")
+    bsz, _, h, w_ = x.shape
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        wpk = pack_growth_weights(dconvs, x.dtype)
+        bias = torch.cat([b for _, b in dconvs]).float().contiguous()
+        buf = torch.empty((bsz, h, w_, G * NCONV), dtype=x.dtype,
+                          device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.segmif_drdb_growth(
+            x.data_ptr(), x_ps, buf.data_ptr(), wpk.data_ptr(),
+            bias.data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "drdb_growth")
+    drdb_growth.launches += 1
+    view = buf.permute(0, 3, 1, 2)
+    return tuple(view[:, G * t:G * (t + 1)] for t in range(NCONV))
+
+
+drdb_growth.launches = 0
+
+
+def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
+              bb: torch.Tensor) -> torch.Tensor:
+    """x: [B, 64, H, W]; rs: five [B, 32, H, W]; wb: [64, 224, 1, 1];
+    bb: [64] -> x + relu(bottleneck([x, r1..r5]) + bb), [B, 64, H, W].
+
+    CPU tensors take ``drdb_tail_ref``. CUDA tensors launch the tail
+    kernel, which reads x and each r_i through its strides (channels_last
+    memory, the r_i sharing one pixel stride) and writes a channels_last
+    output."""
+    if x.device.type == "cpu":
+        return drdb_tail_ref(x, rs, wb, bb)
+    if x.device.type != "cuda":
+        raise ValueError(f"drdb_tail: unsupported device {x.device}")
+    _build.refuse_grad(x, *rs, wb, bb)
+    if len(rs) != NCONV:
+        raise ValueError(f"drdb_tail: {len(rs)} growth tensors, expected 5")
+    if wb.shape != (C, C + G * NCONV, 1, 1) or bb.shape != (C,):
+        raise ValueError(f"drdb_tail: bottleneck {tuple(wb.shape)} bias "
+                         f"{tuple(bb.shape)}")
+    _check_dtype_device(x, [*rs, wb, bb], "drdb_tail")
+    x_ps = _pixel_stride(x, C, "drdb_tail x")
+    r_ps = {_pixel_stride(r, G, f"drdb_tail r{i + 1}")
+            for i, r in enumerate(rs)}
+    if len(r_ps) != 1 or any(r.shape[0:1] + r.shape[2:] !=
+                             x.shape[0:1] + x.shape[2:] for r in rs):
+        raise ValueError("drdb_tail: r1..r5 must match x's B, H, W and "
+                         "share one pixel stride")
+    bsz, _, h, w_ = x.shape
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        wpk = pack_tail_weights(wb, x.dtype)
+        bias = bb.float().contiguous()
+        out = torch.empty_like(x, memory_format=torch.channels_last)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.segmif_drdb_tail(
+            x.data_ptr(), x_ps, *(r.data_ptr() for r in rs), r_ps.pop(),
+            wpk.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz * h * w_,
+            _build.DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "drdb_tail")
+    drdb_tail.launches += 1
+    return out
+
+
+drdb_tail.launches = 0
+
+
+def drdb_block(x: torch.Tensor, dconvs: Sequence[Conv],
+               bottleneck: Conv) -> torch.Tensor:
+    """The whole DRDB: ``drdb_growth`` then ``drdb_tail``, each the
+    kernel on a CUDA tensor and the plain version on a CPU tensor.
+    x: [B, 64, H, W] -> same shape (channels_last on the card)."""
+    return drdb_tail(x, drdb_growth(x, dconvs), *bottleneck)

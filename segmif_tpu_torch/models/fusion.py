@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.drdb import drdb_chain
+from ..kernels.drdb import drdb_block
 from ..kernels.ffm import crosspath_apply
 from ..ops.image import nchw, nhwc
 
@@ -38,7 +38,9 @@ _CL = torch.channels_last
 
 class DRDB(nn.Module):
     """Dilated residual dense block: 5 dilated(2) 3x3 convs with dense
-    concat growth, 1x1 bottleneck, residual add."""
+    concat growth, 1x1 bottleneck, residual add. On the card it runs the
+    growth and tail kernels (``kernels.drdb.drdb_block``) and returns
+    channels_last memory, which the FFM's token view relies on."""
 
     def __init__(self, channels: int = 64, growth_rate: int = 32):
         super().__init__()
@@ -50,7 +52,7 @@ class DRDB(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [getattr(self, f"Dcov{i + 1}") for i in range(5)]
-        return drdb_chain(x, [(c.weight, c.bias) for c in convs],
+        return drdb_block(x, [(c.weight, c.bias) for c in convs],
                           (self.conv.weight, self.conv.bias))
 
 

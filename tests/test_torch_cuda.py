@@ -14,13 +14,33 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    its last bits, so they can be one bf16 step apart: 1.6e-2 for attention
    outputs below 4 (2^-6), 6.25e-2 for LayerNorm outputs below 8 (two
    steps of 2^-5); grams of bf16-rounded activations 1e-3 relative.
+ - DRDB, per element: |got - ref| <= atol + rtol * (|ref| + |ref - x|),
+   the last term only for the tail and the block, whose output is x plus
+   a bottleneck term rounded on its own. f32: 1e-4 and 1e-4, for sums in
+   other orders and cuDNN's f32 algorithms. bf16, rtol one bf16 step
+   (2^-7): the growth chain with atol 2^-7 (the kernel rounds conv + bias
+   once, cuDNN rounds the conv, then adds the bias; earlier r's steps
+   carry through the next conv, up to 3.9e-3 measured on the H100 at the
+   main-path shape), the tail with atol 2^-10 (both sides round the same
+   f32 accumulator; measured 0), the block with atol 2^-6 (the growth
+   chain's steps through the bottleneck, up to 7.4e-3 measured). A
+   dropped or shifted bias exceeds them: test_drdb_check_catches_a_fault.
 """
 import numpy as np
 import pytest
 import torch
 
 from segmif_tpu_torch.kernels import _build
+from segmif_tpu_torch.kernels import drdb as kdrdb
 from segmif_tpu_torch.kernels.attention import sr_attention, sr_attention_ref
+from segmif_tpu_torch.kernels.drdb import (
+    drdb_block,
+    drdb_chain,
+    drdb_growth,
+    drdb_growth_ref,
+    drdb_tail,
+    drdb_tail_ref,
+)
 from segmif_tpu_torch.kernels.ffm import (
     crosspath_apply_rows,
     crosspath_apply_rows_ref,
@@ -35,6 +55,10 @@ pytestmark = pytest.mark.cuda
 SR_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
 APPLY_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 GRAM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# DRDB (rtol, atol) per element
+GROWTH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
+TAIL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -10)}
+BLOCK_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -6)}
 
 
 @pytest.fixture
@@ -184,11 +208,154 @@ def test_crosspath_fused_matches_folded_plain(cuda):
     assert _max_err(o1, r1) <= 1e-4 and _max_err(o2, r2) <= 1e-4
 
 
+def _drdb_inputs(gen, b, h, w, dtype, device):
+    """x as the trunk holds it (an NCHW view on channels_last memory) and
+    the DRDB's weights at torch's default conv init."""
+    x = _randn(gen, (b, h, w, 64), dtype, device).permute(0, 3, 1, 2)
+
+    def conv(o, i, k):
+        bound = (i * k * k) ** -0.5
+        wt = (torch.rand((o, i, k, k), generator=gen) * 2 - 1) * bound
+        bs = (torch.rand((o,), generator=gen) * 2 - 1) * bound
+        return wt.to(device, dtype), bs.to(device, dtype)
+
+    dconvs = [conv(32, 64 + 32 * t, 3) for t in range(5)]
+    return x, dconvs, conv(64, 224, 1)
+
+
+def _within(got, want, tol, x=None):
+    """Every element within atol + rtol * (|ref| + |ref - x|), the last
+    term only when x is given."""
+    rtol, atol = tol
+    ref = want.float().abs()
+    if x is not None:
+        ref += (want.float() - x.float()).abs()
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * ref).all())
+
+
+DRDB_SHAPES = [(8, 480, 640), (2, 100, 172), (1, 5, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", DRDB_SHAPES)
+def test_drdb_growth_kernel_matches_plain(cuda, dtype, b, h, w):
+    x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(8), b, h, w,
+                                dtype, cuda)
+    with torch.inference_mode():
+        got = drdb_growth(x, dconvs)
+        want = drdb_growth_ref(x, dconvs)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == (b, 32, h, w) and g.dtype == dtype
+        assert _within(g, e, GROWTH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", DRDB_SHAPES)
+def test_drdb_tail_kernel_matches_plain(cuda, dtype, b, h, w):
+    gen = torch.Generator().manual_seed(9)
+    x, _, (wb, bb) = _drdb_inputs(gen, b, h, w, dtype, cuda)
+    # r1..r5 as slices of one [B, H, W, 160] buffer, as the growth
+    # kernel leaves them
+    buf = torch.relu(_randn(gen, (b, h, w, 160), dtype, cuda))
+    rs = [buf.permute(0, 3, 1, 2)[:, 32 * i:32 * (i + 1)] for i in range(5)]
+    with torch.inference_mode():
+        got = drdb_tail(x, rs, wb, bb)
+        want = drdb_tail_ref(x, rs, wb, bb)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _within(got, want, TAIL_TOL[dtype], x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", DRDB_SHAPES)
+def test_drdb_block_matches_chain(cuda, dtype, b, h, w):
+    x, dconvs, bottleneck = _drdb_inputs(torch.Generator().manual_seed(10),
+                                         b, h, w, dtype, cuda)
+    with torch.inference_mode():
+        got = drdb_block(x, dconvs, bottleneck)
+        want = drdb_chain(x, dconvs, bottleneck)
+    torch.cuda.synchronize()
+    assert _within(got, want, BLOCK_TOL[dtype], x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", ["conv1_bias", "conv5_bias", "tail_bias",
+                                   "tail_bias_shifted"])
+def test_drdb_check_catches_a_fault(cuda, dtype, fault):
+    """The kernels run with a fault planted in their arguments fail the
+    tolerances above against the plain versions on the true arguments."""
+    x, dconvs, (wb, bb) = _drdb_inputs(torch.Generator().manual_seed(12),
+                                       2, 100, 172, dtype, cuda)
+    with torch.inference_mode():
+        if fault.startswith("conv"):
+            t = int(fault[4]) - 1
+            bad = [(w, torch.zeros_like(b) if i == t else b)
+                   for i, (w, b) in enumerate(dconvs)]
+            got, want, tol, resid = (drdb_growth(x, bad)[t],
+                                     drdb_growth_ref(x, dconvs)[t],
+                                     GROWTH_TOL[dtype], None)
+        else:
+            rs = drdb_growth(x, dconvs)   # slices of the kernel's buffer
+            bad = bb.roll(1) if fault.endswith("shifted") else bb * 0
+            got, want, tol, resid = (drdb_tail(x, rs, wb, bad),
+                                     drdb_tail_ref(x, rs, wb, bb),
+                                     TAIL_TOL[dtype], x)
+    torch.cuda.synchronize()
+    assert not _within(got, want, tol, resid)
+
+
+def test_drdb_forward_on_card_never_runs_the_chain(cuda, monkeypatch):
+    """DRDB.forward on a CUDA tensor goes through the two kernels (one
+    growth and one tail launch) and never through a plain version."""
+    from segmif_tpu_torch.models.fusion import DRDB
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain DRDB version ran on the card")
+
+    for name in ("drdb_chain", "drdb_growth_ref", "drdb_tail_ref"):
+        monkeypatch.setattr(kdrdb, name, refuse)
+    block = DRDB().to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.rand((2, 64, 24, 40), device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    drdb_growth.launches = drdb_tail.launches = 0
+    with torch.inference_mode():
+        y = block(x)
+    torch.cuda.synchronize()
+    assert (drdb_growth.launches, drdb_tail.launches) == (1, 1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_drdb_refuses_what_it_does_not_take(cuda):
+    x, dconvs, (wb, bb) = _drdb_inputs(torch.Generator().manual_seed(11),
+                                       1, 8, 8, torch.float32, cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="strides"):
+            drdb_growth(x.contiguous(), dconvs)      # NCHW memory
+        with pytest.raises(ValueError, match="dtype"):
+            drdb_growth(x.half(), [(w.half(), b.half()) for w, b in dconvs])
+        with pytest.raises(ValueError, match="dtypes"):
+            drdb_growth(x.bfloat16(), dconvs)
+        rs = drdb_growth(x, dconvs)
+        with pytest.raises(ValueError, match="bottleneck"):
+            drdb_tail(x, rs, wb[:, :192], bb)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        drdb_growth(xg, dconvs)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        drdb_tail(xg, [r.clone() for r in rs], wb, bb)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        drdb_block(x, [(w.requires_grad_(True), b) for w, b in dconvs],
+                   (wb, bb))
+
+
 def test_pipeline_on_card_matches_cpu(cuda):
     """mit_b0 JointPipeline, f32, 64x64: the card (kernels) against the
     same weights on the CPU (plain versions); the counters show the
     kernels ran: 4 guide-pass blocks (stages 1-2) and 8 seg-pass blocks,
-    2 FFM rounds."""
+    2 FFM rounds, 4 DRDBs."""
     from segmif_tpu_torch.models.network import JointPipeline, init_params
     from segmif_tpu_torch.serving import make_serving_fn
 
@@ -200,13 +367,14 @@ def test_pipeline_on_card_matches_cpu(cuda):
     with torch.inference_mode():
         want_rgb, want_y, want_logits = model(ir, vis)
     model.to(cuda)
-    counters = (sr_attention, crosspath_grams, crosspath_apply_rows)
+    counters = (sr_attention, crosspath_grams, crosspath_apply_rows,
+                drdb_growth, drdb_tail)
     for fn in counters:
         fn.launches = 0
     with torch.inference_mode():
         rgb, y, logits = model(ir.to(cuda), vis.to(cuda))
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counters] == [12, 2, 2]
+    assert [fn.launches for fn in counters] == [12, 2, 2, 4, 4]
     # f32 on both devices, sums in other orders: relative to the output
     # scale (the JAX initialisers give fused Y values of order 10)
     assert _max_err(y.cpu(), want_y) <= 1e-4 * want_y.abs().max().item()

@@ -10,11 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from segmif_tpu.kernels import pallas_attention as pa
+from segmif_tpu.kernels import pallas_drdb as pd
+from segmif_tpu.kernels import pallas_drdb_tail as pdt
 from segmif_tpu.kernels import pallas_ffm as pf
 from segmif_tpu.kernels.pallas_drdb import drdb_xla
 from segmif_tpu_torch.convert import _conv
+from segmif_tpu_torch.kernels import drdb as tdrdb
 from segmif_tpu_torch.kernels import ffm as tffm
 from segmif_tpu_torch.kernels.attention import sr_attention
 from segmif_tpu_torch.kernels.drdb import drdb_chain
@@ -147,9 +151,9 @@ def test_crosspath_fused_assembly_matches_xla():
     np.testing.assert_allclose(g2.numpy(), np.asarray(e2), atol=3e-5)
 
 
-def test_drdb_chain_matches_xla():
-    rng = np.random.default_rng(5)
-    x = rng.uniform(0, 1, (2, 16, 20, C)).astype(np.float32)
+def _drdb_params(rng):
+    """JAX-layout DRDB params (HWIO kernels), f32, at a scale that keeps
+    activations of order 1."""
     w = {}
     cin = C
     for i in range(5):
@@ -162,20 +166,162 @@ def test_drdb_chain_matches_xla():
         "kernel": rng.standard_normal((1, 1, cin, C)).astype(np.float32)
         * np.float32(np.sqrt(2 / C)),
         "bias": (0.1 * rng.standard_normal(C)).astype(np.float32)}
-    expect = drdb_xla(jnp.asarray(x), {k: {kk: jnp.asarray(vv) for kk, vv
-                                           in v.items()}
-                                       for k, v in w.items()})
+    return w
 
+
+def _jax_tree(w):
+    return {k: {kk: jnp.asarray(vv) for kk, vv in v.items()}
+            for k, v in w.items()}
+
+
+def _port_convs(w):
+    """(five (OIHW weight, bias)), (bottleneck weight, bias)."""
     def conv(p):
         sd = {}
         _conv(p, "", sd)
         return sd["weight"], sd["bias"]
 
-    got = drdb_chain(_t(x).permute(0, 3, 1, 2),
-                     [conv(w[f"dconv{i + 1}"]) for i in range(5)],
-                     conv(w["bottleneck"]))
+    return ([conv(w[f"dconv{i + 1}"]) for i in range(5)],
+            conv(w["bottleneck"]))
+
+
+def _nchw(a):
+    """NHWC numpy -> NCHW view on channels_last memory (the trunk's)."""
+    return _t(a).permute(0, 3, 1, 2)
+
+
+def test_drdb_chain_matches_xla():
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0, 1, (2, 16, 20, C)).astype(np.float32)
+    w = _drdb_params(rng)
+    expect = drdb_xla(jnp.asarray(x), _jax_tree(w))
+    dconvs, bottleneck = _port_convs(w)
+    got = drdb_chain(_nchw(x), dconvs, bottleneck)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(expect), atol=3e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 20), (1, 9, 13)])
+def test_drdb_growth_ref_matches_grouped_chain(shape):
+    """The plain growth chain r1..r5 against the JAX package's grouped-wide
+    formulation ``_growth_rs(..., dil=2)`` (conv-over-concat as per-source
+    wide convs). f32; 3e-5 absolute plus 1e-5 relative: sums of up to
+    9 x 192 products in another order, and r4, r5 grow to about 10 under
+    these fan-out-scaled weights."""
+    rng = np.random.default_rng(6)
+    x = rng.uniform(0, 1, shape + (C,)).astype(np.float32)
+    w = _drdb_params(rng)
+    jw = _jax_tree(w)
+    expect = pd._growth_rs(
+        jnp.asarray(x), [jw[f"dconv{i + 1}"]["kernel"] for i in range(5)],
+        [jw[f"dconv{i + 1}"]["bias"] for i in range(5)], None, dil=2)
+    dconvs, _ = _port_convs(w)
+    got = tdrdb.drdb_growth(_nchw(x), dconvs)   # CPU: the plain version
+    assert len(got) == 5
+    for g, e in zip(got, expect):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(e), rtol=1e-5, atol=3e-5)
+
+
+def test_drdb_tail_ref_matches_pallas_tail(monkeypatch):
+    """The plain tail against the TPU kernel ``_tail_impl`` in interpret
+    mode (it needs S*R*W divisible by 4096). f32; 1e-5: sums of 224
+    products in another order, outputs of order 1."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((1, 64, 64, C)).astype(np.float32)
+    rs = [np.maximum(rng.standard_normal((1, 64, 64, 32)), 0
+                     ).astype(np.float32) for _ in range(5)]
+    w = _drdb_params(rng)["bottleneck"]
+    _interpret(monkeypatch, pdt)
+    expect = pdt._tail_impl(jnp.asarray(x), [jnp.asarray(r) for r in rs],
+                            jnp.asarray(w["kernel"][0, 0]),
+                            jnp.asarray(w["bias"]))
+    _, (wb, bb) = _port_convs({"bottleneck": w, **{
+        f"dconv{i + 1}": w for i in range(5)}})
+    got = tdrdb.drdb_tail(_nchw(x), [_nchw(r) for r in rs], wb, bb)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(expect), atol=1e-5)
+
+
+def test_drdb_block_matches_pallas_drdb(monkeypatch):
+    """The whole plain DRDB (``drdb_block`` on the CPU: growth then tail)
+    against the TPU whole-block kernel ``_drdb_pallas_impl`` in interpret
+    mode, at a shape below one 96x128 tile (padded and masked at the true
+    image border). f32; 3e-5 as the chain's test."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 1, (2, 40, 48, C)).astype(np.float32)
+    w = _drdb_params(rng)
+    _interpret(monkeypatch, pd)
+    expect = pd._drdb_pallas_impl(jnp.asarray(x), _jax_tree(w))
+    dconvs, bottleneck = _port_convs(w)
+    got = tdrdb.drdb_block(_nchw(x), dconvs, bottleneck)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(expect), atol=3e-5)
+
+
+def _bf16_exact(t):
+    """Round to bf16 values held in f32, so a bf16 packing is lossless."""
+    return t.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
+    """The growth kernel's schedule, written out in torch: per conv, per
+    32-channel input chunk and per tap, the zero-padded input window times
+    that chunk's packed [32, 32] weights. Holds ``pack_growth_weights``'
+    layouts ([tap][n][k] for bf16, [tap][k][n] for f32) to the plain chain
+    (f32 arithmetic on bf16-exact weights; 3e-5 as above)."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.uniform(0, 1, (1, 11, 14, C)).astype(np.float32))
+    dconvs, _ = _port_convs(_drdb_params(rng))
+    dconvs = [(_bf16_exact(w), b) for w, b in dconvs]
+    wpk = tdrdb.pack_growth_weights(dconvs, dtype).float()
+    assert wpk.numel() == 20 * 9 * 32 * 32
+    bias = torch.cat([b for _, b in dconvs])
+    feat, off, got = x, 0, []
+    h, wd = x.shape[1:3]
+    for t in range(5):
+        xp = F.pad(feat, (0, 0, 2, 2, 2, 2))
+        acc = torch.zeros(x.shape[:3] + (32,))
+        for c in range(2 + t):
+            wc = wpk[off:off + 9 * 32 * 32].reshape(9, 32, 32)
+            off += 9 * 32 * 32
+            if dtype == torch.bfloat16:
+                wc = wc.transpose(1, 2)                   # -> [tap][k][n]
+            for tap in range(9):
+                ky, kx = divmod(tap, 3)
+                win = xp[:, 2 * ky:2 * ky + h, 2 * kx:2 * kx + wd,
+                         32 * c:32 * c + 32]
+                acc += win @ wc[tap]
+        r = torch.relu(acc + bias[32 * t:32 * t + 32])
+        got.append(r)
+        feat = torch.cat([feat, r], -1)
+    want = tdrdb.drdb_growth_ref(x.permute(0, 3, 1, 2), dconvs)
+    for g, e in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), e.permute(0, 2, 3, 1).numpy(),
+                                   atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_drdb_tail_packing_as_the_kernel_reads_it(dtype):
+    """The tail kernel's product: the [pixels, 224] rows of x and r1..r5
+    side by side times the packed bottleneck ([n][k] for bf16, [k][n] for
+    f32), bias, relu, residual; against the plain tail (1e-5)."""
+    rng = np.random.default_rng(10)
+    x = _t(rng.standard_normal((2, 5, 7, C)).astype(np.float32))
+    rs = [torch.relu(_t(rng.standard_normal((2, 5, 7, 32)
+                                            ).astype(np.float32)))
+          for _ in range(5)]
+    _, (wb, bb) = _port_convs(_drdb_params(rng))
+    wb = _bf16_exact(wb)
+    wpk = tdrdb.pack_tail_weights(wb, dtype).float()
+    w_kn = wpk.t() if dtype == torch.bfloat16 else wpk
+    assert w_kn.shape == (224, C)
+    got = x + torch.relu(torch.cat([x, *rs], -1) @ w_kn + bb)
+    want = tdrdb.drdb_tail_ref(x.permute(0, 3, 1, 2),
+                               [r.permute(0, 3, 1, 2) for r in rs], wb, bb)
+    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(),
+                               atol=1e-5)
 
 
 def test_port_imports_no_jax():

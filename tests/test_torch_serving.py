@@ -71,3 +71,30 @@ def test_static_guide_taps_are_used(setup):
         rgb_vis, _ = port.fuse(ir_t, vis_t)
     torch.testing.assert_close(rgb_guided, rgb_taps, rtol=0, atol=0)
     assert not torch.allclose(rgb_guided, rgb_vis)
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void segmif::(anonymous namespace)::growth_conv_kernel<__nv_bfloat16>",
+     "DRDB growth kernel"),
+    ("void segmif::(anonymous namespace)::tail_kernel<__nv_bfloat16>",
+     "DRDB tail kernel"),
+    ("void segmif::(anonymous namespace)::ffm_apply_kernel<__nv_bfloat16>",
+     "FFM kernels"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "cuDNN convs"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::"
+     "gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<c10::BFloat16>>>",
+     "elementwise"),
+    ("nvjet_tst_64x384_64x3_1x2_h_bz_coopB_bias_TNT", "other"),
+])
+def test_profile_kernel_classes(name, cls):
+    """The profiler's kernel names fall into the classes of the report."""
+    from segmif_tpu_torch.profile_serving import kernel_class
+    assert kernel_class(name) == cls
+
+
+def test_profile_busy_time_is_the_union_of_spans():
+    from segmif_tpu_torch.profile_serving import busy_us
+    assert busy_us([]) == 0.0
+    assert busy_us([(5, 9), (0, 2), (1, 3), (8, 10)]) == 8.0
+    assert busy_us([(0, 10), (2, 3)]) == 10.0
