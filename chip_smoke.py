@@ -12,26 +12,38 @@ line):
  3. build the hand-written kernels from segmif_tpu_torch/kernels/csrc
     (nvcc, sm_90a) and print the build time;
  4. hold each kernel against its plain PyTorch version at the main-path
-    shapes (mit_b3, 480x640, batch 8) in f32 and bf16, and time both; the
-    DRDB growth chain, tail and whole block (against ``drdb_chain``),
-    held per element, also at an odd 100x172, with the block's peak
-    device memory; at the odd shape, faults planted in the DRDB kernels'
-    biases must fail those checks;
+    shapes (mit_b3, 480x640, batch 8) in f32 and bf16, and time both,
+    with each kernel's bound (the larger of its operations over the
+    card's peak for their type and its bytes over the memory rate) and,
+    for sr-attention, the time of ``F.scaled_dot_product_attention`` on
+    the same inputs laid out [B, H, N, D]; the DRDB growth chain, tail
+    and whole block (against ``drdb_chain``), held per element, also at
+    an odd 100x172, with the block's peak device memory; the int8 DRDB
+    kernels held bit for bit against ``drdb_int8_ref`` (the int8 buffer
+    and the output) at the main-path shape, 100x172 and 5x7, with the
+    int8 block's peak memory; at 100x172, faults planted in the DRDB
+    kernels' arguments must fail those checks;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
-    pair) and static-guide mode; check the outputs and that every request
-    launched the kernels (sr-attention 35 / 28 times, FFM grams and apply
-    twice each, DRDB growth and tail 4 times each);
+    pair) and static-guide mode, then calibrated int8 (``quantize_for_
+    serving`` on one batch-8 calibration batch) in both modes; check the
+    outputs and that every request launched the kernels (sr-attention
+    35 / 28 times, FFM grams and apply twice each, DRDB growth and tail 4
+    times each, or in int8 the int8 growth and tail 4 times each and the
+    bf16 ones never); print and bound the int8-vs-bf16 drift;
  6. hold the batch-1 f32 pipeline on the card (kernels, the DRDB's
-    included) against the same weights on the CPU (plain versions);
- 7. print pairs/s for both serving modes, timed with CUDA events.
+    included) against the same weights on the CPU (plain versions), in
+    float and in int8 with the same amaxes;
+ 7. print pairs/s for the four serving modes, timed with CUDA events.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -93,6 +105,13 @@ BLOCK_TOL = {
 # batch-1 f32 pipeline, card vs CPU, relative to the reference's largest
 # magnitude: f32 sums in other orders through ~50 layers on two devices
 PIPE_RTOL = {"fused_y": 1e-4, "logits": 1e-3}
+# int8 serving against bf16 serving on the same weights and inputs: the
+# fused Y's rmse below a quarter of its std, the JAX package's sanity bound
+# for int8 against float end to end (tests/test_int8.py:140-145)
+INT8_DRIFT_RMSE = 0.25
+# Peaks of one H100 SXM (NVIDIA's datasheet, dense, 700 W) for the bounds
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_S = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -104,26 +123,54 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def _events_ms(fn, iters: int) -> float:
+    """ms per call over `iters` back-to-back calls, CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_pair(kernel, plain, iters: int = 10):
     """(kernel ms, plain ms) per call, CUDA events, in the order plain,
     kernel, kernel, plain after one warm-up call of each."""
     import torch
 
-    def run(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     kernel()
     plain()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
+    p1, k1, k2, p2 = (_events_ms(fn, iters)
+                      for fn in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_fn(fn, iters: int = 10) -> float:
+    """ms per call of one function, CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, iters)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(ops: float, kind: str, moved: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate for their type and the bytes (each input read once,
+    each output written once) over the memory rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
+            else {"bound_ms": t_bytes, "bound_by": "bytes"})
 
 
 def max_err(a, b) -> float:
@@ -146,12 +193,18 @@ def kernel_checks(dev):
     def randn(shape, dtype, std=1.0):
         return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
 
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    import torch.nn.functional as F
+
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": None}
            for k in ("sr_attention", "ffm_grams", "ffm_apply")}
     # sr-attention at the four mit_b3 stage shapes: (N, heads), M=300, D=64
+    sdpa = {}
+    ops = moved = 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol, why = SR_TOL[dname]
+        sdpa[dname] = 0.0
         for n, h in ((19200, 1), (4800, 2), (1200, 5), (300, 8)):
             d, m = 64, 300
             q = randn((BATCH, n, h, d), dtype)
@@ -163,15 +216,31 @@ def kernel_checks(dev):
             err = max_err(got, want)
             ms, pms = time_pair(lambda: sr_attention(q, k, v, d ** -0.5),
                                 lambda: sr_attention_ref(q, k, v, d ** -0.5))
+            # the one PyTorch call for the same function, on the same
+            # values already laid out [B, H, N, D] (the layout it takes)
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = time_fn(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=d ** -0.5))
+            sdpa[dname] += lib
             print(f"sr_attention {dname} B={BATCH} N={n} M={m} H={h} D={d}: "
                   f"max_abs_err {err:.3e} (tol {tol:g}: {why}); "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"scaled_dot_product_attention {lib:.4f} ms", flush=True)
             check(err <= tol, f"sr_attention {dname} N={n} error {err}")
             r = res["sr_attention"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if dtype == torch.bfloat16:
                 r["ms"] += ms
                 r["plain_ms"] += pms
+                ops += 4 * BATCH * n * m * h * d     # two products
+                moved += nbytes(q, k, v, got)
+            del q, kv, k, v, got, want, qh, kh, vh
+    res["sr_attention"].update(library_ms=sdpa["bfloat16"],
+                               **bound(ops, "bf16", moved))
+    print(f"sr_attention, 4 stage shapes summed: scaled_dot_product_"
+          f"attention {sdpa['float32']:.4f} ms f32, {sdpa['bfloat16']:.4f} "
+          f"ms bf16; bf16 bound {res['sr_attention']['bound_ms']:.4f} ms "
+          f"({res['sr_attention']['bound_by']})", flush=True)
     # FFM grams and apply at the fusion trunk's shape
     n, c = H * W, 64
     for dtype in (torch.float32, torch.bfloat16):
@@ -200,7 +269,11 @@ def kernel_checks(dev):
         res["ffm_grams"]["max_abs_err"] = max(res["ffm_grams"]["max_abs_err"],
                                               err)
         if dtype == torch.bfloat16:
-            res["ffm_grams"].update(ms=ms, plain_ms=pms)
+            # three 64-wide relu projections and three 64x64 grams
+            res["ffm_grams"].update(
+                ms=ms, plain_ms=pms,
+                **bound(3 * 4 * BATCH * n * c * c, "bf16",
+                        nbytes(x1, x2, s, wp, bp, got)))
 
         args = (x1, x2, s, wp, bp, mats, be, lnp)
         o1, o2 = crosspath_apply_rows(*args)
@@ -216,7 +289,11 @@ def kernel_checks(dev):
         res["ffm_apply"]["max_abs_err"] = max(res["ffm_apply"]["max_abs_err"],
                                               err)
         if dtype == torch.bfloat16:
-            res["ffm_apply"].update(ms=ms, plain_ms=pms)
+            # three 64-wide projections and four [64, 64] context products
+            res["ffm_apply"].update(
+                ms=ms, plain_ms=pms,
+                **bound(7 * 2 * BATCH * n * c * c, "bf16",
+                        nbytes(*args, o1, o2)))
         del x1, x2, s, got, want, o1, o2, r1, r2, args
         torch.cuda.empty_cache()
     return res
@@ -321,7 +398,8 @@ def drdb_checks(dev):
                                                drdb_tail, drdb_tail_ref)
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": None}
            for k in ("drdb_growth", "drdb_tail")}
     for (b, h, w), timed in (((BATCH, H, W), True), ((2, 100, 172), False)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -339,12 +417,20 @@ def drdb_checks(dev):
                 x)
             check(out.is_contiguous(memory_format=torch.channels_last),
                   "drdb_tail output is not channels_last")
-            for name, err, ms, pms in (("drdb_growth", gerr, gms, gpms),
-                                       ("drdb_tail", terr, tms, tpms)):
+            npix = b * h * w
+            growth_bound = bound(2 * npix * 9 * 32 * (64 + 96 + 128 + 160
+                                                      + 192), "bf16",
+                                 nbytes(x, *rs, *(t for c in dconvs
+                                                  for t in c)))
+            tail_bound = bound(2 * npix * 224 * 64, "bf16",
+                               nbytes(x, *rs, wb, bb, out))
+            for name, err, ms, pms, bnd in (
+                    ("drdb_growth", gerr, gms, gpms, growth_bound),
+                    ("drdb_tail", terr, tms, tpms, tail_bound)):
                 r = res[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if timed and dtype == torch.bfloat16:
-                    r.update(ms=ms, plain_ms=pms)
+                    r.update(ms=ms, plain_ms=pms, **bnd)
             del rs, out
             compare(f"drdb_block {shape} vs drdb_chain",
                     lambda: drdb_block(x, dconvs, (wb, bb)),
@@ -365,6 +451,126 @@ def drdb_checks(dev):
                           f"input {peak / 2**20:.1f} MiB", flush=True)
                     del y
             del x, dconvs
+            torch.cuda.empty_cache()
+    return res
+
+
+def int8_faults(q):
+    """The int8 kernels' arguments with one fault planted in each."""
+    import torch
+
+    from segmif_tpu_torch.kernels.int8 import pack_int8_growth
+
+    return (
+        ("conv 2 bias dropped", q._replace(bias=torch.cat(
+            [q.bias[:32], q.bias[32:64] * 0, q.bias[64:]]))),
+        ("r3 requantised with r2's scale", q._replace(invs=torch.cat(
+            [q.invs[:3], q.invs[2:3], q.invs[4:]]))),
+        ("bottleneck bias dropped", q._replace(bb=q.bb * 0)),
+        ("x's channels shifted by one",
+         q._replace(wpk=pack_int8_growth((q.kq[0].roll(1, dims=1),)
+                                         + q.kq[1:]))),
+    )
+
+
+def drdb_int8_checks(dev):
+    """Phase 4, int8 DRDB: the growth (entry quantise + five convs) and
+    tail kernels against ``drdb_int8_ref`` bit for bit, the int8 buffer
+    and the output, at the main-path shape (timed), 100x172 (planted
+    faults) and 5x7. Returns {kernel: {max_abs_err, ms, plain_ms, bounds}}
+    and prints the int8 block's times and peak memory."""
+    import torch
+
+    from segmif_tpu_torch.kernels.drdb import drdb_growth_ref
+    from segmif_tpu_torch.kernels.int8 import (drdb_int8, drdb_int8_growth,
+                                               drdb_int8_growth_ref,
+                                               drdb_int8_ref, drdb_int8_tail,
+                                               drdb_int8_tail_ref,
+                                               quantize_drdb, record_amax)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": None}
+           for k in ("drdb_int8_growth", "drdb_int8_tail")}
+    for (b, h, w), timed in (((BATCH, H, W), True), ((2, 100, 172), False),
+                             ((1, 5, 7), False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            shape = f"{dname} [{b}, 64, {h}, {w}]"
+            x, dconvs, bottleneck = drdb_inputs(gen, b, h, w, dtype, dev)
+            amax = record_amax([x, *drdb_growth_ref(x, dconvs)])
+            q = quantize_drdb(dconvs, bottleneck, amax)
+            feat = drdb_int8_growth(x, q)
+            want_feat = drdb_int8_growth_ref(x, q)
+            out = drdb_int8_tail(x, feat, q)
+            want = drdb_int8_tail_ref(x, want_feat, q)
+            torch.cuda.synchronize()
+            gdiff = (feat != want_feat).sum().item()
+            tdiff = (out != want).sum().item()
+            gerr, err = max_err(feat, want_feat), max_err(out, want)
+            times = ""
+            if timed:
+                gms, gpms = time_pair(lambda: drdb_int8_growth(x, q),
+                                      lambda: drdb_int8_growth_ref(x, q))
+                tms, tpms = time_pair(lambda: drdb_int8_tail(x, feat, q),
+                                      lambda: drdb_int8_tail_ref(x, feat, q))
+                bms, bpms = time_pair(lambda: drdb_int8(x, q),
+                                      lambda: drdb_int8_ref(x, q))
+                times = (f"; growth kernel {gms:.4f} ms, plain {gpms:.4f} "
+                         f"ms; tail kernel {tms:.4f} ms, plain {tpms:.4f} "
+                         f"ms; block kernel {bms:.4f} ms, plain "
+                         f"{bpms:.4f} ms")
+            print(f"drdb_int8 {shape}: int8 buffer elements differing "
+                  f"{gdiff} of {feat.numel()}, output {tdiff} of "
+                  f"{out.numel()}, max_abs_err {err:.3e} (limit: bit for "
+                  f"bit){times}", flush=True)
+            check(gdiff == 0 and tdiff == 0,
+                  f"drdb_int8 {shape}: kernels differ from the plain version")
+            check(out.is_contiguous(memory_format=torch.channels_last),
+                  "drdb_int8_tail output is not channels_last")
+            npix = b * h * w
+            if timed and dtype == torch.bfloat16:
+                ops = 2 * npix * 9 * 32 * (64 + 96 + 128 + 160 + 192)
+                res["drdb_int8_growth"].update(
+                    ms=gms, plain_ms=gpms,
+                    **bound(ops, "int8", nbytes(x, feat, q.wpk, q.svk,
+                                                q.bias, q.s_in, q.invs)))
+                res["drdb_int8_tail"].update(
+                    ms=tms, plain_ms=tpms,
+                    **bound(2 * npix * 224 * 64, "int8",
+                            nbytes(x, feat, q.kbq, q.svb, q.bb, out)))
+                blk = bound(ops + 2 * npix * 224 * 64, "int8",
+                            nbytes(x, out))
+                print(f"drdb_int8 block {shape}: bound {blk['bound_ms']:.4f}"
+                      f" ms ({blk['bound_by']}); growth bound "
+                      f"{res['drdb_int8_growth']['bound_ms']:.4f} ms, tail "
+                      f"bound {res['drdb_int8_tail']['bound_ms']:.4f} ms",
+                      flush=True)
+                del feat, out, want, want_feat
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                y = drdb_int8(x, q)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                print(f"drdb_int8 {shape}: peak device memory above its "
+                      f"input {peak / 2**20:.1f} MiB", flush=True)
+                del y
+            if (b, h, w) == (2, 100, 172):
+                ref = drdb_int8_ref(x, q)
+                for name, bad in int8_faults(q):
+                    got = drdb_int8(x, bad)
+                    n = (got != ref).sum().item()
+                    print(f"planted fault, int8 {shape}, {name}: output "
+                          f"elements differing {n} of {got.numel()}, "
+                          f"max_abs_err {max_err(got, ref):.3e} (the check "
+                          f"fails, as it must)", flush=True)
+                    check(n > 0, f"the int8 check passes a kernel run with "
+                                 f"the {name}")
+            for name, e in (("drdb_int8_growth", gerr),
+                            ("drdb_int8_tail", err)):
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+            del x, dconvs, q
             torch.cuda.empty_cache()
     return res
 
@@ -396,8 +602,10 @@ def main() -> int:
     from segmif_tpu_torch.kernels.drdb import drdb_growth, drdb_tail
     from segmif_tpu_torch.kernels.ffm import (crosspath_apply_rows,
                                               crosspath_grams)
+    from segmif_tpu_torch.kernels.int8 import (drdb_int8_growth,
+                                               drdb_int8_tail)
     from segmif_tpu_torch.models.network import JointPipeline, init_params
-    from segmif_tpu_torch.serving import make_serving_fn
+    from segmif_tpu_torch.serving import make_serving_fn, quantize_for_serving
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -423,6 +631,7 @@ def main() -> int:
     kres = kernel_checks(dev)
     with torch.inference_mode():
         kres.update(drdb_checks(dev))
+        kres.update(drdb_int8_checks(dev))
 
     # phase 6 first half: the CPU reference at batch 1, f32 (same weights)
     model = init_params(JointPipeline("mit_b3"),
@@ -437,6 +646,7 @@ def main() -> int:
     with torch.inference_mode():
         _, y_gpu, logits_gpu = model(ir1.to(dev), vis1.to(dev))
     torch.cuda.synchronize()
+    float_cpu = {"fused_y": y_cpu, "logits": logits_cpu}
     for name, got, want in (("fused_y", y_gpu, y_cpu),
                             ("logits", logits_gpu, logits_cpu)):
         err = max_err(got.cpu(), want)
@@ -450,6 +660,37 @@ def main() -> int:
         check(err <= rtol * scale, f"pipeline {name} error {err}")
     print(f"cpu reference forward: {cpu_s:.1f} s", flush=True)
 
+    # phase 6, int8: calibrated on the card; the same amaxes and packed
+    # weights on the CPU (plain int8 DRDB). The float path's last-bit
+    # differences put some activations on the other side of a rounding
+    # boundary, and each such flip moves an int8 value by one step, as the
+    # rounding itself does; the FFM's grams spread every flip over the
+    # whole image. So the card-vs-CPU rmse is held to the quantisation
+    # noise itself: the CPU's int8-vs-float rmse.
+    q_gpu = quantize_for_serving(model, (ir1, vis1))
+    q_cpu = copy.deepcopy(q_gpu).to("cpu")
+    with torch.inference_mode():
+        _, y_gpu, logits_gpu = q_gpu(ir1.to(dev), vis1.to(dev))
+        _, y_cpu, logits_cpu = q_cpu(ir1, vis1)
+    torch.cuda.synchronize()
+    for name, got, want in (("fused_y", y_gpu, y_cpu),
+                            ("logits", logits_gpu, logits_cpu)):
+        d = got.cpu() - want
+        rmse = d.pow(2).mean().sqrt().item()
+        noise = (want - float_cpu[name]).pow(2).mean().sqrt().item()
+        std = float_cpu[name].std().item()
+        print(f"pipeline b1 f32 int8 card vs CPU {name} "
+              f"{tuple(got.shape)}: max_abs_err {d.abs().max().item():.3e} "
+              f"of max |ref| {want.abs().max().item():.3e}, rmse "
+              f"{rmse:.3e} = {rmse / std:.5f} std; limit: the CPU's int8 "
+              f"vs float rmse {noise:.3e} = {noise / std:.5f} std (one-step"
+              f" int8 flips where f32 sums in other orders meet a rounding "
+              f"boundary)", flush=True)
+        check(bool(torch.isfinite(got).all()), f"int8 {name} not finite")
+        check(rmse <= noise,
+              f"int8 pipeline {name} differs between the card and the CPU")
+    del q_gpu, q_cpu
+
     # phase 5: the main path, bf16 batch 8, both serving modes
     model.to(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -459,16 +700,28 @@ def main() -> int:
                 "ffm_grams": crosspath_grams,
                 "ffm_apply": crosspath_apply_rows,
                 "drdb_growth": drdb_growth,
-                "drdb_tail": drdb_tail}
-    expect = {"default": {"sr_attention": 35, "ffm_grams": 2,
-                          "ffm_apply": 2, "drdb_growth": 4, "drdb_tail": 4},
-              "static_guide": {"sr_attention": 28, "ffm_grams": 2,
-                               "ffm_apply": 2, "drdb_growth": 4,
-                               "drdb_tail": 4}}
+                "drdb_tail": drdb_tail,
+                "drdb_int8_growth": drdb_int8_growth,
+                "drdb_int8_tail": drdb_int8_tail}
+    expect = {}
+    for mode, sr in (("default", 35), ("static_guide", 28)):
+        float_drdb = {"drdb_growth": 4, "drdb_tail": 4,
+                      "drdb_int8_growth": 0, "drdb_int8_tail": 0}
+        expect[mode] = {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
+                        **float_drdb}
+        expect["int8_" + mode] = {**expect[mode], **{
+            k: 4 - v for k, v in float_drdb.items()}}
+    cal = requests(gen, 1, BATCH, dev)[0]   # one calibration batch
+    qmodel = quantize_for_serving(model, cal)
     serves = {"default": make_serving_fn(model),
-              "static_guide": make_serving_fn(model, guide_rgb=guide)}
+              "static_guide": make_serving_fn(model, guide_rgb=guide),
+              "int8_default": make_serving_fn(qmodel),
+              "int8_static_guide": make_serving_fn(
+                  model, guide_rgb=guide, int8_calibration=cal)}
     totals = {k: 0 for k in counters}
+    preds = {}
     for mode, serve in serves.items():
+        preds[mode] = []
         for i, (ir, vis) in enumerate(reqs):
             for fn in counters.values():
                 fn.launches = 0
@@ -488,25 +741,37 @@ def main() -> int:
                   f"{mode} fused_rgb outside [0,1]")
             check(pred.min().item() >= 0 and pred.max().item() < 9,
                   f"{mode} pred outside [0,9)")
+            preds[mode].append(pred)
         print(f"serving {mode}: {REQUESTS} requests of {BATCH} pairs, "
               f"launches per request {counts}; outputs finite, fused_rgb "
               f"in [0,1], pred in [0,9)", flush=True)
 
+    # int8 against bf16 on the same weights and inputs (accuracy.py's
+    # drift report: fused-Y max diff, and argmax agreement)
+    with torch.inference_mode():
+        _, y_bf16 = model.fuse(*reqs[0])
+        _, y_int8 = qmodel.fuse(*reqs[0])
+    y_bf16, y_int8 = y_bf16.float(), y_int8.float()
+    rmse = (y_int8 - y_bf16).pow(2).mean().sqrt().item()
+    std = y_bf16.std().item()
+    agree = {m: torch.cat([(a == b).flatten() for a, b in zip(
+        preds["int8_" + m], preds[m])]).float().mean().item()
+        for m in ("default", "static_guide")}
+    print(f"int8 vs bf16 serving drift (request 0, default mode): fused_y "
+          f"max diff {max_err(y_int8, y_bf16):.4e}, rmse {rmse:.4e} = "
+          f"{rmse / std:.4f} std (limit {INT8_DRIFT_RMSE}); argmax "
+          f"agreement over {REQUESTS} requests: default {agree['default']:.5f}"
+          f", static guide {agree['static_guide']:.5f}", flush=True)
+    check(rmse < INT8_DRIFT_RMSE * std, "int8 serving drifts from bf16")
+    del y_bf16, y_int8, preds
+
     # phase 7: pairs/s, CUDA events, after warm-up
     for mode, serve in serves.items():
-        serve(*reqs[0])
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        iters = 2 * REQUESTS
-        start.record()
-        for i in range(iters):
-            serve(*reqs[i % REQUESTS])
-        end.record()
-        torch.cuda.synchronize()
-        sec = start.elapsed_time(end) / 1e3
-        print(f"throughput {mode}: {BATCH * iters / sec:.3f} pairs/s "
-              f"({1e3 * sec / iters:.2f} ms per batch of {BATCH}, bf16, "
+        batches = itertools.cycle(reqs)
+        ms = time_fn(lambda: serve(*next(batches)), 2 * REQUESTS)
+        print(f"throughput {mode}: {BATCH * 1e3 / ms:.3f} pairs/s "
+              f"({ms:.2f} ms per batch of {BATCH}, bf16"
+              f"{', int8 DRDBs' if mode.startswith('int8') else ''}, "
               f"{H}x{W}, mit_b3)", flush=True)
     print(f"peak device memory, serving (phases 5 and 7): "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
@@ -522,15 +787,19 @@ def main() -> int:
                         "segmif_tpu/kernels/pallas_drdb.py:211"),
         "drdb_tail": (src + "drdb.cu",
                       "segmif_tpu/kernels/pallas_drdb_tail.py:66"),
+        "drdb_int8_growth": (src + "drdb_int8.cu",
+                             "segmif_tpu/kernels/pallas_drdb_int8.py:160"),
+        "drdb_int8_tail": (src + "drdb_int8.cu",
+                           "segmif_tpu/kernels/pallas_drdb_int8.py:160"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         check(totals[name] > 0, f"{name} never launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": totals[name],
-                        "max_abs_err": kres[name]["max_abs_err"],
-                        "ms": kres[name]["ms"],
-                        "plain_ms": kres[name]["plain_ms"]})
+                        **{k: kres[name][k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,6 +122,17 @@ def fusion_state_dict_from_jax(params: Mapping,
     return out
 
 
+def load_quant_from_jax(model, quant: Mapping) -> None:
+    """JAX ``variables['quant']`` (the calibrated amaxes,
+    ``['fusion']['drdb{n}']['amax']``, numpy) -> ``DRDB{n}.amax`` of the
+    port ``JointPipeline`` ``model``'s fusion net, on the model's device.
+    Call ``model.set_quant("int8")`` after it to quantise with them."""
+    fusion = quant["fusion"]
+    for n, drdb in enumerate(model.fusion.drdbs(), start=1):
+        amax = _t(np.reshape(fusion[f"drdb{n}"]["amax"], (6,)))
+        drdb.amax.copy_(amax)
+
+
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> StateDict:
     """JAX JointPipeline variables (``variables['params']``,
     ``variables['batch_stats']`` as numpy arrays) -> the port

@@ -67,6 +67,14 @@ SIGNATURES = {
                          _vp, _vp, _vp, _vp, _vp, _i64,    # r1..r5 r_ps
                          _vp, _vp, _vp, _i64,              # wb bb out npix
                          _i32, _vp],                       # dtype stream
+    "segmif_drdb_int8_growth": [_vp, _i64, _vp,            # x x_ps feat
+                                _vp, _vp, _vp,             # w svk bias
+                                _vp, _vp,                  # s_in invs
+                                _i32, _i32, _i32,          # B H W
+                                _i32, _vp],                # dtype stream
+    "segmif_drdb_int8_tail": [_vp, _i64, _vp,              # x x_ps feat
+                              _vp, _vp, _vp, _vp, _i64,    # wb svb bb out npix
+                              _i32, _vp],                  # dtype stream
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

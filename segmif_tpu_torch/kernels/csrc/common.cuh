@@ -57,4 +57,42 @@ inline int max_dynamic_smem() {
   return bytes;
 }
 
+// Let `kern` use `bytes` of dynamic shared memory (needed above 48 KB).
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+// ------------------------------------- async copies and tensor-core loads
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; with valid == false the destination is zero-filled
+// and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each) from shared memory; lane
+// l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
 }  // namespace segmif

@@ -64,33 +64,6 @@ constexpr int TP = 128;              // pixels per tail block
 
 // ------------------------------------------------------------ primitives
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -440,12 +413,6 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailArgs<T> args) {
       *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
     }
   }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
 template <typename T>

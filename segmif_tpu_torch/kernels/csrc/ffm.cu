@@ -297,12 +297,6 @@ constexpr size_t kGramsSmem =
 constexpr size_t kApplySmem =
     sizeof(float) * (7 * C * C + 9 * C + 3 * TILE * RS);
 
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-}
-
 template <typename T>
 int grams(const void* x1, const void* x2, const void* s, const float* w,
           const float* bias, float* partial, float* out, int b, int n,

@@ -29,31 +29,93 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.drdb import drdb_block
+from ..kernels.drdb import drdb_block, drdb_growth, drdb_tail
 from ..kernels.ffm import crosspath_apply
+from ..kernels.int8 import Int8Drdb, drdb_int8, quantize_drdb, record_amax
 from ..ops.image import nchw, nhwc
 
 _CL = torch.channels_last
+
+
+QUANT_MODES = ("none", "calibrate", "int8")
 
 
 class DRDB(nn.Module):
     """Dilated residual dense block: 5 dilated(2) 3x3 convs with dense
     concat growth, 1x1 bottleneck, residual add. On the card it runs the
     growth and tail kernels (``kernels.drdb.drdb_block``) and returns
-    channels_last memory, which the FFM's token view relies on."""
+    channels_last memory, which the FFM's token view relies on.
 
-    def __init__(self, channels: int = 64, growth_rate: int = 32):
+    ``quant`` (counterpart of the JAX DRDB's): "none"; "calibrate" runs the
+    same float path and records the running abs-max of (x, r1..r5) into
+    ``amax``; "int8" runs ``kernels.int8.drdb_int8`` on the weights that
+    ``set_quant("int8")`` quantised and packed once. ``amax`` and the int8
+    weights are non-persistent buffers (the state dict keeps the reference
+    keys) that follow the module's device but keep their dtypes. A DRDB is
+    built in "none" or "calibrate" mode; "int8" needs its weights and
+    amaxes, so it is entered by ``set_quant`` once they are there."""
+
+    def __init__(self, channels: int = 64, growth_rate: int = 32,
+                 quant: str = "none"):
         super().__init__()
         for i in range(5):
             setattr(self, f"Dcov{i + 1}", nn.Conv2d(
                 channels + i * growth_rate, growth_rate, 3, padding=2,
                 dilation=2))
         self.conv = nn.Conv2d(channels + 5 * growth_rate, channels, 1)
+        self.register_buffer("amax", torch.zeros(6), persistent=False)
+        if quant not in QUANT_MODES[:2]:
+            raise ValueError(f"DRDB is built with quant 'none' or "
+                             f"'calibrate', got {quant!r}; set_quant('int8') "
+                             "after calibrating")
+        self.quant = quant
+
+    def _weights(self):
+        convs = [getattr(self, f"Dcov{i + 1}") for i in range(5)]
+        return ([(c.weight, c.bias) for c in convs],
+                (self.conv.weight, self.conv.bias))
+
+    def _apply(self, fn, recurse=True):
+        # .to(dtype) and friends must not round the scales or the int8
+        # weights: they only follow the device
+        keep = {n: b for n, b in self._buffers.items() if b is not None}
+        super()._apply(fn, recurse)
+        dev = self.conv.weight.device
+        for n, b in keep.items():
+            self._buffers[n] = b.to(dev)
+        return self
+
+    @torch.no_grad()
+    def set_quant(self, mode: str) -> None:
+        """Switch modes. "calibrate" clears ``amax``; "int8" quantises the
+        current weights with it (calibrate first)."""
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {mode!r}")
+        if mode == "calibrate":
+            self.amax.zero_()
+        if mode == "int8":
+            if not bool((self.amax > 0).any()):
+                raise ValueError("DRDB: no calibrated amax; run a "
+                                 "calibrate pass or load one first")
+            q = quantize_drdb(*self._weights(), self.amax)
+            for name, t in q.tensors().items():
+                self.register_buffer("int8_" + name, t, persistent=False)
+        self.quant = mode
+
+    def _int8_weights(self) -> Int8Drdb:
+        return Int8Drdb.from_tensors(lambda n: getattr(self, "int8_" + n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        convs = [getattr(self, f"Dcov{i + 1}") for i in range(5)]
-        return drdb_block(x, [(c.weight, c.bias) for c in convs],
-                          (self.conv.weight, self.conv.bias))
+        if self.quant == "int8":
+            return drdb_int8(x, self._int8_weights())
+        dconvs, bottleneck = self._weights()
+        if self.quant == "calibrate":
+            rs = drdb_growth(x, dconvs)
+            with torch.no_grad():
+                self.amax.copy_(torch.maximum(self.amax,
+                                              record_amax([x, *rs])))
+            return drdb_tail(x, rs, *bottleneck)
+        return drdb_block(x, dconvs, bottleneck)
 
 
 class CrossAttention(nn.Module):
@@ -135,16 +197,18 @@ class FusionNetwork(nn.Module):
     """ir, vis_y: [B, H, W, >=1] (only channel 0 is used); seg_tap1/2: the
     encoder's stage-1/2 features, NHWC, at full or native resolution.
     Returns the fused Y [B, H, W, 1]. ``tap_channels`` are the encoder's
-    stage-1/2 widths (64, 128 from mit_b1 up)."""
+    stage-1/2 widths (64, 128 from mit_b1 up). ``quant`` is the DRDBs'
+    mode (see ``DRDB``)."""
 
     def __init__(self, channels: int = 64, num_heads: int = 8,
-                 tap_channels: Sequence[int] = (64, 128)):
+                 tap_channels: Sequence[int] = (64, 128),
+                 quant: str = "none"):
         super().__init__()
         ch = channels
         self.conv1_ir = nn.Conv2d(1, ch, 3, padding=1)
         self.conv1_vis = nn.Conv2d(1, ch, 3, padding=1)
         for i in range(1, 5):
-            setattr(self, f"DRDB{i}", DRDB(ch))
+            setattr(self, f"DRDB{i}", DRDB(ch, quant=quant))
         self.conv3 = nn.Conv2d(tap_channels[0], ch, 1)
         self.conv4 = nn.Conv2d(tap_channels[1], ch, 1)
         self.ffm = FeatureFusionModule(ch, num_heads)
@@ -152,6 +216,14 @@ class FusionNetwork(nn.Module):
         self.conv21 = nn.Conv2d(ch, ch // 2, 3, padding=1)
         self.conv22 = nn.Conv2d(ch // 2, 1, 3, padding=1)
         self.relu = nn.PReLU(num_parameters=1, init=0.25)
+
+    def drdbs(self) -> Tuple[DRDB, ...]:
+        return tuple(getattr(self, f"DRDB{i}") for i in range(1, 5))
+
+    def set_quant(self, mode: str) -> None:
+        """``DRDB.set_quant`` on all four DRDBs."""
+        for d in self.drdbs():
+            d.set_quant(mode)
 
     def _prelu(self, t: torch.Tensor) -> torch.Tensor:
         return F.prelu(t, self.relu.weight)

@@ -73,14 +73,21 @@ class SegmentationNetwork(nn.Module):
 
 class JointPipeline(nn.Module):
     """Fuse, then segment the fused image. ``seg`` carries the Network3
-    checkpoint's weights, ``fusion`` the Fusion_Network3_ac checkpoint's."""
+    checkpoint's weights, ``fusion`` the Fusion_Network3_ac checkpoint's.
+    ``quant`` is the fusion DRDBs' precision mode ("none" | "calibrate";
+    "int8" through ``set_quant`` after calibrating, as
+    ``serving.quantize_for_serving`` does)."""
 
     def __init__(self, backbone: str = "mit_b3", num_classes: int = 9,
-                 embedding_dim: int = 256):
+                 embedding_dim: int = 256, quant: str = "none"):
         super().__init__()
         self.seg = SegmentationNetwork(backbone, num_classes, embedding_dim)
         self.fusion = FusionNetwork(
-            tap_channels=MIT_VARIANTS[backbone].embed_dims[:2])
+            tap_channels=MIT_VARIANTS[backbone].embed_dims[:2], quant=quant)
+
+    def set_quant(self, mode: str) -> None:
+        """The fusion DRDBs' mode: "none" | "calibrate" | "int8"."""
+        self.fusion.set_quant(mode)
 
     def guide_taps_raw(self, guide_rgb: torch.Tensor):
         return self.seg.encode_taps_raw(guide_rgb)

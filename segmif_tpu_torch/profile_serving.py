@@ -5,11 +5,13 @@ request by kernel class, and CUDA-event times per layer.
 
 Serves ``--requests`` batches of random IR/VIS pairs (mit_b3, 480x640,
 bf16, seeded random weights) through ``make_serving_fn`` in default mode and in
-static-guide mode under ``torch.profiler``, and prints for each mode the
-device time per request by kernel class, the device's busy time against
-the wall time (CUDA events) and the idle share, and the top kernels. Then
-it times the layers with CUDA events: the guide taps (MiT stages 1-2), the
-fusion net, one DRDB and the seg pass. Needs a CUDA card; the first line
+static-guide mode, each with bf16 DRDBs and with calibrated int8 DRDBs
+(``quantize_for_serving`` on one batch), under ``torch.profiler``, and
+prints for each mode the device time per request by kernel class, the
+device's busy time against the wall time (CUDA events) and the idle
+share, and the top kernels. Then it times the layers with CUDA events: the
+guide taps (MiT stages 1-2), the fusion net (bf16 and int8 DRDBs), one
+DRDB (bf16 and int8) and the seg pass. Needs a CUDA card; the first line
 is the card's name and power limit as nvidia-smi reads them.
 """
 from __future__ import annotations
@@ -22,10 +24,12 @@ from collections import defaultdict
 import torch
 
 from .models.network import JointPipeline, init_params
-from .serving import make_serving_fn
+from .serving import make_serving_fn, quantize_for_serving
 
 # kernel class: substrings of the kernel's name, first match wins
 CLASSES = (
+    ("DRDB int8 kernels", ("int8_entry_kernel", "int8_conv_kernel",
+                           "int8_tail_kernel")),
     ("sr-attention kernel", ("sr_attention_kernel",)),
     ("FFM kernels", ("ffm_",)),
     ("DRDB growth kernel", ("growth_conv_kernel",)),
@@ -126,6 +130,8 @@ def main(argv=None) -> int:
 
     reqs = [(rand(1), rand(3)) for _ in range(args.requests)]
     guide = rand(3)
+    cal = (rand(1), rand(3))
+    qmodel = quantize_for_serving(model, cal)
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -134,7 +140,11 @@ def main(argv=None) -> int:
           f"bf16, {args.requests} requests per mode")
     for mode, serve in (("default", make_serving_fn(model)),
                         ("static_guide",
-                         make_serving_fn(model, guide_rgb=guide))):
+                         make_serving_fn(model, guide_rgb=guide)),
+                        ("int8_default", make_serving_fn(qmodel)),
+                        ("int8_static_guide",
+                         make_serving_fn(model, guide_rgb=guide,
+                                         int8_calibration=cal))):
         print(f"== {mode}: ms per request by kernel class")
         profile_mode(serve, reqs)
 
@@ -149,7 +159,9 @@ def main(argv=None) -> int:
         layers = (
             ("guide taps", lambda: model.guide_taps_raw(vis)),
             ("fusion net", lambda: model.fusion(ir, vis_r, *taps)),
+            ("fusion net int8", lambda: qmodel.fusion(ir, vis_r, *taps)),
             ("one DRDB", lambda: model.fusion.DRDB1(x)),
+            ("one DRDB int8", lambda: qmodel.fusion.DRDB1(x)),
             ("seg pass", lambda: model.seg(fused_rgb)),
         )
         times = [f"{name} {time_ms(fn, iters):.2f} ms"

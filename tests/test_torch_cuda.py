@@ -25,6 +25,10 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    f32 accumulator; measured 0), the block with atol 2^-6 (the growth
    chain's steps through the bottleneck, up to 7.4e-3 measured). A
    dropped or shifted bias exceeds them: test_drdb_check_catches_a_fault.
+ - int8 DRDB: bit for bit. The int32 sums are exact in any order and the
+   kernels' f32 epilogues (explicit _rn intrinsics, no FMA) run the plain
+   version's operations in its order, so the int8 buffer and the output
+   are compared with torch.equal; a planted fault must change them.
 """
 import numpy as np
 import pytest
@@ -41,6 +45,7 @@ from segmif_tpu_torch.kernels.drdb import (
     drdb_tail,
     drdb_tail_ref,
 )
+from segmif_tpu_torch.kernels import int8 as kint8
 from segmif_tpu_torch.kernels.ffm import (
     crosspath_apply_rows,
     crosspath_apply_rows_ref,
@@ -384,3 +389,113 @@ def test_pipeline_on_card_matches_cpu(cuda):
     out_rgb, pred = serve(ir.to(cuda), vis.to(cuda))
     assert pred.dtype == torch.int32 and pred.shape == (2, 64, 64)
     assert np.isfinite(out_rgb.cpu().numpy()).all()
+
+
+def _int8_case(seed, b, h, w, dtype, device):
+    """x, the DRDB's weights and their Int8Drdb, with the amaxes that a
+    calibration pass of the plain growth chain on x records."""
+    x, dconvs, bottleneck = _drdb_inputs(torch.Generator().manual_seed(seed),
+                                         b, h, w, dtype, device)
+    with torch.inference_mode():
+        amax = kint8.record_amax([x, *drdb_growth_ref(x, dconvs)])
+        q = kint8.quantize_drdb(dconvs, bottleneck, amax)
+    return x, dconvs, bottleneck, q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", DRDB_SHAPES)
+def test_drdb_int8_kernels_match_plain(cuda, dtype, b, h, w):
+    x, _, _, q = _int8_case(13, b, h, w, dtype, cuda)
+    with torch.inference_mode():
+        feat = kint8.drdb_int8_growth(x, q)
+        want_feat = kint8.drdb_int8_growth_ref(x, q)
+        out = kint8.drdb_int8_tail(x, feat, q)
+        want = kint8.drdb_int8_tail_ref(x, want_feat, q)
+    torch.cuda.synchronize()
+    assert feat.shape == (b, h, w, 224) and feat.dtype == torch.int8
+    assert torch.equal(feat, want_feat)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, want)
+
+
+def _int8_faults(q):
+    """The kernels' arguments with one fault planted in each."""
+    kq0 = q.kq[0].roll(1, dims=1)          # x's channels shifted by one
+    return {
+        "conv2_bias_dropped": q._replace(bias=torch.cat(
+            [q.bias[:32], q.bias[32:64] * 0, q.bias[64:]])),
+        "r3_requant_with_r2_scale": q._replace(invs=torch.cat(
+            [q.invs[:3], q.invs[2:3], q.invs[4:]])),
+        "bottleneck_bias_dropped": q._replace(bb=q.bb * 0),
+        "x_channels_shifted_one": q._replace(
+            wpk=kint8.pack_int8_growth((kq0,) + q.kq[1:])),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", ["conv2_bias_dropped",
+                                   "r3_requant_with_r2_scale",
+                                   "bottleneck_bias_dropped",
+                                   "x_channels_shifted_one"])
+def test_drdb_int8_check_catches_a_fault(cuda, dtype, fault):
+    """The kernels run with a fault planted in their arguments disagree
+    with the plain version on the true arguments."""
+    x, _, _, q = _int8_case(14, 2, 100, 172, dtype, cuda)
+    with torch.inference_mode():
+        want = kint8.drdb_int8_ref(x, q)
+        got = kint8.drdb_int8(x, _int8_faults(q)[fault])
+    torch.cuda.synchronize()
+    assert not torch.equal(got, want)
+
+
+def test_drdb_int8_refuses_what_it_does_not_take(cuda):
+    x, _, _, q = _int8_case(15, 1, 8, 8, torch.float32, cuda)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="strides"):
+            kint8.drdb_int8_growth(x.contiguous(), q)      # NCHW memory
+        with pytest.raises(ValueError, match="dtype"):
+            kint8.drdb_int8_growth(x.half(), q)
+        with pytest.raises(ValueError, match="expected"):
+            kint8.drdb_int8_growth(x[:, :48], q)
+        with pytest.raises(ValueError, match="on cpu"):
+            kint8.drdb_int8_growth(x, q._replace(svk=q.svk.cpu()))
+        feat = kint8.drdb_int8_growth(x, q)
+        with pytest.raises(ValueError, match="contiguous int8"):
+            kint8.drdb_int8_tail(x, feat[..., :192], q)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kint8.drdb_int8(xg, q)
+
+
+def test_drdb_int8_forward_on_card_runs_only_the_int8_kernels(
+        cuda, monkeypatch):
+    """A DRDB calibrated and quantised on the card launches the int8
+    kernels once each per forward, never the bf16 growth or tail kernels
+    and never a plain version."""
+    from segmif_tpu_torch.models.fusion import DRDB
+
+    block = DRDB(quant="calibrate").to(
+        cuda, torch.bfloat16, memory_format=torch.channels_last).eval()
+    x = torch.rand((2, 64, 24, 40), device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        block(x)
+    block.set_quant("int8")
+    assert block.amax.dtype == torch.float32 and bool((block.amax > 0).all())
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain DRDB version ran on the card")
+
+    for name in ("drdb_int8_ref", "drdb_int8_growth_ref",
+                 "drdb_int8_tail_ref"):
+        monkeypatch.setattr(kint8, name, refuse)
+    counters = (kint8.drdb_int8_growth, kint8.drdb_int8_tail, drdb_growth,
+                drdb_tail)
+    for fn in counters:
+        fn.launches = 0
+    with torch.inference_mode():
+        y = block(x)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [1, 1, 0, 0]
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())

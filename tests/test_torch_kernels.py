@@ -335,7 +335,8 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'segmif_tpu'))\n"
-        "assert len(mods) >= 12, mods\n"
+        "assert len(mods) >= 13, mods\n"
+        "assert 'segmif_tpu_torch.kernels.int8' in mods, mods\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

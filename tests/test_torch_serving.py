@@ -49,7 +49,8 @@ def test_serving_fn_matches_jax(setup, mode):
     rgb_e, pred_e = (np.asarray(t) for t in jserve(jnp.asarray(ir),
                                                    jnp.asarray(vis)))
     serve = serving.make_serving_fn(
-        port, guide_rgb=None if g is None else torch.from_numpy(g))
+        port, guide_rgb=None if g is None else torch.from_numpy(g),
+        device="cpu")
     rgb, pred = serve(torch.from_numpy(ir), torch.from_numpy(vis))
     assert pred.dtype == torch.int32 and pred.shape == (B, H, W)
     np.testing.assert_allclose(rgb.numpy(), rgb_e, atol=1e-4)
@@ -61,11 +62,13 @@ def test_static_guide_taps_are_used(setup):
     equals fuse() given the precomputed taps."""
     _, _, port, ir, vis, guide = setup
     ir_t, vis_t = torch.from_numpy(ir), torch.from_numpy(vis)
-    taps = serving.precompute_guide_taps(port, torch.from_numpy(guide))
+    taps = serving.precompute_guide_taps(port, torch.from_numpy(guide),
+                                         device="cpu")
     assert taps[0].shape == (B, H // 4, W // 4, 32)
     assert taps[1].shape == (B, H // 8, W // 8, 64)
     rgb_guided = serving.make_serving_fn(
-        port, guide_rgb=torch.from_numpy(guide), with_seg=False)(ir_t, vis_t)
+        port, guide_rgb=torch.from_numpy(guide), with_seg=False,
+        device="cpu")(ir_t, vis_t)
     with torch.inference_mode():
         rgb_taps, _ = port.fuse(ir_t, vis_t, taps=taps)
         rgb_vis, _ = port.fuse(ir_t, vis_t)
@@ -86,6 +89,10 @@ def test_static_guide_taps_are_used(setup):
      "gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<c10::BFloat16>>>",
      "elementwise"),
     ("nvjet_tst_64x384_64x3_1x2_h_bz_coopB_bias_TNT", "other"),
+    ("void segmif::(anonymous namespace)::int8_tail_kernel<__nv_bfloat16>",
+     "DRDB int8 kernels"),
+    ("segmif::(anonymous namespace)::int8_conv_kernel(signed char*, ...)",
+     "DRDB int8 kernels"),
 ])
 def test_profile_kernel_classes(name, cls):
     """The profiler's kernel names fall into the classes of the report."""
