@@ -50,7 +50,7 @@ SIGNATURES = {
                             _i64, _i64, _i64,              # k strides
                             _i64, _i64, _i64,              # v strides
                             _f32, _i32, _vp],              # scale dtype stream
-    "segmif_sr_attention_max_m": [_i32],                   # D -> max M
+    "segmif_sr_attention_max_m": [_i32],                   # D -> f32 max M
     "segmif_ffm_grams": [_vp, _vp, _vp, _vp, _vp,          # x1 x2 s w b
                          _vp, _vp,                         # partial out
                          _i32, _i32, _i32, _i32,           # B N chunk nchunk

@@ -33,7 +33,9 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``sr_attention_ref``; CUDA tensors launch the kernel,
     which reads q/k/v through their strides (the last dim contiguous) and
-    raises on a shape, dtype or M it does not take."""
+    raises on a shape or dtype it does not take. bf16 runs on tensor cores
+    and takes any M (its rows must start on 16 bytes); f32 runs on the CUDA
+    cores and refuses M beyond what shared memory holds (382 at D = 64)."""
     if q.device.type == "cpu":
         return sr_attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
@@ -52,17 +54,23 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("sr_attention: q, k, v on different devices")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("sr_attention: the head dim must be contiguous")
+    if d not in (32, 64):
+        raise ValueError(
+            f"sr_attention: head dim {d} (the kernel takes 32 or 64)")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st, sz in zip(
+                t.stride()[:3], t.shape[:3]) if sz > 1)
+            for t in (q, k, v)):
+        raise ValueError("sr_attention: bf16 rows must start on 16 bytes "
+                         "(pointers and strides)")
     lib = _build.library()
     with torch.cuda.device(q.device):
-        max_m = lib.segmif_sr_attention_max_m(d)
-        if max_m == 0:
-            raise ValueError(
-                f"sr_attention: head dim {d} (the kernel takes 32 or 64)")
-        if m > max_m:
-            raise ValueError(
-                f"sr_attention: M = {m} key rows exceed the {max_m} the "
-                "kernel holds in shared memory (needs the chunked "
-                "online-softmax form)")
+        if q.dtype == torch.float32:
+            max_m = lib.segmif_sr_attention_max_m(d)
+            if m > max_m:
+                raise ValueError(
+                    f"sr_attention: M = {m} key rows exceed the {max_m} the "
+                    "f32 kernel holds in shared memory (bf16 takes any M)")
         out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.segmif_sr_attention(

@@ -95,4 +95,38 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// As ldmatrix_x4, each 8x8 matrix transposed: from rows stored [k][n] it
+// gives the "col" B operand of mma.sync.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 and packed as one 32-bit fragment
+// register (lo in the low half: the lower column of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+// The two bf16 halves of a packed register, exactly, as f32.
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
 }  // namespace segmif

@@ -64,16 +64,6 @@ constexpr int TP = 128;              // pixels per tail block
 
 // ------------------------------------------------------------ primitives
 
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }

@@ -17,23 +17,45 @@
 // the residual and apply LayerNorm (eps 1e-5, f32).
 //
 // Shapes: x1, x2, s [B,N,64] contiguous (the fusion trunk's channels_last
-// bytes), f32 or bf16; weights, biases, mats and LayerNorm params f32.
-// At 480x640, N = 307,200 per image.
+// bytes), f32 or bf16; pass A's weights and biases f32; pass B's weights
+// and mats in the input type (the wrapper rounds both to it, as the
+// reference does), its biases and LayerNorm params f32. At 480x640,
+// N = 307,200 per image.
 //
 // What bounds it on the H100: device-memory traffic is the three inputs
 // read once per pass and the two outputs written once (about 5 x B x N x
 // 64 elements); the arithmetic is 3 x 2 x 64 x 64 FMA per token in pass A
-// and 7 x 64 x 64 in pass B. On CUDA cores in f32, as written here, the
-// arithmetic is the bound, not the memory.
+// and 7 x 64 x 64 in pass B: below the bf16 ridge, so on tensor cores the
+// bytes are the bound. On CUDA cores in f32 the arithmetic is.
 //
-// Design: 256 threads per block, token tiles of 64; a thread owns a 4x4
-// output micro-tile (4 tokens x 4 channels, or 4x4 of a gram) so each
-// shared-memory read feeds 4 FMAs. Tiles and weights are staged in shared
-// memory as f32 (rows padded to 68 floats). The TPU kernel carries the
-// gram accumulator across a sequential grid; GPU blocks run in parallel
-// and in no order, so pass A writes one partial gram per (image, token
-// chunk) and a second kernel sums the partials in chunk order. No atomics:
-// results are the same from run to run.
+// Pass A, and pass B in f32: 256 threads per block, token tiles of 64; a
+// thread owns a 4x4 output micro-tile (4 tokens x 4 channels, or 4x4 of a
+// gram) so each shared-memory read feeds 4 FMAs. Tiles and weights are
+// staged in shared memory as f32 (rows padded to 68 floats). The TPU
+// kernel carries the gram accumulator across a sequential grid; GPU blocks
+// run in parallel and in no order, so pass A writes one partial gram per
+// (image, token chunk) and a second kernel sums the partials in chunk
+// order. No atomics: results are the same from run to run.
+//
+// Pass B in bf16 (the serving dtype): the seven products on tensor cores
+// (mma.sync m16n8k16, f32 accumulation), chained in registers.
+//  - One block per SM (150 registers, 173 KB of shared memory) on a share
+//    of one image's tokens (grid (chunks, B), four waves of SMs:
+//    the folded contexts differ per image), eight warps. The block loads
+//    the three projection halves and its image's four contexts once, as
+//    bf16 [k][n] rows padded by 16 bytes (7 x 9 KB), read as the B operand
+//    by ldmatrix.trans.
+//  - Each warp walks its own 16-token tiles of x1, x2 and s through a
+//    private two-stage cp.async ring: no block barrier in the token loop.
+//  - y3, u1, u2 = relu(x W + b) with bias, relu and the bf16 rounding in
+//    registers (pallas_ffm.py:280-282): the f32 accumulators of two
+//    adjacent n8 tiles are the A fragment of the next k16 step, so y3 M0 +
+//    u1 M1 and y3 M2 + u2 M3 never touch shared memory.
+//  - The residual x_i is the A fragment of x_i already in registers (its
+//    elements sit where the accumulator's do). LayerNorm in f32 with
+//    E[t^2] - mu^2; a row's 64 channels lie on the four lanes of a quad, so
+//    two shuffles reduce it. The bf16 rows are staged in the consumed input
+//    tile and stored 16 bytes a lane.
 
 #include "common.cuh"
 
@@ -182,11 +204,10 @@ __global__ void ffm_grams_reduce_kernel(const float* __restrict__ partial,
 
 // o = a @ m0 + c @ m1 + be for this thread's micro-tile, then residual x
 // and LayerNorm, written to out rows [n0, n0 + valid).
-template <typename T>
 __device__ __forceinline__ void apply_branch(
     const float* a, const float* c, const float* m0, const float* m1,
     const float* be, const float* gamma, const float* beta, const float* x,
-    T* __restrict__ out, int valid) {
+    float* __restrict__ out, int valid) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[4][4];
 #pragma unroll
@@ -228,26 +249,25 @@ __device__ __forceinline__ void apply_branch(
     const float var = fmaxf(sq * (1.f / C) - mu * mu, 0.f);
     const float rstd = rsqrtf(var + 1e-5f);
     if (row < valid) {
-      T* op = out + int64_t(row) * C + 4 * tx;
+      float* op = out + int64_t(row) * C + 4 * tx;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        op[j] = from_f32<T>((t[j] - mu) * rstd * gamma[4 * tx + j] +
-                            beta[4 * tx + j]);
+        op[j] = (t[j] - mu) * rstd * gamma[4 * tx + j] + beta[4 * tx + j];
     }
   }
 }
 
-// grid (n_chunks, B). w: [3][C][C] (the y3, u1, u2 column halves),
-// bias: [3][C], mats: [B][4][C][C], be: [2][C], lnp: [2][2][C].
-template <typename T>
+// f32 only. grid (n_chunks, B). w: [3][C][C] (the y3, u1, u2 column
+// halves), bias: [3][C], mats: [B][4][C][C], be: [2][C], lnp: [2][2][C].
 __global__ void __launch_bounds__(kThreads)
-    ffm_apply_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                     const T* __restrict__ s, const float* __restrict__ w,
+    ffm_apply_kernel(const float* __restrict__ x1,
+                     const float* __restrict__ x2,
+                     const float* __restrict__ s, const float* __restrict__ w,
                      const float* __restrict__ bias,
                      const float* __restrict__ mats,
                      const float* __restrict__ be,
-                     const float* __restrict__ lnp, T* __restrict__ o1,
-                     T* __restrict__ o2, int n, int chunk) {
+                     const float* __restrict__ lnp, float* __restrict__ o1,
+                     float* __restrict__ o2, int n, int chunk) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [3][C][C]
   float* ms = ws + 3 * C * C;                   // [4][C][C]
@@ -270,25 +290,234 @@ __global__ void __launch_bounds__(kThreads)
   const int n_end = min(n, n_begin + chunk);
   for (int n0 = n_begin; n0 < n_end; n0 += TILE) {
     const int valid = n_end - n0;
-    load_tile<T>(s + img, n0, n_end, xs);
+    load_tile<float>(s + img, n0, n_end, xs);
     __syncthreads();
-    project<T>(xs, ws, bs, ys, valid);  // y3
+    project<float>(xs, ws, bs, ys, valid);  // y3
     __syncthreads();
-    load_tile<T>(x1 + img, n0, n_end, xs);
+    load_tile<float>(x1 + img, n0, n_end, xs);
     __syncthreads();
-    project<T>(xs, ws + C * C, bs + C, us, valid);  // u1
+    project<float>(xs, ws + C * C, bs + C, us, valid);  // u1
     __syncthreads();
-    apply_branch<T>(ys, us, ms, ms + C * C, bes, ls, ls + C, xs,
-                    o1 + img + int64_t(n0) * C, valid);
+    apply_branch(ys, us, ms, ms + C * C, bes, ls, ls + C, xs,
+                 o1 + img + int64_t(n0) * C, valid);
     __syncthreads();
-    load_tile<T>(x2 + img, n0, n_end, xs);
+    load_tile<float>(x2 + img, n0, n_end, xs);
     __syncthreads();
-    project<T>(xs, ws + 2 * C * C, bs + 2 * C, us, valid);  // u2
+    project<float>(xs, ws + 2 * C * C, bs + 2 * C, us, valid);  // u2
     __syncthreads();
-    apply_branch<T>(ys, us, ms + 2 * C * C, ms + 3 * C * C, bes + C,
-                    ls + 2 * C, ls + 3 * C, xs, o2 + img + int64_t(n0) * C,
-                    valid);
+    apply_branch(ys, us, ms + 2 * C * C, ms + 3 * C * C, bes + C,
+                 ls + 2 * C, ls + 3 * C, xs, o2 + img + int64_t(n0) * C,
+                 valid);
     __syncthreads();
+  }
+}
+
+// ------------------------------------------------ pass B, bf16, mma.sync
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int WT = 16;                   // tokens per warp tile
+constexpr int BRS = C + 8;               // padded bf16 row
+constexpr int MAT = C * BRS;             // one [64][BRS] matrix
+constexpr int WSTAGE = 3 * WT * BRS;     // s, x1, x2 tiles of one stage
+constexpr size_t kApplyMmaSmem =
+    sizeof(bf16) * (7 * MAT + kMmaWarps * 2 * WSTAGE) + sizeof(float) * 9 * C;
+
+// A fragments (four k16 steps) of a [16][BRS] bf16 tile.
+__device__ __forceinline__ void load_a(const bf16* tile, uint32_t a[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], tile + (lane & 15) * BRS + kk * 16 + (lane >> 4) * 8);
+}
+
+// acc[8][4] += a (16 x 64) @ w (a [64][BRS] bf16 matrix stored [k][n]).
+__device__ __forceinline__ void mma_64(float acc[8][4], const uint32_t a[4][4],
+                                       const bf16* w) {
+  const int lane = threadIdx.x & 31;
+  const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, w + (kk * 16 + row) * BRS + np * 16 + col);
+      mma_bf16(acc[2 * np], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+__device__ __forceinline__ void zero(float acc[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+}
+
+// out = bf16(relu(a @ w + bias)) as A fragments of the next product:
+// accumulator tiles 2j, 2j+1 are k16 step j.
+__device__ __forceinline__ void project_a(const uint32_t a[4][4],
+                                          const bf16* w, const float* bias,
+                                          uint32_t out[4][4]) {
+  float acc[8][4];
+  zero(acc);
+  mma_64(acc, a, w);
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int f = 0; f < 16; ++f) {
+    const int nt = 2 * (f >> 2) + ((f >> 1) & 1), r = f & 1;
+    const float* bb = bias + nt * 8 + 2 * t4;
+    out[f >> 2][f & 3] = pack_bf16(fmaxf(acc[nt][2 * r] + bb[0], 0.f),
+                                   fmaxf(acc[nt][2 * r + 1] + bb[1], 0.f));
+  }
+}
+
+// out rows = LayerNorm(x + acc + be) * gamma + beta, for this warp's 16
+// tokens; x is the residual's A fragments; the rows are staged in `tile`
+// (the consumed input) and stored to out rows [row0, row0 + 16) below
+// n_end. be, gamma, beta: [C] f32 in shared memory.
+__device__ __forceinline__ void ln_store(const float acc[8][4],
+                                         const uint32_t x[4][4],
+                                         const float* be, const float* gamma,
+                                         const float* beta, bf16* tile,
+                                         bf16* __restrict__ out, int row0,
+                                         int n_end) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float t[8][4], sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = c >> 1, col = nt * 8 + 2 * t4 + (c & 1);
+      const uint32_t xr = x[nt >> 1][2 * (nt & 1) + r];
+      const float xe = (c & 1) ? bf16_hi(xr) : bf16_lo(xr);
+      t[nt][c] = xe + (acc[nt][c] + be[col]);
+      sum[r] += t[nt][c];
+      sq[r] += t[nt][c] * t[nt][c];
+    }
+  float mu[2], rstd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+      sq[r] += __shfl_xor_sync(0xffffffffu, sq[r], o);
+    }
+    mu[r] = sum[r] * (1.f / C);
+    const float var = fmaxf(sq[r] * (1.f / C) - mu[r] * mu[r], 0.f);
+    rstd[r] = rsqrtf(var + 1e-5f);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int col = nt * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(tile + (g + 8 * r) * BRS + col) =
+          pack_bf16((t[nt][2 * r] - mu[r]) * rstd[r] * gamma[col] +
+                        beta[col],
+                    (t[nt][2 * r + 1] - mu[r]) * rstd[r] * gamma[col + 1] +
+                        beta[col + 1]);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < WT * 8; i += 32) {
+    const int r = i / 8, c = i % 8;
+    if (row0 + r < n_end)
+      *reinterpret_cast<uint4*>(out + int64_t(row0 + r) * C + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * BRS + c * 8);
+  }
+}
+
+// grid (n_chunks, B), 8 warps. w: bf16 [3][C][C] [k][n] (y3, u1, u2
+// halves); bias f32 [3][C]; mats bf16 [B][4][C][C] [k][n]; be f32 [2][C];
+// lnp f32 [2][2][C].
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    ffm_apply_mma_kernel(const bf16* __restrict__ x1,
+                         const bf16* __restrict__ x2,
+                         const bf16* __restrict__ s,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const bf16* __restrict__ mats,
+                         const float* __restrict__ be,
+                         const float* __restrict__ lnp, bf16* __restrict__ o1,
+                         bf16* __restrict__ o2, int n, int chunk) {
+  extern __shared__ uint4 smem_u4[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_u4);  // [7][C][BRS]
+  bf16* rings = ws + 7 * MAT;                   // [warps][2][WSTAGE]
+  float* prm = reinterpret_cast<float*>(rings + kMmaWarps * 2 * WSTAGE);
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < 7 * C * 8; i += kMmaThreads) {
+    const int mtx = i / (C * 8), r = (i / 8) % C, c = i % 8;
+    const bf16* src =
+        mtx < 3 ? w + (mtx * C + r) * C
+                : mats + ((int64_t(b) * 4 + mtx - 3) * C + r) * C;
+    cp_async16(ws + mtx * MAT + r * BRS + c * 8, src + c * 8, true);
+  }
+  for (int i = threadIdx.x; i < 9 * C; i += kMmaThreads)
+    prm[i] = i < 3 * C ? bias[i] : i < 5 * C ? be[i - 3 * C] : lnp[i - 5 * C];
+
+  const int64_t img = int64_t(b) * n * C;
+  const int n_begin = blockIdx.x * chunk;
+  const int n_end = min(n, n_begin + chunk);
+  bf16* ring = rings + warp * 2 * WSTAGE;
+  // this warp's tile at row0 into ring stage st: s, x1, x2
+  auto load = [&](int row0, int st) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const bf16* x = (q == 0 ? s : q == 1 ? x1 : x2) + img;
+#pragma unroll
+      for (int it = 0; it < WT * 8 / 32; ++it) {
+        const int r = (lane + 32 * it) / 8, c = lane % 8;
+        const bool ok = row0 + r < n_end;
+        cp_async16(ring + st * WSTAGE + (q * WT + r) * BRS + c * 8,
+                   x + int64_t(ok ? row0 + r : 0) * C + c * 8, ok);
+      }
+    }
+  };
+  constexpr int STEP = WT * kMmaWarps;
+  int row0 = n_begin + WT * warp;
+  if (row0 < n_end) load(row0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // weights and params of every thread
+
+  const bf16* wy3 = ws;
+  const bf16* wu1 = ws + MAT;
+  const bf16* wu2 = ws + 2 * MAT;
+  const bf16* m = ws + 3 * MAT;
+  for (int st = 0; row0 < n_end; row0 += STEP, st ^= 1) {
+    if (row0 + STEP < n_end) load(row0 + STEP, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    bf16* ts = ring + st * WSTAGE;
+    bf16* tx1 = ts + WT * BRS;
+    bf16* tx2 = tx1 + WT * BRS;
+
+    uint32_t xa[4][4], y3[4][4], u[4][4];
+    load_a(ts, xa);
+    project_a(xa, wy3, prm, y3);
+    float acc[8][4];
+    // output 1: y3 M0 + u1 M1 + be1, residual x1, LayerNorm 1
+    load_a(tx1, xa);
+    project_a(xa, wu1, prm + C, u);
+    zero(acc);
+    mma_64(acc, y3, m);
+    mma_64(acc, u, m + MAT);
+    ln_store(acc, xa, prm + 3 * C, prm + 5 * C, prm + 6 * C, tx1, o1 + img,
+             row0, n_end);
+    // output 2: y3 M2 + u2 M3 + be2, residual x2, LayerNorm 2
+    load_a(tx2, xa);
+    project_a(xa, wu2, prm + 2 * C, u);
+    zero(acc);
+    mma_64(acc, y3, m + 2 * MAT);
+    mma_64(acc, u, m + 3 * MAT);
+    ln_store(acc, xa, prm + 4 * C, prm + 7 * C, prm + 8 * C, tx2, o2 + img,
+             row0, n_end);
+    __syncwarp();  // the stage is refilled by the next iteration's load
   }
 }
 
@@ -314,19 +543,34 @@ int grams(const void* x1, const void* x2, const void* s, const float* w,
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int apply(const void* x1, const void* x2, const void* s, const float* w,
-          const float* bias, const float* mats, const float* be,
-          const float* lnp, void* o1, void* o2, int b, int n, int chunk,
-          cudaStream_t stream) {
-  auto kern = ffm_apply_kernel<T>;
+int apply_f32(const void* x1, const void* x2, const void* s, const void* w,
+              const void* bias, const void* mats, const void* be,
+              const void* lnp, void* o1, void* o2, int b, int n, int chunk,
+              cudaStream_t stream) {
+  auto kern = ffm_apply_kernel;
   cudaError_t err = allow_smem(kern, kApplySmem);
   if (err != cudaSuccess) return int(err);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int n_chunks = (n + chunk - 1) / chunk;
   kern<<<dim3(n_chunks, b), kThreads, kApplySmem, stream>>>(
-      static_cast<const T*>(x1), static_cast<const T*>(x2),
-      static_cast<const T*>(s), w, bias, mats, be, lnp, static_cast<T*>(o1),
-      static_cast<T*>(o2), n, chunk);
+      f(x1), f(x2), f(s), f(w), f(bias), f(mats), f(be), f(lnp),
+      static_cast<float*>(o1), static_cast<float*>(o2), n, chunk);
+  return int(cudaGetLastError());
+}
+
+int apply_bf16(const void* x1, const void* x2, const void* s, const void* w,
+               const void* bias, const void* mats, const void* be,
+               const void* lnp, void* o1, void* o2, int b, int n, int chunk,
+               cudaStream_t stream) {
+  cudaError_t err = allow_smem(ffm_apply_mma_kernel, kApplyMmaSmem);
+  if (err != cudaSuccess) return int(err);
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int n_chunks = (n + chunk - 1) / chunk;
+  ffm_apply_mma_kernel<<<dim3(n_chunks, b), kMmaThreads, kApplyMmaSmem,
+                         stream>>>(
+      h(x1), h(x2), h(s), h(w), f(bias), h(mats), f(be), f(lnp),
+      static_cast<bf16*>(o1), static_cast<bf16*>(o2), n, chunk);
   return int(cudaGetLastError());
 }
 
@@ -358,7 +602,9 @@ int segmif_ffm_grams(const void* x1, const void* x2, const void* s,
   return int(cudaErrorInvalidValue);
 }
 
-// Pass B. o1, o2: [B][N][64] in the input type. Returns cudaGetLastError().
+// Pass B. w [3][64][64] and mats [B][4][64][64] ([in][out]) in the input
+// type; bias [3][64], be [2][64], lnp [2][2][64] f32. o1, o2: [B][N][64]
+// in the input type. Returns cudaGetLastError().
 int segmif_ffm_apply(const void* x1, const void* x2, const void* s,
                      const void* w, const void* bias, const void* mats,
                      const void* be, const void* lnp, void* o1, void* o2,
@@ -366,13 +612,12 @@ int segmif_ffm_apply(const void* x1, const void* x2, const void* s,
   using namespace segmif;
   if (chunk % TILE != 0) return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (dtype == kF32)
-    return apply<float>(x1, x2, s, f(w), f(bias), f(mats), f(be), f(lnp), o1,
-                        o2, b, n, chunk, st);
+    return apply_f32(x1, x2, s, w, bias, mats, be, lnp, o1, o2, b, n, chunk,
+                     st);
   if (dtype == kBF16)
-    return apply<__nv_bfloat16>(x1, x2, s, f(w), f(bias), f(mats), f(be),
-                                f(lnp), o1, o2, b, n, chunk, st);
+    return apply_bf16(x1, x2, s, w, bias, mats, be, lnp, o1, o2, b, n, chunk,
+                      st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -204,9 +204,25 @@ def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
     return out1.to(dt), out2.to(dt)
 
 
+def _apply_chunk(n: int, bsz: int, dtype: torch.dtype,
+                 device: torch.device) -> int:
+    """Tokens per block of pass B, a multiple of 64. bf16 (one 8-warp block
+    per SM, by shared memory): each image's tokens split so that the grid
+    is four whole waves of SMs, or as near as the tiles allow. f32: up to
+    16 tiles a block, about 8 blocks per SM."""
+    tiles = math.ceil(n / _TILE)
+    sms = _sm_count(device)
+    if dtype == torch.bfloat16:
+        per_image = min(tiles, math.ceil(4 * sms / bsz))
+        return math.ceil(tiles / per_image) * _TILE
+    return min(16, max(1, math.ceil(tiles * bsz / (8 * sms)))) * _TILE
+
+
 def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
     """Pass B. CPU tensors take the plain version; CUDA tensors launch
-    ``segmif_ffm_apply`` (token tiles of 64, up to 16 tiles a block)."""
+    ``segmif_ffm_apply``: in bf16 the tensor-core kernel (weights and
+    contexts as bf16, the seven products chained in registers), in f32 the
+    CUDA-core kernel."""
     if x1.device.type == "cpu":
         return crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp)
     if x1.device.type != "cuda":
@@ -220,14 +236,14 @@ def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
         raise ValueError("crosspath_apply_rows: mats/be/lnp shapes "
                          f"{tuple(mats.shape)} {tuple(be.shape)} "
                          f"{tuple(lnp.shape)}")
-    dev = x1.device
-    w, b = _halves(wp.to(dev), bp.to(dev), x1.dtype, _APPLY_PICKS)
-    m = mats.to(dev).to(x1.dtype).float().contiguous()
+    dev, dt = x1.device, x1.dtype
+    # w and mats rounded to the input type (exact in it), as the plain
+    # version rounds them; the kernel reads them in that type
+    w, b = _halves(wp.to(dev), bp.to(dev), dt, _APPLY_PICKS)
+    w = w.to(dt)
+    m = mats.to(dev).to(dt).contiguous()
     be = be.to(dev).float().contiguous()
     lnp = lnp.to(dev).float().contiguous()
-    tiles = math.ceil(n / _TILE)
-    per_block = min(16, max(1, math.ceil(tiles * bsz
-                                         / (8 * _sm_count(dev)))))
     o1 = torch.empty_like(x1)
     o2 = torch.empty_like(x2)
     lib = _build.library()
@@ -236,8 +252,8 @@ def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
         err = lib.segmif_ffm_apply(
             x1.data_ptr(), x2.data_ptr(), s.data_ptr(), w.data_ptr(),
             b.data_ptr(), m.data_ptr(), be.data_ptr(), lnp.data_ptr(),
-            o1.data_ptr(), o2.data_ptr(), bsz, n, per_block * _TILE,
-            _build.DTYPE_CODES[x1.dtype], stream)
+            o1.data_ptr(), o2.data_ptr(), bsz, n,
+            _apply_chunk(n, bsz, dt, dev), _build.DTYPE_CODES[dt], stream)
     _build.check(err, "crosspath_apply_rows")
     crosspath_apply_rows.launches += 1
     return o1, o2

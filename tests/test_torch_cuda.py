@@ -7,13 +7,27 @@ Run on a machine with the card:  python -m pytest tests/test_torch_cuda.py -q
 This file imports no JAX: the machine with the card has none.
 
 Tolerances (both sides compute in f32; TF32 is off for the plain side):
- - f32 outputs: reduction order only, 1e-5 (attention) / 1e-4 (FFM apply,
-   whose LayerNorm scales errors by 1/std) absolute; grams 1e-4 relative
-   to their largest entry (non-negative summands in another order).
- - bf16 outputs: both sides round the same f32 value, which may differ in
-   its last bits, so they can be one bf16 step apart: 1.6e-2 for attention
-   outputs below 4 (2^-6), 6.25e-2 for LayerNorm outputs below 8 (two
-   steps of 2^-5); grams of bf16-rounded activations 1e-3 relative.
+ - sr-attention and FFM apply, per element: |got - ref| <= atol + rtol *
+   |ref|, and in bf16 at most a share of the elements differ at all.
+   f32: reduction order only, atol 1e-5 (attention) / 1e-4 (FFM apply,
+   whose LayerNorm scales errors by 1/std), rtol 0. bf16 attention: rtol
+   2^-7 (one bf16 step of the output, so any one-step difference passes:
+   the kernel's P V is f32-accurate to about 2^-17, and the two sides
+   round f32 values that differ in their last bits), atol 2^-14 (outputs
+   near zero, where sums of terms of order 1 cancel); chip_smoke.py reads
+   up to 0.98 of the limit and 0.34% of elements differing on the H100 at
+   the main-path and 1080p shapes; the share is held to 2%.
+   bf16 FFM apply: rtol 2^-7 (one output step), atol 2^-5 (a projection
+   activation rounded to bf16 on the other side of a boundary moves a
+   context product by up to one activation step times a context entry,
+   then through the LayerNorm); chip_smoke.py reads 0.33 of the limit and
+   0.02% of elements differing; the share is held to 1%. The limits hold
+   on other seeds at those shapes: test_bf16_limits_hold_over_seeds. A
+   planted fault fails one of the two limits:
+   test_sr_attention_and_apply_checks_catch_a_fault.
+ - grams: 1e-4 relative to their largest entry in f32 (non-negative
+   summands in another order), 1e-3 in bf16 (rare one-step flips of an
+   activation).
  - DRDB, per element: |got - ref| <= atol + rtol * (|ref| + |ref - x|),
    the last term only for the tail and the block, whose output is x plus
    a bottleneck term rounded on its own. f32: 1e-4 and 1e-4, for sums in
@@ -57,8 +71,12 @@ from segmif_tpu_torch.kernels.ffm import (
 
 pytestmark = pytest.mark.cuda
 
-SR_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
-APPLY_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
+# sr-attention and FFM apply: (rtol, atol, largest share of elements
+# that may differ); see the module docstring
+SR_TOL = {torch.float32: (0.0, 1e-5, 1.0),
+          torch.bfloat16: (2 ** -7, 2 ** -14, 0.02)}
+APPLY_TOL = {torch.float32: (0.0, 1e-4, 1.0),
+             torch.bfloat16: (2 ** -7, 2 ** -5, 0.01)}
 GRAM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # DRDB (rtol, atol) per element
 GROWTH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
@@ -86,28 +104,96 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,m,h,d", [
+def _close(got, want, tol):
+    """Every element within atol + rtol * |ref| and at most the given share
+    of the elements different at all."""
+    rtol, atol, share = tol
+    d = (got.float() - want.float()).abs()
+    return (bool((d <= atol + rtol * want.float().abs()).all())
+            and (d > 0).float().mean().item() <= share)
+
+
+def _sr_inputs(seed, b, n, m, h, d, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    q = _randn(g, (b, n, h, d), dtype, device)
+    kv = _randn(g, (b, m, 2 * h * d), dtype, device)
+    # k and v as the model makes them: strided halves of one projection
+    return (q, kv[..., :h * d].unflatten(-1, (h, d)),
+            kv[..., h * d:].unflatten(-1, (h, d)))
+
+
+SR_SHAPES = [
     (1, 4, 3, 2, 32),          # tiny, M below one warp
     (2, 1000, 300, 1, 64),     # ragged query tile
     (2, 19200, 300, 1, 64),    # mit_b3 stage 1 at 480x640
     (2, 4800, 300, 2, 64),     # stage 2
     (2, 1200, 300, 5, 64),     # stage 3
     (2, 300, 300, 8, 64),      # stage 4
-])
+    (2, 4096, 256, 1, 32),     # mit_b0 stage 1 (D = 32) at 256x256
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,h,d", SR_SHAPES)
 def test_sr_attention_kernel_matches_plain(cuda, dtype, b, n, m, h, d):
-    g = torch.Generator().manual_seed(0)
-    q = _randn(g, (b, n, h, d), dtype, cuda)
-    kv = _randn(g, (b, m, 2 * h * d), dtype, cuda)
-    # k and v as the model makes them: strided halves of one projection
-    k = kv[..., :h * d].unflatten(-1, (h, d))
-    v = kv[..., h * d:].unflatten(-1, (h, d))
+    q, k, v = _sr_inputs(0, b, n, m, h, d, dtype, cuda)
     with torch.inference_mode():
         got = sr_attention(q, k, v, d ** -0.5)
         want = sr_attention_ref(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, n, h, d)
-    assert _max_err(got, want) <= SR_TOL[dtype]
+    assert _close(got, want, SR_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (2, 70, 1, 2, 64),         # one key
+    (2, 100, 44, 2, 64),       # one ragged key tile (300 = 4 x 64 + 44)
+    (1, 130, 65, 1, 32),       # one key past a whole tile, D = 32
+    (2, 4000, 1980, 1, 64),    # the 1080p stage-1 key count (31 tiles)
+    (1, 1500, 1980, 5, 64),    # five heads over 1980 keys
+])
+def test_sr_attention_bf16_takes_any_m(cuda, b, n, m, h, d):
+    """The bf16 kernel streams K/V, so M has no limit; ragged key tiles
+    and N not a multiple of the 64-query tile are masked."""
+    q, k, v = _sr_inputs(16, b, n, m, h, d, torch.bfloat16, cuda)
+    with torch.inference_mode():
+        got = sr_attention(q, k, v, d ** -0.5)
+        want = sr_attention_ref(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, h, d)
+    assert _close(got, want, SR_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("fault", ["sr_scale_x1.01", "sr_last_key_dropped",
+                                   "apply_be_zeroed", "apply_m1_m3_swapped",
+                                   "apply_gamma_plus_0.01"])
+def test_sr_attention_and_apply_checks_catch_a_fault(cuda, fault):
+    """The bf16 kernels run with a fault planted in their arguments fail
+    the tolerances above against the plain versions on the true ones."""
+    with torch.inference_mode():
+        if fault.startswith("sr"):
+            q, k, v = _sr_inputs(17, 2, 4800, 300, 2, 64, torch.bfloat16,
+                                 cuda)
+            want = sr_attention_ref(q, k, v, 0.125)
+            got = (sr_attention(q, k, v, 0.125 * 1.01)
+                   if fault == "sr_scale_x1.01"
+                   else sr_attention(q, k[:, :-1], v[:, :-1], 0.125))
+            tol = SR_TOL[torch.bfloat16]
+        else:
+            g = torch.Generator().manual_seed(18)
+            xs, wp, bp, mats, be, lnp = _ffm_inputs(g, 2, 4097,
+                                                    torch.bfloat16, cuda)
+            want = crosspath_apply_rows_ref(*xs, wp, bp, mats, be, lnp)[0]
+            if fault == "apply_be_zeroed":
+                be = be * 0
+            elif fault == "apply_m1_m3_swapped":
+                mats = mats[:, [0, 3, 2, 1]]
+            else:
+                lnp = lnp + torch.tensor([0.01, 0.0], device=cuda)[:, None]
+            got = crosspath_apply_rows(*xs, wp, bp, mats, be, lnp)[0]
+            tol = APPLY_TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    assert not _close(got, want, tol)
 
 
 def test_sr_attention_refuses_what_it_does_not_take(cuda):
@@ -115,8 +201,13 @@ def test_sr_attention_refuses_what_it_does_not_take(cuda):
     q = _randn(g, (1, 8, 1, 64), torch.float32, cuda)
     big = _randn(g, (1, 4096, 1, 64), torch.float32, cuda)
     with torch.inference_mode():
+        # the f32 kernel holds K/V whole in shared memory
         with pytest.raises(ValueError, match="exceed"):
             sr_attention(q, big, big, 0.125)
+        # bf16 rows are copied 16 bytes at a time
+        qb = _randn(g, (1, 8, 1, 68), torch.bfloat16, cuda)[..., :64]
+        with pytest.raises(ValueError, match="16 bytes"):
+            sr_attention(qb, qb, qb, 0.125)
         with pytest.raises(ValueError, match="dtype"):
             sr_attention(q.half(), q.half(), q.half(), 0.125)
         with pytest.raises(ValueError, match="head dim"):
@@ -162,8 +253,8 @@ def test_ffm_grams_kernel_matches_plain(cuda, dtype, b, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n", [(1, 40), (2, 1000), (2, 4097),
-                                 (2, 307200)])
+@pytest.mark.parametrize("b,n", [(b, n) for b in (1, 2, 8)
+                                 for n in (40, 4097, 307200)] + [(2, 1000)])
 def test_ffm_apply_kernel_matches_plain(cuda, dtype, b, n):
     g = torch.Generator().manual_seed(3)
     (x1, x2, s), wp, bp, mats, be, lnp = _ffm_inputs(g, b, n, dtype, cuda)
@@ -172,8 +263,31 @@ def test_ffm_apply_kernel_matches_plain(cuda, dtype, b, n):
         r1, r2 = crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp)
     torch.cuda.synchronize()
     assert o1.dtype == dtype and o1.shape == (b, n, 64)
-    assert _max_err(o1, r1) <= APPLY_TOL[dtype]
-    assert _max_err(o2, r2) <= APPLY_TOL[dtype]
+    assert _close(o1, r1, APPLY_TOL[dtype])
+    assert _close(o2, r2, APPLY_TOL[dtype])
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_bf16_limits_hold_over_seeds(cuda, seed):
+    """The bf16 sr-attention and FFM apply limits hold on more seeds at the
+    main-path shapes (B = 8, the four mit_b3 stages and the fusion trunk)
+    and at the 1080p stage-1 shape."""
+    bf = torch.bfloat16
+    with torch.inference_mode():
+        for b, n, m, h in ((8, 19200, 300, 1), (8, 4800, 300, 2),
+                           (8, 1200, 300, 5), (8, 300, 300, 8),
+                           (2, 129600, 1980, 1)):
+            q, k, v = _sr_inputs(seed, b, n, m, h, 64, bf, cuda)
+            assert _close(sr_attention(q, k, v, 0.125),
+                          sr_attention_ref(q, k, v, 0.125), SR_TOL[bf]), \
+                (n, m, h)
+            del q, k, v
+        g = torch.Generator().manual_seed(seed)
+        xs, wp, bp, mats, be, lnp = _ffm_inputs(g, 8, 307200, bf, cuda)
+        for got, want in zip(
+                crosspath_apply_rows(*xs, wp, bp, mats, be, lnp),
+                crosspath_apply_rows_ref(*xs, wp, bp, mats, be, lnp)):
+            assert _close(got, want, APPLY_TOL[bf])
 
 
 def test_ffm_refuses_what_it_does_not_take(cuda):

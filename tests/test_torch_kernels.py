@@ -40,6 +40,7 @@ def _t(a):
     (512, 128, 2, 64),     # aligned
     (300, 300, 8, 64),     # stage-4-like: N and M both unaligned
     (1200, 300, 5, 64),    # stage-3-like
+    (256, 1980, 1, 64),    # 1080p stage-1 key count: many key tiles
 ])
 def test_sr_attention_matches_pallas(monkeypatch, n, m, h, d):
     rng = np.random.default_rng(0)
@@ -341,3 +342,21 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_calls_no_library_attention_or_compile():
+    """No source of segmif_tpu_torch calls PyTorch's fused attention or
+    torch.compile: the kernels on its path are its own."""
+    from pathlib import Path
+
+    import segmif_tpu_torch
+
+    root = Path(segmif_tpu_torch.__file__).parent
+    srcs = sorted(root.rglob("*.py")) + sorted((root / "kernels" / "csrc")
+                                               .glob("*.cu*"))
+    assert len(srcs) >= 15, srcs
+    bad = [f"{p.relative_to(root)}: {w}" for p in srcs
+           for w in ("scaled_dot_product_attention", "torch.compile",
+                     "flash_attn", "cudnn_attention")
+           if w in p.read_text()]
+    assert not bad, bad
