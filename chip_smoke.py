@@ -21,13 +21,18 @@ line):
     held per element, with planted faults (scale x 1.01, the last key
     row dropped; be zeroed, M1 and M3 swapped, LayerNorm gamma + 0.01)
     that must fail those checks, and bf16 sr-attention at the 1080p
-    stage-1 shape (M = 1980) beside SDPA; the DRDB growth chain, tail
-    and whole block (against ``drdb_chain``), held per element, also at
-    an odd 100x172, with the block's peak device memory; the int8 DRDB
+    stage-1 shape (M = 1980) beside SDPA; FFM grams also at B = 8 with
+    N = 1 and 40, with planted faults (y1's bias zeroed, y1 and y2
+    swapped); the DRDB growth chain, tail and whole block (against
+    ``drdb_chain``), held per element, also at an odd 100x172, with the
+    block's peak device memory, the growth's five-launch traffic floor
+    and cuDNN's five convs on prebuilt concatenations beside it, bf16
+    growth at 17x33, 5x7 and on a channel slice of x; the int8 DRDB
     kernels held bit for bit against ``drdb_int8_ref`` (the int8 buffer
     and the output) at the main-path shape, 100x172 and 5x7, with the
     int8 block's peak memory; at 100x172, faults planted in the DRDB
-    kernels' arguments must fail those checks;
+    kernels' arguments (dropped biases, swapped conv taps, a zeroed weight
+    chunk) must fail those checks;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
@@ -361,6 +366,17 @@ def kernel_checks(dev):
         check(err <= rtol * scale, f"ffm_grams {dname} error {err}")
         check(torch.equal(got, crosspath_grams(x1, x2, s, wp, bp)),
               "ffm_grams is not deterministic")
+        if dtype == torch.bfloat16:
+            for name, bad in (
+                    ("y1 bias zeroed", (wp, torch.cat([bp[:1] * 0, bp[1:]]))),
+                    ("y1 and y2 weights swapped", (wp[[1, 0, 2]], bp))):
+                e = max_err(crosspath_grams(x1, x2, s, *bad), want)
+                print(f"planted fault, ffm_grams {dname} N={n}, {name}: "
+                      f"max_abs_err {e:.3e}, error/limit "
+                      f"{e / (rtol * scale):.3f} (the check fails, as it "
+                      f"must)", flush=True)
+                check(e > rtol * scale, f"the ffm_grams check passes a "
+                                        f"kernel run with the {name}")
         res["ffm_grams"]["max_abs_err"] = max(res["ffm_grams"]["max_abs_err"],
                                               err)
         if dtype == torch.bfloat16:
@@ -400,6 +416,18 @@ def kernel_checks(dev):
                         nbytes(*args, *got)))
         del x1, x2, s, got, want, args
         torch.cuda.empty_cache()
+    # bf16 grams with fewer tokens than one 16-token tile per warp
+    rtol, why = GRAM_RTOL["bfloat16"]
+    for n in (1, 40):
+        xs = [randn((BATCH, n, c), torch.bfloat16) for _ in range(3)]
+        got = crosspath_grams(*xs, wp, bp)
+        want = crosspath_grams_ref(*xs, wp, bp)
+        err, scale = max_err(got, want), want.abs().max().item()
+        print(f"ffm_grams bfloat16 B={BATCH} N={n}: max_abs_err {err:.3e} "
+              f"of max |gram| {scale:.3e} (rtol {rtol:g})", flush=True)
+        check(err <= rtol * scale, f"ffm_grams bfloat16 N={n} error {err}")
+        check(torch.equal(got, crosspath_grams(*xs, wp, bp)),
+              "ffm_grams is not deterministic")
     return res
 
 
@@ -461,8 +489,10 @@ def compare(label, kernel, plain, tol, timed, x=None):
 
 def planted_faults(x, dconvs, wb, bb, tols, label):
     """Run the kernels with a fault planted in their arguments (a dropped
-    conv 1 or conv 5 bias, a dropped or channel-shifted tail bias) against
-    the plain versions on the true arguments; each must fail the check."""
+    conv 1 or conv 5 bias, conv 3's taps (0, 0) and (2, 2) swapped, conv
+    5's weights for r4 zeroed, a dropped or channel-shifted tail bias)
+    against the plain versions on the true arguments; each must fail the
+    check."""
     import torch
 
     from segmif_tpu_torch.kernels.drdb import (drdb_growth, drdb_growth_ref,
@@ -472,12 +502,31 @@ def planted_faults(x, dconvs, wb, bb, tols, label):
         return [(w, torch.zeros_like(b) if i == t else b)
                 for i, (w, b) in enumerate(dconvs)]
 
+    def with_weight(t, w):
+        return [(w, dconvs[t][1]) if i == t else c
+                for i, c in enumerate(dconvs)]
+
+    def swap_taps(t):   # conv t's taps (0, 0) and (2, 2) swapped
+        w = dconvs[t][0].clone()
+        w[..., 0, 0], w[..., 2, 2] = (w[..., 2, 2].clone(),
+                                      w[..., 0, 0].clone())
+        return with_weight(t, w)
+
+    def zero_last_chunk(t):   # conv t's weights for its last 32 inputs
+        w = dconvs[t][0].clone()
+        w[:, -32:] = 0
+        return with_weight(t, w)
+
     ref = drdb_growth_ref(x, dconvs)
     rs = drdb_growth(x, dconvs)   # the tail reads the kernel's buffer
     tref = drdb_tail_ref(x, rs, wb, bb)
     faults = (
         ("conv 1 bias dropped", drdb_growth(x, drop(0)), ref, "growth", None),
         ("conv 5 bias dropped", drdb_growth(x, drop(4)), ref, "growth", None),
+        ("conv 3 taps (0, 0) and (2, 2) swapped",
+         drdb_growth(x, swap_taps(2)), ref, "growth", None),
+        ("conv 5 weights of its last 32 inputs (r4) zeroed",
+         drdb_growth(x, zero_last_chunk(4)), ref, "growth", None),
         ("tail bias dropped", drdb_tail(x, rs, wb, torch.zeros_like(bb)),
          tref, "tail", x),
         ("tail bias shifted one channel", drdb_tail(x, rs, wb, bb.roll(1)),
@@ -499,7 +548,8 @@ def drdb_checks(dev):
 
     from segmif_tpu_torch.kernels.drdb import (drdb_block, drdb_chain,
                                                drdb_growth, drdb_growth_ref,
-                                               drdb_tail, drdb_tail_ref)
+                                               drdb_tail, drdb_tail_ref,
+                                               pack_growth, pack_tail)
 
     gen = torch.Generator().manual_seed(SEED + 2)
     res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -511,12 +561,15 @@ def drdb_checks(dev):
             x, dconvs, (wb, bb) = drdb_inputs(gen, b, h, w, dtype, dev)
             shape = f"{dname} [{b}, 64, {h}, {w}]"
             tols = {"growth": GROWTH_TOL[dname], "tail": TAIL_TOL[dname]}
+            # weights packed once, as DRDB.forward passes them
+            gpk, tpk = pack_growth(dconvs, dtype), pack_tail(wb, bb, dtype)
             rs, gerr, gms, gpms = compare(
-                f"drdb_growth {shape}", lambda: drdb_growth(x, dconvs),
+                f"drdb_growth {shape}", lambda: drdb_growth(x, dconvs, gpk),
                 lambda: drdb_growth_ref(x, dconvs), tols["growth"], timed)
             # the tail reads the growth buffer's slices, as on the path
             out, terr, tms, tpms = compare(
-                f"drdb_tail {shape}", lambda: drdb_tail(x, rs, wb, bb),
+                f"drdb_tail {shape}",
+                lambda: drdb_tail(x, rs, wb, bb, wpk=tpk),
                 lambda: drdb_tail_ref(x, rs, wb, bb), tols["tail"], timed,
                 x)
             check(out.is_contiguous(memory_format=torch.channels_last),
@@ -535,9 +588,23 @@ def drdb_checks(dev):
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if timed and dtype == torch.bfloat16:
                     r.update(ms=ms, plain_ms=pms, **bnd)
+            if timed and dtype == torch.bfloat16:
+                res["drdb_growth"]["library_ms"] = cudnn_growth_ms(
+                    x, rs, dconvs)
+                # what five launches must move: each conv reads its input
+                # (64 + 32 t channels) and writes its 32, 2 bytes each
+                floor = npix * (sum(64 + 32 * t for t in range(5)) + 160) * 2
+                print(f"drdb_growth {shape}: bound "
+                      f"{growth_bound['bound_ms']:.4f} ms "
+                      f"({growth_bound['bound_by']}); five-launch traffic "
+                      f"floor {floor / 1e9:.3f} GB, "
+                      f"{floor / HBM_BYTES_S * 1e3:.4f} ms; cuDNN's five "
+                      f"convs on prebuilt concatenations (no relu, no "
+                      f"concat) {res['drdb_growth']['library_ms']:.4f} ms",
+                      flush=True)
             del rs, out
             compare(f"drdb_block {shape} vs drdb_chain",
-                    lambda: drdb_block(x, dconvs, (wb, bb)),
+                    lambda: drdb_block(x, dconvs, (wb, bb), (gpk, tpk)),
                     lambda: drdb_chain(x, dconvs, (wb, bb)),
                     BLOCK_TOL[dname], timed, x)
             if not timed:
@@ -556,7 +623,47 @@ def drdb_checks(dev):
                     del y
             del x, dconvs
             torch.cuda.empty_cache()
+    # bf16 growth off the 16x16 tile, and with x a channel slice (16-79)
+    # of a wider channels_last tensor (pixel stride 96)
+    for b, h, w, sliced in ((1, 17, 33, False), (2, 5, 7, False),
+                            (2, 17, 33, True)):
+        x, dconvs, _ = drdb_inputs(gen, b, h, w, torch.bfloat16, dev)
+        if sliced:
+            wide = torch.randn((b, h, w, 96), generator=gen).to(
+                dev, torch.bfloat16)
+            wide[..., 16:80] = x.permute(0, 2, 3, 1)
+            x = wide.permute(0, 3, 1, 2)[:, 16:80]
+        _, err, _, _ = compare(
+            f"drdb_growth bfloat16 [{b}, 64, {h}, {w}]"
+            f"{', x a channel slice' if sliced else ''}",
+            lambda: drdb_growth(x, dconvs), lambda: drdb_growth_ref(x, dconvs),
+            GROWTH_TOL["bfloat16"], False)
+        res["drdb_growth"]["max_abs_err"] = max(
+            res["drdb_growth"]["max_abs_err"], err)
     return res
+
+
+def cudnn_growth_ms(x, rs, dconvs) -> float:
+    """The growth's library yardstick: cuDNN's five dilated convs, bf16 and
+    channels_last, on concatenated inputs built beforehand (so without the
+    relu and the concat the chain also needs). Timed here only; the port
+    never calls it on the card path."""
+    import torch
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    feats = [torch.cat([x, *rs[:t]], 1).contiguous(memory_format=cl)
+             for t in range(5)]
+    ws = [(w.contiguous(memory_format=cl), b) for w, b in dconvs]
+
+    def five():
+        for f, (w, b) in zip(feats, ws):
+            F.conv2d(f, w, b, padding=2, dilation=2)
+
+    ms = time_fn(five)
+    del feats
+    torch.cuda.empty_cache()
+    return ms
 
 
 def int8_faults(q):

@@ -28,7 +28,7 @@
 // and 7 x 64 x 64 in pass B: below the bf16 ridge, so on tensor cores the
 // bytes are the bound. On CUDA cores in f32 the arithmetic is.
 //
-// Pass A, and pass B in f32: 256 threads per block, token tiles of 64; a
+// Passes A and B in f32: 256 threads per block, token tiles of 64; a
 // thread owns a 4x4 output micro-tile (4 tokens x 4 channels, or 4x4 of a
 // gram) so each shared-memory read feeds 4 FMAs. Tiles and weights are
 // staged in shared memory as f32 (rows padded to 68 floats). The TPU
@@ -36,6 +36,14 @@
 // run in parallel and in no order, so pass A writes one partial gram per
 // (image, token chunk) and a second kernel sums the partials in chunk
 // order. No atomics: results are the same from run to run.
+//
+// Pass A in bf16 (ffm_grams_mma_kernel): both products on tensor cores
+// (mma.sync m16n8k16, f32 accumulation), one projection per block (grid
+// (chunks, B, 3)), eight warps each walking its own 16-token tiles
+// through a private four-stage cp.async ring. The projection is taken
+// transposed, r^T = W^T x^T, so its accumulators are already the gram's
+// operand fragments (see the kernel); the gram keeps its 10 upper 16x16
+// blocks in registers. Per-(image, chunk, projection) partials as above.
 //
 // Pass B in bf16 (the serving dtype): the seven products on tensor cores
 // (mma.sync m16n8k16, f32 accumulation), chained in registers.
@@ -67,29 +75,24 @@ constexpr int TILE = 64;        // tokens per tile
 constexpr int RS = C + 4;       // padded row stride of staged tiles
 constexpr int kThreads = 256;   // 16 x 16 threads, 4x4 micro-tiles
 
-// Stage tokens [n0, n0+TILE) of x (a [N, C] image slice) into dst[TILE][RS]
-// as f32; rows past n_end are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, int n0,
+// Stage tokens [n0, n0+TILE) of x (an f32 [N, C] image slice) into
+// dst[TILE][RS]; rows past n_end are zero.
+__device__ __forceinline__ void load_tile(const float* __restrict__ x, int n0,
                                           int n_end, float* dst) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LOADS = TILE * C / VEC / kThreads;
+  constexpr int LOADS = TILE * C / 4 / kThreads;
 #pragma unroll
   for (int r = 0; r < LOADS; ++r) {
-    const int e0 = (threadIdx.x + r * kThreads) * VEC;
+    const int e0 = (threadIdx.x + r * kThreads) * 4;
     const int t = e0 / C, c = e0 % C;
-    uint4 raw = make_uint4(0, 0, 0, 0);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (n0 + t < n_end)
-      raw = *reinterpret_cast<const uint4*>(x + int64_t(n0 + t) * C + c);
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[t * RS + c + i] = to_f32(v[i]);
+      v = *reinterpret_cast<const float4*>(x + int64_t(n0 + t) * C + c);
+    *reinterpret_cast<float4*>(dst + t * RS + c) = v;
   }
 }
 
-// out[TILE][RS] = round_T(relu(src @ w + bias)) for this thread's 4x4
-// micro-tile; rows >= valid are written as 0.
-template <typename T>
+// out[TILE][RS] = relu(src @ w + bias) for this thread's 4x4 micro-tile;
+// rows >= valid are written as 0.
 __device__ __forceinline__ void project(const float* src, const float* w,
                                         const float* bias, float* dst,
                                         int valid) {
@@ -115,22 +118,22 @@ __device__ __forceinline__ void project(const float* src, const float* w,
   for (int i = 0; i < 4; ++i) {
     const bool ok = 4 * ty + i < valid;
     float4 r;
-    r.x = ok ? round_to<T>(fmaxf(acc[i][0], 0.f)) : 0.f;
-    r.y = ok ? round_to<T>(fmaxf(acc[i][1], 0.f)) : 0.f;
-    r.z = ok ? round_to<T>(fmaxf(acc[i][2], 0.f)) : 0.f;
-    r.w = ok ? round_to<T>(fmaxf(acc[i][3], 0.f)) : 0.f;
+    r.x = ok ? fmaxf(acc[i][0], 0.f) : 0.f;
+    r.y = ok ? fmaxf(acc[i][1], 0.f) : 0.f;
+    r.z = ok ? fmaxf(acc[i][2], 0.f) : 0.f;
+    r.w = ok ? fmaxf(acc[i][3], 0.f) : 0.f;
     *reinterpret_cast<float4*>(dst + (4 * ty + i) * RS + 4 * tx) = r;
   }
 }
 
 // ---------------------------------------------------------------- pass A
 
-// grid (n_chunks, B). w: [3][C][C] (the y1, y2, u3 column halves), b: [3][C].
-// partial: [B][n_chunks][3][C][C].
-template <typename T>
+// f32. grid (n_chunks, B). w: [3][C][C] (the y1, y2, u3 column halves),
+// b: [3][C]. partial: [B][n_chunks][3][C][C].
 __global__ void __launch_bounds__(kThreads)
-    ffm_grams_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
-                     const T* __restrict__ s, const float* __restrict__ w,
+    ffm_grams_kernel(const float* __restrict__ x1,
+                     const float* __restrict__ x2,
+                     const float* __restrict__ s, const float* __restrict__ w,
                      const float* __restrict__ bias,
                      float* __restrict__ partial, int n, int chunk) {
   extern __shared__ float4 smem4[];
@@ -145,8 +148,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int n_begin = blockIdx.x * chunk;
   const int n_end = min(n, n_begin + chunk);
-  const T* src[3] = {x1 + int64_t(b) * n * C, x2 + int64_t(b) * n * C,
-                     s + int64_t(b) * n * C};
+  const float* src[3] = {x1 + int64_t(b) * n * C, x2 + int64_t(b) * n * C,
+                         s + int64_t(b) * n * C};
   float g[3][4][4];
 #pragma unroll
   for (int q = 0; q < 3; ++q)
@@ -158,9 +161,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int n0 = n_begin; n0 < n_end; n0 += TILE) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      load_tile<T>(src[q], n0, n_end, xs);
+      load_tile(src[q], n0, n_end, xs);
       __syncthreads();  // xs ready; every thread is done reading rs
-      project<T>(xs, ws + q * C * C, bs + q * C, rs, n_end - n0);
+      project(xs, ws + q * C * C, bs + q * C, rs, n_end - n0);
       __syncthreads();  // rs ready; every thread is done reading xs
 #pragma unroll 4
       for (int t = 0; t < TILE; ++t) {
@@ -290,20 +293,20 @@ __global__ void __launch_bounds__(kThreads)
   const int n_end = min(n, n_begin + chunk);
   for (int n0 = n_begin; n0 < n_end; n0 += TILE) {
     const int valid = n_end - n0;
-    load_tile<float>(s + img, n0, n_end, xs);
+    load_tile(s + img, n0, n_end, xs);
     __syncthreads();
-    project<float>(xs, ws, bs, ys, valid);  // y3
+    project(xs, ws, bs, ys, valid);  // y3
     __syncthreads();
-    load_tile<float>(x1 + img, n0, n_end, xs);
+    load_tile(x1 + img, n0, n_end, xs);
     __syncthreads();
-    project<float>(xs, ws + C * C, bs + C, us, valid);  // u1
+    project(xs, ws + C * C, bs + C, us, valid);  // u1
     __syncthreads();
     apply_branch(ys, us, ms, ms + C * C, bes, ls, ls + C, xs,
                  o1 + img + int64_t(n0) * C, valid);
     __syncthreads();
-    load_tile<float>(x2 + img, n0, n_end, xs);
+    load_tile(x2 + img, n0, n_end, xs);
     __syncthreads();
-    project<float>(xs, ws + 2 * C * C, bs + 2 * C, us, valid);  // u2
+    project(xs, ws + 2 * C * C, bs + 2 * C, us, valid);  // u2
     __syncthreads();
     apply_branch(ys, us, ms + 2 * C * C, ms + 3 * C * C, bes + C,
                  ls + 2 * C, ls + 3 * C, xs, o2 + img + int64_t(n0) * C,
@@ -521,23 +524,199 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
+// ------------------------------------------------ pass A, bf16, mma.sync
+
+constexpr int kGramWarps = 8;
+constexpr int kGramThreads = kGramWarps * 32;
+constexpr int GSTAGES = 4;               // per-warp ring of 16-token tiles
+constexpr size_t kGramsMmaSmem =
+    sizeof(bf16) * kGramWarps * GSTAGES * WT * BRS + sizeof(float) * C * C;
+
+// grid (n_chunks, B, 3): block (chunk, b, q) takes projection q (y1, y2,
+// u3) of image b's token chunk. w: f32 [3][C][C] [k][n] (bf16-exact);
+// bias f32 [3][C]; partial: [B][n_chunks][3][C][C].
+//  - r^T = W^T x^T per 16-token tile: W^T is the A operand, held in
+//    registers for the whole block (4 channel tiles x 4 k16 steps); the
+//    token tile is the B operand, ldmatrix'd (no transpose) from the
+//    warp's cp.async ring. Lane (g, t) then holds r^T[ch g][tok 2t, 2t+1]:
+//    after bias, relu and the bf16 pack, that is at once the A fragment
+//    (r^T, 16 ch x 16 tok) and the B fragments (r, 16 tok x 8 ch) of the
+//    gram's mma: no shared-memory round trip, no transpose.
+//  - The gram is symmetric: a warp accumulates its 10 upper 16x16 blocks
+//    (80 registers). At the block's end the warps add them into shared
+//    memory in warp order (mirroring the off-diagonal blocks) and the
+//    block writes one full 64x64 partial.
+__global__ void __launch_bounds__(kGramThreads, 1)
+    ffm_grams_mma_kernel(const bf16* __restrict__ x1,
+                         const bf16* __restrict__ x2,
+                         const bf16* __restrict__ s,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bias,
+                         float* __restrict__ partial, int n, int chunk) {
+  extern __shared__ uint4 smem_u4[];
+  // [warps][GSTAGES][WT][BRS] rings, then the block's [C][C] gram
+  bf16* rings = reinterpret_cast<bf16*>(smem_u4);
+  float* sg =
+      reinterpret_cast<float*>(rings + kGramWarps * GSTAGES * WT * BRS);
+  const int b = blockIdx.y, q = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* x = (q == 0 ? x1 : q == 1 ? x2 : s) + int64_t(b) * n * C;
+  const float* wq = w + q * C * C;
+  const float* bq = bias + q * C;
+
+  // A fragments of W^T, [channel tile][k16 step]: W^T[o][k] = wq[k][o]
+  uint32_t wa[4][4][4];
+  float bv[4][2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int o = 16 * m + g;
+    bv[m][0] = bq[o];
+    bv[m][1] = bq[o + 8];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 16 * kk + 2 * t4;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {  // rows o, o + 8; columns k, k + 8
+        const int oo = o + 8 * (f & 1), k0 = k + 8 * (f >> 1);
+        wa[m][kk][f] = pack_bf16(wq[k0 * C + oo], wq[(k0 + 1) * C + oo]);
+      }
+    }
+  }
+  float acc[10][2][4];
+#pragma unroll
+  for (int i = 0; i < 10; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][h][c] = 0.f;
+
+  const int n_begin = blockIdx.x * chunk;
+  const int n_end = min(n, n_begin + chunk);
+  bf16* ring = rings + warp * GSTAGES * WT * BRS;
+  // this warp's 16-token tile at row0 into ring stage st
+  auto load = [&](int row0, int st) {
+#pragma unroll
+    for (int it = 0; it < WT * 8 / 32; ++it) {
+      const int r = (lane + 32 * it) / 8, c = lane % 8;
+      const bool ok = row0 + r < n_end;
+      cp_async16(ring + (st * WT + r) * BRS + c * 8,
+                 x + int64_t(ok ? row0 + r : 0) * C + c * 8, ok);
+    }
+  };
+  constexpr int STEP = WT * kGramWarps;
+  int row0 = n_begin + WT * warp;
+#pragma unroll
+  for (int st = 0; st < GSTAGES - 1; ++st) {
+    if (row0 + st * STEP < n_end) load(row0 + st * STEP, st);
+    cp_async_commit();
+  }
+  for (int i = 0; row0 < n_end; ++i, row0 += STEP) {
+    const int ahead = row0 + (GSTAGES - 1) * STEP;
+    if (ahead < n_end) load(ahead, (i + GSTAGES - 1) % GSTAGES);
+    cp_async_commit();
+    cp_async_wait<GSTAGES - 1>();
+    __syncwarp();
+    const bf16* tile = ring + (i % GSTAGES) * WT * BRS;
+    // B fragments of x^T: xb[kk] = {tokens 0-7: k lo, k hi; 8-15: lo, hi}
+    uint32_t xb[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix_x4(xb[kk], tile + (8 * (lane >> 4) + (lane & 7)) * BRS +
+                              16 * kk + 8 * ((lane >> 3) & 1));
+    __syncwarp();  // the stage is refilled by a later iteration's load
+    // r^T in A-fragment form, [channel tile][4]; tokens past n_end are 0
+    uint32_t ra[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      float p[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          mma_bf16(p[nt], wa[m][kk], xb[kk][2 * nt], xb[kk][2 * nt + 1]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int tok = row0 + 8 * nt + 2 * t4;
+        const bool ok0 = tok < n_end, ok1 = tok + 1 < n_end;
+        ra[m][2 * nt] =
+            pack_bf16(ok0 ? fmaxf(p[nt][0] + bv[m][0], 0.f) : 0.f,
+                      ok1 ? fmaxf(p[nt][1] + bv[m][0], 0.f) : 0.f);
+        ra[m][2 * nt + 1] =
+            pack_bf16(ok0 ? fmaxf(p[nt][2] + bv[m][1], 0.f) : 0.f,
+                      ok1 ? fmaxf(p[nt][3] + bv[m][1], 0.f) : 0.f);
+      }
+    }
+    // gram blocks (I, J), I <= J: r^T[I] times r[J] (its two n8 halves)
+#pragma unroll
+    for (int I = 0; I < 4; ++I)
+#pragma unroll
+      for (int J = I; J < 4; ++J) {
+        const int blk = I * (7 - I) / 2 + J;
+        mma_bf16(acc[blk][0], ra[I], ra[J][0], ra[J][2]);
+        mma_bf16(acc[blk][1], ra[I], ra[J][1], ra[J][3]);
+      }
+  }
+
+  // the warps' grams into shared memory, added in warp order
+  __syncthreads();
+  for (int wi = 0; wi < kGramWarps; ++wi) {
+    if (warp == wi) {
+#pragma unroll
+      for (int I = 0; I < 4; ++I)
+#pragma unroll
+        for (int J = I; J < 4; ++J)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int i = 16 * I + g + 8 * (c >> 1);
+              const int j = 16 * J + 8 * h + 2 * t4 + (c & 1);
+              const float v = acc[I * (7 - I) / 2 + J][h][c];
+              sg[i * C + j] = wi == 0 ? v : sg[i * C + j] + v;
+              if (I != J) sg[j * C + i] = wi == 0 ? v : sg[j * C + i] + v;
+            }
+    }
+    __syncthreads();
+  }
+  float4* out = reinterpret_cast<float4*>(
+      partial + ((int64_t(b) * gridDim.x + blockIdx.x) * 3 + q) * C * C);
+  for (int i = threadIdx.x; i < C * C / 4; i += kGramThreads)
+    out[i] = reinterpret_cast<const float4*>(sg)[i];
+}
+
 constexpr size_t kGramsSmem =
     sizeof(float) * (3 * C * C + 3 * C + 2 * TILE * RS);
 constexpr size_t kApplySmem =
     sizeof(float) * (7 * C * C + 9 * C + 3 * TILE * RS);
 
-template <typename T>
-int grams(const void* x1, const void* x2, const void* s, const float* w,
-          const float* bias, float* partial, float* out, int b, int n,
-          int chunk, int n_chunks, cudaStream_t stream) {
-  auto kern = ffm_grams_kernel<T>;
+int grams_f32(const void* x1, const void* x2, const void* s, const float* w,
+              const float* bias, float* partial, int b, int n, int chunk,
+              int n_chunks, cudaStream_t stream) {
+  auto kern = ffm_grams_kernel;
   cudaError_t err = allow_smem(kern, kGramsSmem);
   if (err != cudaSuccess) return int(err);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   kern<<<dim3(n_chunks, b), kThreads, kGramsSmem, stream>>>(
-      static_cast<const T*>(x1), static_cast<const T*>(x2),
-      static_cast<const T*>(s), w, bias, partial, n, chunk);
-  err = cudaGetLastError();
+      f(x1), f(x2), f(s), w, bias, partial, n, chunk);
+  return int(cudaGetLastError());
+}
+
+int grams_bf16(const void* x1, const void* x2, const void* s, const float* w,
+               const float* bias, float* partial, int b, int n, int chunk,
+               int n_chunks, cudaStream_t stream) {
+  cudaError_t err = allow_smem(ffm_grams_mma_kernel, kGramsMmaSmem);
   if (err != cudaSuccess) return int(err);
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  ffm_grams_mma_kernel<<<dim3(n_chunks, b, 3), kGramThreads, kGramsMmaSmem,
+                         stream>>>(h(x1), h(x2), h(s), w, bias, partial, n,
+                                   chunk);
+  return int(cudaGetLastError());
+}
+
+// grams[b] = sum over chunks (in chunk order) of partial[b][chunk].
+int grams_reduce(const float* partial, float* out, int b, int n_chunks,
+                 cudaStream_t stream) {
   ffm_grams_reduce_kernel<<<dim3((3 * C * C + 255) / 256, b), 256, 0,
                             stream>>>(partial, out, n_chunks);
   return int(cudaGetLastError());
@@ -594,12 +773,12 @@ int segmif_ffm_grams(const void* x1, const void* x2, const void* s,
   auto bf = static_cast<const float*>(bias);
   auto pf = static_cast<float*>(partial);
   auto of = static_cast<float*>(out);
+  int err = int(cudaErrorInvalidValue);
   if (dtype == kF32)
-    return grams<float>(x1, x2, s, wf, bf, pf, of, b, n, chunk, n_chunks, st);
+    err = grams_f32(x1, x2, s, wf, bf, pf, b, n, chunk, n_chunks, st);
   if (dtype == kBF16)
-    return grams<__nv_bfloat16>(x1, x2, s, wf, bf, pf, of, b, n, chunk,
-                                n_chunks, st);
-  return int(cudaErrorInvalidValue);
+    err = grams_bf16(x1, x2, s, wf, bf, pf, b, n, chunk, n_chunks, st);
+  return err != 0 ? err : grams_reduce(pf, of, b, n_chunks, st);
 }
 
 // Pass B. w [3][64][64] and mats [B][4][64][64] ([in][out]) in the input

@@ -16,11 +16,13 @@ channels_last memory (the fusion trunk's layout); weights are the
    ``_tail_impl``), the plain versions on CPU tensors. The growth kernel
    writes r1..r5 into one [B, H, W, 160] buffer; the tail reads x and
    the buffer's slices through their strides, so no concat exists.
+ - ``pack_growth`` / ``pack_tail``: the weights as the kernels read them;
+   ``DRDB`` packs once and passes them as ``wpk``.
  - ``drdb_block``: growth then tail; what ``DRDB.forward`` runs.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,14 +104,17 @@ def _check_dtype_device(x: torch.Tensor, ts: Sequence[torch.Tensor],
 def pack_growth_weights(dconvs: Sequence[Conv],
                         dtype: torch.dtype) -> torch.Tensor:
     """The five convs' OIHW weights, per 32-channel input chunk, as the
-    growth kernel stages them: [chunk][tap][n][k] for bf16 (the mma B
-    operand) and [chunk][tap][k][n] for f32. Flat, 20 chunks of
-    9 x 32 x 32."""
+    growth kernel stages them: [chunk][tap][k granule of 8][n][8] for bf16
+    (the wgmma B operand: 8 x 8 core matrices of 8 output channels by 8
+    input channels, K-major) and [chunk][tap][k][n] for f32. Flat, 20
+    chunks of 9 x 32 x 32."""
     parts = []
     for w, _ in dconvs:
         o, cin = w.shape[:2]
-        wk = w.to(dtype).reshape(o, cin // KC, KC, 9)   # [n, chunk, k, tap]
-        order = (1, 3, 0, 2) if dtype == torch.bfloat16 else (1, 3, 2, 0)
+        # [n, chunk, granule, e, tap]: input channel 32 chunk + 8 granule + e
+        wk = w.to(dtype).reshape(o, cin // KC, KC // 8, 8, 9)
+        order = ((1, 4, 2, 0, 3) if dtype == torch.bfloat16
+                 else (1, 4, 2, 3, 0))
         parts.append(wk.permute(*order).reshape(-1))
     return torch.cat(parts).contiguous()
 
@@ -121,13 +126,42 @@ def pack_tail_weights(wb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (w if dtype == torch.bfloat16 else w.t()).contiguous()
 
 
-def drdb_growth(x: torch.Tensor,
-                dconvs: Sequence[Conv]) -> Tuple[torch.Tensor, ...]:
+Packed = Tuple[torch.Tensor, torch.Tensor]   # (packed weights, f32 bias)
+
+
+def pack_growth(dconvs: Sequence[Conv], dtype: torch.dtype) -> Packed:
+    """What the growth kernel reads: ``pack_growth_weights`` and the five
+    biases as one f32 [160]."""
+    return (pack_growth_weights(dconvs, dtype),
+            torch.cat([b for _, b in dconvs]).float().contiguous())
+
+
+def pack_tail(wb: torch.Tensor, bb: torch.Tensor,
+              dtype: torch.dtype) -> Packed:
+    """What the tail kernel reads: ``pack_tail_weights`` and the f32 bias."""
+    return pack_tail_weights(wb, dtype), bb.float().contiguous()
+
+
+def _check_packed(wpk: Packed, numel: int, nbias: int, x: torch.Tensor,
+                  what: str) -> None:
+    w, b = wpk
+    if (w.numel() != numel or w.dtype != x.dtype or b.shape != (nbias,)
+            or b.dtype != torch.float32 or not w.is_contiguous()
+            or w.data_ptr() % 16 or w.device != x.device
+            or b.device != x.device):
+        raise ValueError(f"{what}: wpk is not this DRDB's packing for "
+                         f"{x.dtype} on {x.device}")
+
+
+def drdb_growth(x: torch.Tensor, dconvs: Sequence[Conv],
+                wpk: Optional[Packed] = None) -> Tuple[torch.Tensor, ...]:
     """x: [B, 64, H, W] -> (r1..r5), each [B, 32, H, W].
 
     CPU tensors take ``drdb_growth_ref``. CUDA tensors launch the growth
     kernel five times (one wrapper call, one count); the r_t are channel
-    slices of one channels_last [B, H, W, 160] buffer."""
+    slices of one channels_last [B, H, W, 160] buffer. ``wpk``: the
+    weights as ``pack_growth`` packs them for x's dtype (a caller that
+    keeps them packs once); without it they are packed here."""
     if x.device.type == "cpu":
         return drdb_growth_ref(x, dconvs)
     if x.device.type != "cuda":
@@ -145,14 +179,16 @@ def drdb_growth(x: torch.Tensor,
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
-        wpk = pack_growth_weights(dconvs, x.dtype)
-        bias = torch.cat([b for _, b in dconvs]).float().contiguous()
+        if wpk is None:
+            wpk = pack_growth(dconvs, x.dtype)
+        _check_packed(wpk, 20 * 9 * KC * G, G * NCONV, x, "drdb_growth")
         buf = torch.empty((bsz, h, w_, G * NCONV), dtype=x.dtype,
                           device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_growth(
-            x.data_ptr(), x_ps, buf.data_ptr(), wpk.data_ptr(),
-            bias.data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype], stream)
+            x.data_ptr(), x_ps, buf.data_ptr(), wpk[0].data_ptr(),
+            wpk[1].data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype],
+            stream)
     _build.check(err, "drdb_growth")
     drdb_growth.launches += 1
     view = buf.permute(0, 3, 1, 2)
@@ -163,14 +199,15 @@ drdb_growth.launches = 0
 
 
 def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
-              bb: torch.Tensor) -> torch.Tensor:
+              bb: torch.Tensor,
+              wpk: Optional[Packed] = None) -> torch.Tensor:
     """x: [B, 64, H, W]; rs: five [B, 32, H, W]; wb: [64, 224, 1, 1];
     bb: [64] -> x + relu(bottleneck([x, r1..r5]) + bb), [B, 64, H, W].
 
     CPU tensors take ``drdb_tail_ref``. CUDA tensors launch the tail
     kernel, which reads x and each r_i through its strides (channels_last
     memory, the r_i sharing one pixel stride) and writes a channels_last
-    output."""
+    output. ``wpk``: (wb, bb) as ``pack_tail`` packs them, or None."""
     if x.device.type == "cpu":
         return drdb_tail_ref(x, rs, wb, bb)
     if x.device.type != "cuda":
@@ -192,14 +229,15 @@ def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
-        wpk = pack_tail_weights(wb, x.dtype)
-        bias = bb.float().contiguous()
+        if wpk is None:
+            wpk = pack_tail(wb, bb, x.dtype)
+        _check_packed(wpk, C * (C + G * NCONV), C, x, "drdb_tail")
         out = torch.empty_like(x, memory_format=torch.channels_last)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_tail(
             x.data_ptr(), x_ps, *(r.data_ptr() for r in rs), r_ps.pop(),
-            wpk.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz * h * w_,
-            _build.DTYPE_CODES[x.dtype], stream)
+            wpk[0].data_ptr(), wpk[1].data_ptr(), out.data_ptr(),
+            bsz * h * w_, _build.DTYPE_CODES[x.dtype], stream)
     _build.check(err, "drdb_tail")
     drdb_tail.launches += 1
     return out
@@ -208,9 +246,11 @@ def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
 drdb_tail.launches = 0
 
 
-def drdb_block(x: torch.Tensor, dconvs: Sequence[Conv],
-               bottleneck: Conv) -> torch.Tensor:
+def drdb_block(x: torch.Tensor, dconvs: Sequence[Conv], bottleneck: Conv,
+               wpk: Optional[Tuple[Packed, Packed]] = None) -> torch.Tensor:
     """The whole DRDB: ``drdb_growth`` then ``drdb_tail``, each the
     kernel on a CUDA tensor and the plain version on a CPU tensor.
-    x: [B, 64, H, W] -> same shape (channels_last on the card)."""
-    return drdb_tail(x, drdb_growth(x, dconvs), *bottleneck)
+    x: [B, 64, H, W] -> same shape (channels_last on the card). ``wpk``:
+    (``pack_growth``, ``pack_tail``) for x's dtype, or None."""
+    gpk, tpk = (None, None) if wpk is None else wpk
+    return drdb_tail(x, drdb_growth(x, dconvs, gpk), *bottleneck, wpk=tpk)

@@ -149,10 +149,25 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _grams_chunk(n: int, bsz: int, dtype: torch.dtype,
+                 device: torch.device) -> int:
+    """Tokens per block of pass A, a multiple of 64: each image's tokens
+    split so that the grid is about four waves of SMs. bf16 has one block
+    per (image, chunk, projection) and one block per SM (by registers);
+    f32 one per (image, chunk)."""
+    tiles = math.ceil(n / _TILE)
+    per_block = 3 if dtype == torch.bfloat16 else 1
+    per_image = max(1, min(tiles, math.ceil(
+        4 * _sm_count(device) / (bsz * per_block))))
+    return math.ceil(tiles / per_image) * _TILE
+
+
 def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
     """Pass A: [B, 3, C, C] f32 grams. CPU tensors take the plain version;
     CUDA tensors launch ``segmif_ffm_grams``: per-(image, token-chunk)
-    partial grams, then an in-order sum over the chunks."""
+    partial grams (in bf16 the tensor-core kernel, one projection per
+    block; in f32 the CUDA-core kernel), then an in-order sum over the
+    chunks."""
     if x1.device.type == "cpu":
         return crosspath_grams_ref(x1, x2, s, wp, bp)
     if x1.device.type != "cuda":
@@ -162,9 +177,7 @@ def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
     bsz, n, c = x1.shape
     w, b = _halves(wp.to(x1.device), bp.to(x1.device), x1.dtype,
                   _GRAM_PICKS)
-    tiles = math.ceil(n / _TILE)
-    per_image = max(1, min(tiles, math.ceil(4 * _sm_count(x1.device) / bsz)))
-    chunk = math.ceil(tiles / per_image) * _TILE
+    chunk = _grams_chunk(n, bsz, x1.dtype, x1.device)
     n_chunks = math.ceil(n / chunk)
     partial = torch.empty((bsz, n_chunks, 3, c, c), dtype=torch.float32,
                           device=x1.device)

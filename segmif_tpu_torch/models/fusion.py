@@ -29,7 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels.drdb import drdb_block, drdb_growth, drdb_tail
+from ..kernels.drdb import (drdb_block, drdb_growth, drdb_tail, pack_growth,
+                            pack_tail)
 from ..kernels.ffm import crosspath_apply
 from ..kernels.int8 import Int8Drdb, drdb_int8, quantize_drdb, record_amax
 from ..ops.image import nchw, nhwc
@@ -69,11 +70,35 @@ class DRDB(nn.Module):
                              f"'calibrate', got {quant!r}; set_quant('int8') "
                              "after calibrating")
         self.quant = quant
+        # (key, (growth pack, tail pack), weights): see kernel_weights
+        self._packed = None
 
     def _weights(self):
         convs = [getattr(self, f"Dcov{i + 1}") for i in range(5)]
         return ([(c.weight, c.bias) for c in convs],
                 (self.conv.weight, self.conv.bias))
+
+    @torch.no_grad()
+    def kernel_weights(self, dtype: torch.dtype):
+        """The float kernels' weights, (``pack_growth``, ``pack_tail``) for
+        activations of ``dtype``, packed once and kept in a plain attribute
+        (not a buffer: ``_apply`` keeps buffers' dtypes). They are packed
+        again when the dtype, the device or any weight changes: the key
+        holds each weight's address and in-place version, which
+        ``load_state_dict``, ``.to()`` and an in-place edit all change. The
+        cache also holds the weights' storages, so no other weight can
+        take one of those addresses while the key names it."""
+        dconvs, (wb, bb) = self._weights()
+        ws = [t for c in dconvs for t in c] + [wb, bb]
+        if any(t.is_inference() for t in ws):   # no version counter
+            return pack_growth(dconvs, dtype), pack_tail(wb, bb, dtype)
+        key = (dtype, wb.device, tuple((t.data_ptr(), t._version)
+                                       for t in ws))
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, (pack_growth(dconvs, dtype),
+                                  pack_tail(wb, bb, dtype)),
+                            [t.detach() for t in ws])
+        return self._packed[1]
 
     def _apply(self, fn, recurse=True):
         # .to(dtype) and friends must not round the scales or the int8
@@ -109,13 +134,15 @@ class DRDB(nn.Module):
         if self.quant == "int8":
             return drdb_int8(x, self._int8_weights())
         dconvs, bottleneck = self._weights()
+        wpk = self.kernel_weights(x.dtype) if x.is_cuda else None
         if self.quant == "calibrate":
-            rs = drdb_growth(x, dconvs)
+            gpk, tpk = (None, None) if wpk is None else wpk
+            rs = drdb_growth(x, dconvs, gpk)
             with torch.no_grad():
                 self.amax.copy_(torch.maximum(self.amax,
                                               record_amax([x, *rs])))
-            return drdb_tail(x, rs, *bottleneck)
-        return drdb_block(x, dconvs, bottleneck)
+            return drdb_tail(x, rs, *bottleneck, wpk=tpk)
+        return drdb_block(x, dconvs, bottleneck, wpk)
 
 
 class CrossAttention(nn.Module):

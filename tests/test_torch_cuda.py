@@ -38,7 +38,10 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    main-path shape), the tail with atol 2^-10 (both sides round the same
    f32 accumulator; measured 0), the block with atol 2^-6 (the growth
    chain's steps through the bottleneck, up to 7.4e-3 measured). A
-   dropped or shifted bias exceeds them: test_drdb_check_catches_a_fault.
+   dropped or shifted bias exceeds them: test_drdb_check_catches_a_fault;
+   so do swapped conv taps and a zeroed weight chunk in the bf16 growth,
+   and a zeroed bias or swapped projections in the bf16 grams:
+   test_growth_and_grams_checks_catch_a_fault.
  - int8 DRDB: bit for bit. The int32 sums are exact in any order and the
    kernels' f32 epilogues (explicit _rn intrinsics, no FMA) run the plain
    version's operations in its order, so the int8 buffer and the output
@@ -234,8 +237,10 @@ def _ffm_inputs(gen, b, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (8, 1) and (8, 40): less than one 16-token tile per warp of the bf16
+# kernel; padded tokens must add nothing, although relu(bias) != 0
 @pytest.mark.parametrize("b,n", [(1, 40), (2, 1000), (2, 4097),
-                                 (2, 307200)])
+                                 (2, 307200), (8, 1), (8, 40)])
 def test_ffm_grams_kernel_matches_plain(cuda, dtype, b, n):
     g = torch.Generator().manual_seed(2)
     (x1, x2, s), wp, bp, _, _, _ = _ffm_inputs(g, b, n, dtype, cuda)
@@ -370,6 +375,30 @@ def test_drdb_growth_kernel_matches_plain(cuda, dtype, b, h, w):
         assert _within(g, e, GROWTH_TOL[dtype])
 
 
+@pytest.mark.parametrize("b,h,w,sliced", [(1, 17, 33, False),
+                                           (2, 5, 7, False),
+                                           (2, 17, 33, True),
+                                           (2, 100, 172, True)])
+def test_drdb_growth_bf16_any_shape_and_channel_slice(cuda, b, h, w, sliced):
+    """The bf16 growth (16x16 tiles, TMA halo loads) at H x W that are not
+    multiples of the tile, and with x a channel slice (channels 16-79) of
+    a wider channels_last tensor, read through its pixel stride of 96."""
+    gen = torch.Generator().manual_seed(20)
+    x, dconvs, _ = _drdb_inputs(gen, b, h, w, torch.bfloat16, cuda)
+    if sliced:
+        wide = _randn(gen, (b, h, w, 96), torch.bfloat16, cuda)
+        wide[..., 16:80] = x.permute(0, 2, 3, 1)
+        x = wide.permute(0, 3, 1, 2)[:, 16:80]
+        assert x.stride(3) == 96
+    with torch.inference_mode():
+        got = drdb_growth(x, dconvs)
+        want = drdb_growth_ref(x, dconvs)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == (b, 32, h, w)
+        assert _within(g, e, GROWTH_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w", DRDB_SHAPES)
 def test_drdb_tail_kernel_matches_plain(cuda, dtype, b, h, w):
@@ -424,6 +453,56 @@ def test_drdb_check_catches_a_fault(cuda, dtype, fault):
                                      TAIL_TOL[dtype], x)
     torch.cuda.synchronize()
     assert not _within(got, want, tol, resid)
+
+
+def _swap_taps(w, a, b):
+    w = w.clone()
+    w[..., a[0], a[1]], w[..., b[0], b[1]] = (w[..., b[0], b[1]].clone(),
+                                              w[..., a[0], a[1]].clone())
+    return w
+
+
+@pytest.mark.parametrize("fault", ["conv3_taps_swapped",
+                                   "conv5_last_chunk_zeroed",
+                                   "grams_bias_zeroed",
+                                   "grams_y1_y2_weights_swapped"])
+def test_growth_and_grams_checks_catch_a_fault(cuda, fault):
+    """The bf16 growth and grams kernels run on weights with a planted
+    fault (conv 3's taps (0, 0) and (2, 2) swapped; conv 5's weights for
+    its last 32 input channels, r4, zeroed; projection y1's bias zeroed;
+    the y1 and y2 projections swapped) fail the limits above against the
+    plain versions on the true weights."""
+    bf = torch.bfloat16
+    with torch.inference_mode():
+        if fault.startswith("conv"):
+            x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(21),
+                                        2, 100, 172, bf, cuda)
+            bad = list(dconvs)
+            if fault == "conv3_taps_swapped":
+                t = 2
+                bad[t] = (_swap_taps(dconvs[t][0], (0, 0), (2, 2)),
+                          dconvs[t][1])
+            else:
+                t = 4
+                w5 = dconvs[t][0].clone()
+                w5[:, 160:192] = 0
+                bad[t] = (w5, dconvs[t][1])
+            got = drdb_growth(x, bad)[t]
+            want = drdb_growth_ref(x, dconvs)[t]
+            torch.cuda.synchronize()
+            assert not _within(got, want, GROWTH_TOL[bf])
+        else:
+            g = torch.Generator().manual_seed(22)
+            (x1, x2, s), wp, bp, _, _, _ = _ffm_inputs(g, 2, 4097, bf, cuda)
+            want = crosspath_grams_ref(x1, x2, s, wp, bp)
+            if fault == "grams_bias_zeroed":
+                bp = torch.cat([bp[:1] * 0, bp[1:]])
+            else:
+                wp = wp[[1, 0, 2]]
+            got = crosspath_grams(x1, x2, s, wp, bp)
+            torch.cuda.synchronize()
+            assert _max_err(got, want) > GRAM_RTOL[bf] * \
+                want.abs().max().item()
 
 
 def test_drdb_forward_on_card_never_runs_the_chain(cuda, monkeypatch):

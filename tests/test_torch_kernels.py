@@ -270,8 +270,8 @@ def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
     """The growth kernel's schedule, written out in torch: per conv, per
     32-channel input chunk and per tap, the zero-padded input window times
     that chunk's packed [32, 32] weights. Holds ``pack_growth_weights``'
-    layouts ([tap][n][k] for bf16, [tap][k][n] for f32) to the plain chain
-    (f32 arithmetic on bf16-exact weights; 3e-5 as above)."""
+    layouts ([tap][k granule][n][8] for bf16, [tap][k][n] for f32) to the
+    plain chain (f32 arithmetic on bf16-exact weights; 3e-5 as above)."""
     rng = np.random.default_rng(9)
     x = _t(rng.uniform(0, 1, (1, 11, 14, C)).astype(np.float32))
     dconvs, _ = _port_convs(_drdb_params(rng))
@@ -287,8 +287,9 @@ def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
         for c in range(2 + t):
             wc = wpk[off:off + 9 * 32 * 32].reshape(9, 32, 32)
             off += 9 * 32 * 32
-            if dtype == torch.bfloat16:
-                wc = wc.transpose(1, 2)                   # -> [tap][k][n]
+            if dtype == torch.bfloat16:                   # -> [tap][k][n]
+                wc = wc.reshape(9, 4, 32, 8).permute(0, 1, 3, 2).reshape(
+                    9, 32, 32)
             for tap in range(9):
                 ky, kx = divmod(tap, 3)
                 win = xp[:, 2 * ky:2 * ky + h, 2 * kx:2 * kx + wd,
@@ -301,6 +302,93 @@ def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
     for g, e in zip(got, want):
         np.testing.assert_allclose(g.numpy(), e.permute(0, 2, 3, 1).numpy(),
                                    atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_drdb_growth_packing_by_index_formula(dtype):
+    """Every element of ``pack_growth_weights`` read back by its flat index
+    equals the OIHW weight it stands for. Conv t, chunk c, tap (ky, kx),
+    output n, input channel k = 32 c + 8 gr + e sits at base_t + 9216 c +
+    1024 tap + 256 gr + 8 n + e in bf16 ([chunk][tap][gr][n][8], the wgmma
+    B operand) and at base_t + 9216 c + 1024 tap + 32 k' + n (k' = k - 32
+    c) in f32, where base_t counts the earlier convs' chunks."""
+    rng = np.random.default_rng(11)
+    dconvs, _ = _port_convs(_drdb_params(rng))
+    dconvs = [(_bf16_exact(w), b) for w, b in dconvs]
+    wpk = tdrdb.pack_growth_weights(dconvs, dtype).float().numpy()
+    assert wpk.shape == (20 * 9 * 32 * 32,)
+    base = 0
+    for t, (w, _) in enumerate(dconvs):
+        w = w.numpy()                            # [32, 64 + 32 t, 3, 3]
+        n, k, ky, kx = np.meshgrid(np.arange(32), np.arange(w.shape[1]),
+                                   np.arange(3), np.arange(3), indexing="ij")
+        c, kc = k // 32, k % 32
+        tap = 3 * ky + kx
+        if dtype == torch.bfloat16:
+            flat = base + 9216 * c + 1024 * tap + 256 * (kc // 8) + 8 * n \
+                + kc % 8
+        else:
+            flat = base + 9216 * c + 1024 * tap + 32 * kc + n
+        np.testing.assert_array_equal(wpk[flat], w)
+        base += 9216 * (2 + t)
+    assert base == wpk.size
+
+
+def test_drdb_kernel_weights_repack_only_when_a_weight_changes(
+        monkeypatch):
+    """``DRDB.kernel_weights`` packs once and returns the same packs until
+    the dtype or a weight changes: it repacks after ``load_state_dict``,
+    after ``.to(torch.bfloat16)`` and after an in-place weight edit, and
+    not otherwise. The packs equal ``pack_growth`` / ``pack_tail``."""
+    from segmif_tpu_torch.models import fusion
+
+    calls = []
+    real = fusion.pack_growth
+    monkeypatch.setattr(fusion, "pack_growth",
+                        lambda *a: calls.append(1) or real(*a))
+    torch.manual_seed(0)
+    block = fusion.DRDB()
+    dconvs, (wb, bb) = block._weights()
+    first = block.kernel_weights(torch.float32)
+    want_g = tdrdb.pack_growth(dconvs, torch.float32)
+    want_t = tdrdb.pack_tail(wb, bb, torch.float32)
+    for got, want in zip(first, (want_g, want_t)):
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+    assert block.kernel_weights(torch.float32) is first
+    with torch.no_grad():
+        block(torch.rand(1, 64, 6, 7))           # a CPU forward: no pack
+    assert block.kernel_weights(torch.float32) is first and len(calls) == 1
+
+    sd = {k: v.clone() for k, v in block.state_dict().items()}
+    sd["Dcov3.weight"][0, 0, 0, 0] += 1.0
+    block.load_state_dict(sd)
+    second = block.kernel_weights(torch.float32)
+    assert second is not first and len(calls) == 2
+    assert second[0][0][9216 * 5] == sd["Dcov3.weight"][0, 0, 0, 0]
+    assert block.kernel_weights(torch.float32) is second
+
+    with torch.no_grad():
+        block.Dcov5.weight.mul_(2.0)
+    third = block.kernel_weights(torch.float32)
+    assert third is not second and len(calls) == 3
+    assert torch.equal(third[0][0], tdrdb.pack_growth_weights(
+        block._weights()[0], torch.float32))
+
+    block.to(torch.bfloat16)
+    fourth = block.kernel_weights(torch.bfloat16)
+    assert fourth is not third and len(calls) == 4
+    assert fourth[0][0].dtype == torch.bfloat16
+    assert fourth[0][1].dtype == torch.float32
+    assert block.kernel_weights(torch.bfloat16) is fourth and len(calls) == 4
+
+    # new weight tensors put in place of the old ones (version 0 again)
+    sd = {k: v.clone() for k, v in block.state_dict().items()}
+    sd["Dcov1.bias"][0] += 1.0
+    block.load_state_dict(sd, assign=True)
+    fifth = block.kernel_weights(torch.bfloat16)
+    assert fifth is not fourth and len(calls) == 5
+    assert fifth[0][1][0] == sd["Dcov1.bias"][0].float()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
