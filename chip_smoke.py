@@ -20,19 +20,20 @@ line):
     the same inputs laid out [B, H, N, D]; sr-attention and FFM apply
     held per element, with planted faults (scale x 1.01, the last key
     row dropped; be zeroed, M1 and M3 swapped, LayerNorm gamma + 0.01)
-    that must fail those checks, and bf16 sr-attention at the 1080p
-    stage-1 shape (M = 1980) beside SDPA; FFM grams also at B = 8 with
+    that must fail those checks, and f32 and bf16 sr-attention at the
+    1080p stage-1 shape (M = 1980) beside SDPA; FFM grams also at B = 8 with
     N = 1 and 40, with planted faults (y1's bias zeroed, y1 and y2
     swapped); the DRDB growth chain, tail and whole block (against
     ``drdb_chain``), held per element, also at an odd 100x172, with the
     block's peak device memory, the growth's five-launch traffic floor
     and cuDNN's five convs on prebuilt concatenations beside it, bf16
-    growth at 17x33, 5x7 and on a channel slice of x; the int8 DRDB
+    growth and tail at 17x33, 5x7 and on a channel slice of x; the int8 DRDB
     kernels held bit for bit against ``drdb_int8_ref`` (the int8 buffer
     and the output) at the main-path shape, 100x172 and 5x7, with the
     int8 block's peak memory; at 100x172, faults planted in the DRDB
     kernels' arguments (dropped biases, swapped conv taps, a zeroed weight
-    chunk) must fail those checks;
+    chunk, two growth slices swapped at the tail, a wrong requant scale)
+    must fail those checks;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
@@ -44,7 +45,11 @@ line):
     bf16 ones never); print and bound the int8-vs-bf16 drift;
  6. hold the batch-1 f32 pipeline on the card (kernels, the DRDB's
     included) against the same weights on the CPU (plain versions), in
-    float and in int8 with the same amaxes;
+    float and in int8 with the same amaxes; then bf16 against f32 end to
+    end on the card (mit_b3, batch 8, 480x640, weights at the reference
+    modules' scale) under the limits of tests/test_bf16_drift.py
+    (``segmif_tpu_torch.drift``), and a bf16 run with DRDB1's tail bias
+    dropped, which must fail them;
  7. print pairs/s for the four serving modes, timed with CUDA events.
 
 The line before the last is the kernels JSON; the last line is
@@ -139,7 +144,7 @@ PIPE_RTOL = {"fused_y": 1e-4, "logits": 1e-3}
 # for int8 against float end to end (tests/test_int8.py:140-145)
 INT8_DRIFT_RMSE = 0.25
 # Peaks of one H100 SXM (NVIDIA's datasheet, dense, 700 W) for the bounds
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
 
 
@@ -321,26 +326,32 @@ def kernel_checks(dev):
           f"attention {sdpa['float32']:.4f} ms f32, {sdpa['bfloat16']:.4f} "
           f"ms bf16; bf16 bound {res['sr_attention']['bound_ms']:.4f} ms "
           f"({res['sr_attention']['bound_by']})", flush=True)
-    # 1080p stage 1: M = 1980 key rows, 31 key tiles (bf16 takes any M)
+    # 1080p stage 1: M = 1980 key rows, 31 key tiles (both dtypes stream
+    # K/V, so any M is taken)
     b, n, m, h, d = 2, 129600, 1980, 1, 64
-    q, k, v = kv_halves(randn, b, n, m, h, d, torch.bfloat16)
-    got = sr_attention(q, k, v, d ** -0.5)
-    want = sr_attention_ref(q, k, v, d ** -0.5)
-    tol = SR_TOL["bfloat16"]
-    ratio, err, diff, ok = held(got, want, tol)
-    ms, pms = time_pair(lambda: sr_attention(q, k, v, d ** -0.5),
-                        lambda: sr_attention_ref(q, k, v, d ** -0.5))
-    lib = sdpa_ms(q, k, v, d ** -0.5)
-    bnd = bound(4 * b * n * m * h * d, "bf16", nbytes(q, k, v, got))
-    print(f"sr_attention bfloat16 1080p stage 1 B={b} N={n} M={m} H={h} "
-          f"D={d}: {verdict(ratio, err, diff, tol)}; kernel {ms:.4f} ms, "
-          f"plain {pms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
-    check(ok, f"sr_attention 1080p error {err}")
-    res["sr_attention"]["max_abs_err"] = max(
-        res["sr_attention"]["max_abs_err"], err)
-    del q, k, v, got, want
-    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        q, k, v = kv_halves(randn, b, n, m, h, d, dtype)
+        got = sr_attention(q, k, v, d ** -0.5)
+        want = sr_attention_ref(q, k, v, d ** -0.5)
+        tol = SR_TOL[dname]
+        ratio, err, diff, ok = held(got, want, tol)
+        ms, pms = time_pair(lambda: sr_attention(q, k, v, d ** -0.5),
+                            lambda: sr_attention_ref(q, k, v, d ** -0.5))
+        lib = sdpa_ms(q, k, v, d ** -0.5)
+        bnd = bound(4 * b * n * m * h * d,
+                    "bf16" if dtype == torch.bfloat16 else "f32",
+                    nbytes(q, k, v, got))
+        print(f"sr_attention {dname} 1080p stage 1 B={b} N={n} M={m} H={h} "
+              f"D={d}: {verdict(ratio, err, diff, tol)}; kernel {ms:.4f} ms,"
+              f" plain {pms:.4f} ms, scaled_dot_product_attention {lib:.4f} "
+              f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
+              flush=True)
+        check(ok, f"sr_attention {dname} 1080p error {err}")
+        res["sr_attention"]["max_abs_err"] = max(
+            res["sr_attention"]["max_abs_err"], err)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
     # FFM grams and apply at the fusion trunk's shape
     n, c = H * W, 64
     for dtype in (torch.float32, torch.bfloat16):
@@ -490,9 +501,9 @@ def compare(label, kernel, plain, tol, timed, x=None):
 def planted_faults(x, dconvs, wb, bb, tols, label):
     """Run the kernels with a fault planted in their arguments (a dropped
     conv 1 or conv 5 bias, conv 3's taps (0, 0) and (2, 2) swapped, conv
-    5's weights for r4 zeroed, a dropped or channel-shifted tail bias)
-    against the plain versions on the true arguments; each must fail the
-    check."""
+    5's weights for r4 zeroed, a dropped or channel-shifted tail bias, r2
+    and r3 swapped at the tail) against the plain versions on the true
+    arguments; each must fail the check."""
     import torch
 
     from segmif_tpu_torch.kernels.drdb import (drdb_growth, drdb_growth_ref,
@@ -531,6 +542,9 @@ def planted_faults(x, dconvs, wb, bb, tols, label):
          tref, "tail", x),
         ("tail bias shifted one channel", drdb_tail(x, rs, wb, bb.roll(1)),
          tref, "tail", x),
+        ("r2 and r3 passed to the tail in each other's place",
+         drdb_tail(x, [rs[0], rs[2], rs[1], *rs[3:]], wb, bb), tref, "tail",
+         x),
     )
     for name, got, want, which, resid in faults:
         ratio, err = worst(got, want, tols[which], resid)
@@ -623,23 +637,30 @@ def drdb_checks(dev):
                     del y
             del x, dconvs
             torch.cuda.empty_cache()
-    # bf16 growth off the 16x16 tile, and with x a channel slice (16-79)
-    # of a wider channels_last tensor (pixel stride 96)
+    # bf16 growth and tail off their tiles (16x16; 128 pixels), and with x
+    # a channel slice (16-79) of a wider channels_last tensor (pixel
+    # stride 96)
     for b, h, w, sliced in ((1, 17, 33, False), (2, 5, 7, False),
                             (2, 17, 33, True)):
-        x, dconvs, _ = drdb_inputs(gen, b, h, w, torch.bfloat16, dev)
+        x, dconvs, (wb, bb) = drdb_inputs(gen, b, h, w, torch.bfloat16, dev)
         if sliced:
             wide = torch.randn((b, h, w, 96), generator=gen).to(
                 dev, torch.bfloat16)
             wide[..., 16:80] = x.permute(0, 2, 3, 1)
             x = wide.permute(0, 3, 1, 2)[:, 16:80]
-        _, err, _, _ = compare(
-            f"drdb_growth bfloat16 [{b}, 64, {h}, {w}]"
-            f"{', x a channel slice' if sliced else ''}",
-            lambda: drdb_growth(x, dconvs), lambda: drdb_growth_ref(x, dconvs),
-            GROWTH_TOL["bfloat16"], False)
+        shape = (f"bfloat16 [{b}, 64, {h}, {w}]"
+                 f"{', x a channel slice' if sliced else ''}")
+        rs, err, _, _ = compare(
+            f"drdb_growth {shape}", lambda: drdb_growth(x, dconvs),
+            lambda: drdb_growth_ref(x, dconvs), GROWTH_TOL["bfloat16"], False)
         res["drdb_growth"]["max_abs_err"] = max(
             res["drdb_growth"]["max_abs_err"], err)
+        _, err, _, _ = compare(
+            f"drdb_tail {shape}", lambda: drdb_tail(x, rs, wb, bb),
+            lambda: drdb_tail_ref(x, rs, wb, bb), TAIL_TOL["bfloat16"], False,
+            x)
+        res["drdb_tail"]["max_abs_err"] = max(res["drdb_tail"]["max_abs_err"],
+                                              err)
     return res
 
 
@@ -786,6 +807,45 @@ def drdb_int8_checks(dev):
     return res
 
 
+def bf16_vs_f32(dev):
+    """Phase 6, bf16 against f32 end to end: a mit_b3 ``JointPipeline``
+    with weights at the reference modules' scale runs the batch-8 480x640
+    pipeline on the card once in f32 and once in bf16 (channels_last, the
+    serving form); the bf16 run must hold ``segmif_tpu_torch.drift``'s
+    limits (those of tests/test_bf16_drift.py), and a bf16 run with DRDB1's
+    tail bias dropped must fail them."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    model = drift.init_reference_scale(JointPipeline("mit_b3"),
+                                       torch.Generator().manual_seed(SEED + 4))
+    ir, vis = requests(torch.Generator().manual_seed(SEED + 5), 1, BATCH,
+                       "cpu")[0]
+    t0 = time.perf_counter()
+    ref = drift.pipeline_outputs(model, ir, vis, torch.float32, dev)
+    d = drift.drift(ref, drift.pipeline_outputs(model, ir, vis,
+                                                torch.bfloat16, dev))
+    torch.cuda.synchronize()
+    print(f"bf16 vs f32 pipeline (mit_b3, batch {BATCH}, {H}x{W}, "
+          f"reference-scale weights; f32 fused Y in "
+          f"[{ref[0].min().item():.4f}, {ref[0].max().item():.4f}], logits "
+          f"std {ref[1].std().item():.4f}): {drift.describe(d)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(drift.within_limits(d), "bf16 serving drifts from f32")
+    with torch.no_grad():
+        model.fusion.DRDB1.conv.bias.zero_()
+    bad = drift.drift(ref, drift.pipeline_outputs(model, ir, vis,
+                                                  torch.bfloat16, dev))
+    print(f"planted fault, bf16 vs f32 pipeline, DRDB1's tail bias dropped:"
+          f" {drift.describe(bad)} (the check fails, as it must)", flush=True)
+    check(not drift.within_limits(bad), "the bf16-vs-f32 check passes a "
+                                        "run with DRDB1's tail bias dropped")
+    del model, ref
+    torch.cuda.empty_cache()
+
+
 def requests(gen, n_req, batch, dev):
     import torch
 
@@ -901,6 +961,7 @@ def main() -> int:
         check(rmse <= noise,
               f"int8 pipeline {name} differs between the card and the CPU")
     del q_gpu, q_cpu
+    bf16_vs_f32(dev)
 
     # phase 5: the main path, bf16 batch 8, both serving modes
     model.to(torch.bfloat16)

@@ -33,9 +33,9 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``sr_attention_ref``; CUDA tensors launch the kernel,
     which reads q/k/v through their strides (the last dim contiguous) and
-    raises on a shape or dtype it does not take. bf16 runs on tensor cores
-    and takes any M (its rows must start on 16 bytes); f32 runs on the CUDA
-    cores and refuses M beyond what shared memory holds (382 at D = 64)."""
+    raises on a shape or dtype it does not take. Both stream K/V through
+    shared memory, so any M is taken: bf16 on tensor cores (its rows must
+    start on 16 bytes), f32 on the CUDA cores."""
     if q.device.type == "cpu":
         return sr_attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
@@ -65,12 +65,6 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(pointers and strides)")
     lib = _build.library()
     with torch.cuda.device(q.device):
-        if q.dtype == torch.float32:
-            max_m = lib.segmif_sr_attention_max_m(d)
-            if m > max_m:
-                raise ValueError(
-                    f"sr_attention: M = {m} key rows exceed the {max_m} the "
-                    "f32 kernel holds in shared memory (bf16 takes any M)")
         out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.segmif_sr_attention(

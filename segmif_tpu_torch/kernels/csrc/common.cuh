@@ -1,8 +1,12 @@
 // Shared helpers for the hand-written Hopper kernels: element conversion
-// between the storage type (float or bf16) and the f32 compute type, and
-// the dtype codes the C entry points take (0 = float32, 1 = bfloat16).
+// between the storage type (float or bf16) and the f32 compute type, the
+// dtype codes the C entry points take (0 = float32, 1 = bfloat16), async
+// copies and tensor-core fragment loads, and Hopper's mbarriers, TMA
+// (tensor maps encoded on the host) and wgmma primitives.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
+                   // run time (encode_map), so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,6 +131,197 @@ __device__ __forceinline__ float bf16_lo(uint32_t v) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
+}
+
+// ------------------------------------------- mbarriers, TMA, bulk copies
+
+// mbarriers live at shared-memory addresses (smem_u32)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// Make the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Wait until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// One box of a tensor map into shared memory; coordinates (innermost
+// first) may lie outside the tensor, whose elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+// A shared-memory box to a tensor map (elements outside the tensor are
+// not written), then its bulk group committed.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// Wait until this thread's bulk stores have read their shared memory
+// (kRead) or completed.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Shared-memory writes of the generic proxy, made visible to TMA stores.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A named barrier over `threads` threads (ids 1.. are free for use).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+
+// A shared-memory matrix descriptor without its start address (or it in
+// with desc_at); leading and stride byte offsets in bytes; layout 0 = no
+// swizzle, 2 = 64-byte swizzle, 3 = 32-byte swizzle. The swizzle is a
+// function of the absolute shared-memory address, as TMA's is, so a start
+// address off the pattern boundary needs no base offset (bits 49-51 0).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return (uint64_t((lbo >> 4) & 0x3fff) << 16) |
+         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(layout) << 62);
+}
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t addr) {
+  return desc | uint64_t((addr >> 4) & 0x3fff);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from touching accumulators across a wgmma wait.
+__device__ __forceinline__ void fence_acc(float d[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int d[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// ------------------------------------------------- tensor maps (host)
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
+// entry-point query (nullptr if the driver lacks it).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tiled TMA map of `rank` dims over `base`: dims and box innermost
+// first, strides (bytes) of dims 1..rank-1, element strides 1, zero fill
+// outside the tensor. False if the driver lacks the encoder or refuses.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                       const void* base, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, cuuint32_t(rank), const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The SM count of the current device: a persistent kernel's grid.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 }  // namespace segmif

@@ -52,6 +52,15 @@
 // The f32 growth (growth_conv_kernel) runs on CUDA cores (FMA, no TF32):
 // the 20x20 halo and the weights double buffered with cp.async.
 //
+// The tail in bf16 (tail_kernel_bf16) moves 576 bytes per pixel for 28
+// KFLOP: bytes bound it (0.42 ms at [8, 64, 480, 640]). So it is a
+// persistent TMA pipeline: one block per SM loads the bottleneck once, a
+// producer thread keeps a 3-stage ring of 128-pixel tiles (x and r1..r5
+// through their pixel strides) in flight while eight warps run the
+// product on mma.sync and write their outputs over the x box in shared
+// memory, which one TMA store writes out. The f32 tail (tail_kernel_f32)
+// stages a 128-pixel tile and the whole bottleneck per block.
+//
 // Precision: the tail's bf16 product runs on mma.sync m16n8k16 (f32
 // accumulation, operands by ldmatrix). Rounding follows the plain chain:
 // a conv's f32 accumulator plus bias is rounded to the working type
@@ -61,7 +70,8 @@
 //
 // Borders: each conv zero-pads at the true image border (TMA's zero
 // fill, or cp.async with a source size of 0 in f32), and outputs outside
-// the image are not stored. Any H x W is taken.
+// the image (or past the last pixel, in the tail) are not stored. Any
+// H x W is taken.
 //
 // What bounds it on the H100: about 0.37 MFLOP per pixel for the growth
 // chain (0.92 ms of bf16 tensor time at [8, 64, 480, 640]). Five launches
@@ -70,9 +80,6 @@
 // Each m64n32k16 reads 2 KB of A and 1 KB of B from shared memory for
 // 64 KFLOP: at 128 B per clock an SM's shared memory caps the tensor
 // cores near two thirds of their rate (about 1.4 ms here).
-
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
-                   // run time (encode_tiled), so nothing links libcuda
 
 #include "common.cuh"
 
@@ -93,115 +100,6 @@ constexpr int TP = 128;              // pixels per tail block
 
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------ primitives
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// mbarriers (shared-memory addresses), TMA and bulk copies
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait until the barrier's phase with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// One box of a 4-D tensor map into shared memory; coordinates (innermost
-// first) may lie outside the tensor, whose elements arrive as zeros.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-// A shared-memory box to a 4-D tensor map (elements outside the tensor
-// are not written), then its bulk group committed.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4, %5}], [%1];\n"
-      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-// Wait until this thread's bulk stores have read their shared memory
-// (kRead) or completed.
-template <bool kRead>
-__device__ __forceinline__ void bulk_wait() {
-  if (kRead)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma: a shared-memory matrix descriptor without its start address (or
-// it in with desc_at); leading and stride byte offsets in bytes; layout 0
-// = no swizzle, 2 = 64-byte swizzle. The swizzle is a function of the
-// absolute shared-memory address, as TMA's is, so a start address off
-// the 512-byte pattern boundary needs no base offset (bits 49-51 stay 0).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return (uint64_t((lbo >> 4) & 0x3fff) << 16) |
-         (uint64_t((sbo >> 4) & 0x3fff) << 32) | (uint64_t(layout) << 62);
-}
-__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t addr) {
-  return desc | uint64_t((addr >> 4) & 0x3fff);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from touching accumulators across a wgmma wait.
-__device__ __forceinline__ void fence_acc(float d[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 // d (64 x 32 f32, the warpgroup's fragments) += A (64 x 16) B (16 x 32),
 // both bf16, K-major, read from shared memory through descriptors.
 __device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t a,
@@ -380,7 +278,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       mbar_init(empty + 8 * s, 4 * CONSUMERS);  // one arrival per warp
     }
     mbar_init(wbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -495,7 +393,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
                        "r"(*reinterpret_cast<const uint32_t*>(&v)));
         }
       }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();
     bar_sync(1 + wgi, 128);
     if (threadIdx.x % 128 == 0) {
       const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y;
@@ -508,139 +406,258 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
 // ------------------------------------------------------------------ tail
 
-template <typename T>
-struct TailGeo {
-  static constexpr int EPG = 16 / sizeof(T);
-  static constexpr int ARS = KT + EPG;          // [128 pixels][ARS]
-  static constexpr int GPP = KT / EPG;          // granules per pixel
-  // weights: bf16 [n=64][k=224] (mma B operand), f32 [k=224][n=64]
-  static constexpr int WROWS = sizeof(T) == 2 ? C : KT;
-  static constexpr int WCOLS = sizeof(T) == 2 ? KT : C;
-  static constexpr int WRS = WCOLS + EPG;
-  static constexpr int A = TP * ARS;
-  static constexpr size_t SMEM = (A + WROWS * WRS) * sizeof(T);
-};
+// bf16 tail (the serving dtype): persistent, warp-specialised, TMA-fed.
+//  - One block per SM walks 128-pixel tiles. A producer thread keeps a
+//    3-stage ring full with TMA: x's 64 channels (through its pixel
+//    stride) and each r_i's 32 (through theirs) land as [128 px][C_i]
+//    boxes, x under the 128-byte swizzle and the r_i under the 64-byte
+//    one, so the ldmatrix rows of a fragment fall in distinct banks.
+//  - Eight consumer warps, 16 pixels each, run the [16 x 224] x [224 x 64]
+//    product on mma.sync m16n8k16 (f32 accumulators) against the
+//    bottleneck, loaded once per block into padded [n][k] rows.
+//  - Epilogue in the working type (round the accumulator, add the bias,
+//    round, relu, add x): each thread overwrites the x elements it read
+//    with its outputs, so the x box becomes the output tile, written by
+//    one TMA store (clipped at the last pixel) before the stage is freed.
+namespace tl {                             // tiles of TP = 128 pixels
+constexpr int XB = TP * C * 2;             // x box (then the output), bytes
+constexpr int RB = TP * G * 2;             // one r_i box
+constexpr int STAGE = XB + NCONV * RB;     // 57,344
+constexpr int STAGES = 3;
+constexpr int WRS = KT + 8;                // padded weight row, elements
+constexpr int WARPS = TP / 16;             // consumers
+constexpr int THREADS = 32 * WARPS + 32;   // + one producer warp
+constexpr int W_OFF = STAGES * STAGE;
+constexpr int BAR_OFF = W_OFF + C * WRS * 2;
+constexpr size_t SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;  // + alignment
+static_assert(XB % 1024 == 0 && RB % 1024 == 0, "swizzle alignment");
+}  // namespace tl
 
-template <typename T>
+// out = x + relu(round(round(acc) + bb)) over tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... (grid: at most one block per SM). maps: x
+// [npix][64] and r1..r5 [npix][32] at their pixel strides (loads), out
+// [npix][64] (store); wb: [64][224]; bb: f32 [64].
+__global__ void __launch_bounds__(tl::THREADS, 1)
+    tail_kernel_bf16(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap r1map,
+                     const __grid_constant__ CUtensorMap r2map,
+                     const __grid_constant__ CUtensorMap r3map,
+                     const __grid_constant__ CUtensorMap r4map,
+                     const __grid_constant__ CUtensorMap r5map,
+                     const __grid_constant__ CUtensorMap omap,
+                     const bf16* __restrict__ wb,
+                     const float* __restrict__ bb, int64_t npix) {
+  using namespace tl;
+  extern __shared__ __align__(128) uint8_t smem_b[];
+  const uint32_t raw = smem_u32(smem_b);
+  const uint32_t s0 = (raw + 1023) & ~1023u;  // swizzle atoms on 1 KB
+  uint8_t* base = smem_b + (s0 - raw);
+  const uint32_t full = s0 + BAR_OFF;         // full[s]: stage s landed
+  const uint32_t empty = full + 8 * STAGES;   // empty[s]: stage s stored
+  const int ntiles = int((npix + TP - 1) / TP);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {
+    // producer: one thread keeps the ring full
+    if (lane != 0) return;
+    const CUtensorMap* rmaps[NCONV] = {&r1map, &r2map, &r3map, &r4map,
+                                       &r5map};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      const uint32_t dst = s0 + stage * STAGE, bar = full + 8 * stage;
+      mbar_expect_tx(bar, STAGE);
+      tma_load_2d(dst, &xmap, 0, tile * TP, bar);
+      for (int i = 0; i < NCONV; ++i)
+        tma_load_2d(dst + XB + i * RB, rmaps[i], 0, tile * TP, bar);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: the bottleneck into padded rows once, the bias in registers
+  bf16* sw = reinterpret_cast<bf16*>(base + W_OFF);
+  constexpr int WG = KT / 8;  // 16-byte granules per weight row
+  for (int i = threadIdx.x; i < C * WG; i += 32 * WARPS) {
+    const int r = i / WG, e = (i % WG) * 8;
+    cp_async16(sw + r * WRS + e, wb + r * KT + e, true);
+  }
+  cp_async_commit();
+  const int g = lane >> 2, t4 = lane & 3;
+  float bv[16];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    bv[2 * nt] = bb[nt * 8 + 2 * t4];
+    bv[2 * nt + 1] = bb[nt * 8 + 2 * t4 + 1];
+  }
+  cp_async_wait<0>();
+  bar_sync(1, 32 * WARPS);
+
+  // ldmatrix rows: A = this warp's pixels, B = output channels
+  const int a_row = 16 * warp + (lane & 15), a_hi = lane >> 4;
+  const int b_n = (lane & 7) + ((lane >> 4) << 3);
+  const int b_k = ((lane >> 3) & 1) * 8;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    mbar_wait(full + 8 * stage, phase);
+    uint8_t* const box = base + stage * STAGE;
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT / 16; ++ks) {
+      // k16 step ks: x's 16-byte chunk 2 ks + a_hi of the pixel's 128-byte
+      // row (swizzled by row % 8), or r_i's chunk of its 64-byte row
+      // (swizzled by (row / 2) % 4)
+      int off;
+      if (ks < C / 16) {
+        off = a_row * 128 + (((2 * ks + a_hi) ^ (a_row & 7)) << 4);
+      } else {
+        const int i = (ks - C / 16) / 2, kk = (ks - C / 16) % 2;
+        off = XB + i * RB + a_row * 64 +
+              (((2 * kk + a_hi) ^ ((a_row >> 1) & 3)) << 4);
+      }
+      uint32_t a[4];
+      ldmatrix_x4(a, box + off);
+#pragma unroll
+      for (int nh = 0; nh < 4; ++nh) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, sw + (nh * 16 + b_n) * WRS + ks * 16 + b_k);
+        mma_bf16(acc[2 * nh], a, bf[0], bf[1]);
+        mma_bf16(acc[2 * nh + 1], a, bf[2], bf[3]);
+      }
+    }
+    // epilogue into the x box: pixel p's channels 8 nt + 2 t4 + {0, 1}
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = 16 * warp + g + 8 * half;
+      uint8_t* row = box + p * 128 + 4 * t4;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        auto* xo = reinterpret_cast<__nv_bfloat162*>(row + ((nt ^ (p & 7))
+                                                            << 4));
+        const float2 xv = __bfloat1622float2(*xo);
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float y = round_to<bf16>(round_to<bf16>(acc[nt][2 * half + j])
+                                         + bv[2 * nt + j]);
+          v[j] = (j == 0 ? xv.x : xv.y) + fmaxf(y, 0.f);
+        }
+        *xo = __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, 32 * WARPS);  // every warp has read the stage and written
+    if (threadIdx.x == 0) {
+      tma_store_2d(&omap, s0 + stage * STAGE, 0, tile * TP);
+      bulk_wait<true>();  // the store has read the box: free the stage
+      mbar_arrive(empty + 8 * stage);
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait<false>();
+}
+
+// f32 tail on CUDA cores: one block per 128 pixels stages their 224
+// channels (x and r1..r5 side by side, no concat in device memory) and
+// the whole bottleneck [224][64] (rows padded by one granule), then each
+// thread computes 4 pixels x 8 channels.
+namespace tf {
+constexpr int ARS = KT + 4;                   // [128 pixels][ARS]
+constexpr int GPP = KT / 4;                   // granules per pixel
+constexpr int WRS = C + 4;                    // [224][WRS]
+constexpr int A = TP * ARS;
+constexpr size_t SMEM = (A + KT * WRS) * sizeof(float);
+}  // namespace tf
+
 struct TailArgs {
-  const T* x;
-  const T* r[NCONV];
-  const T* wb;        // packed as TailGeo<T> says
+  const float* x;
+  const float* r[NCONV];
+  const float* wb;    // [224][64]
   const float* bb;    // [64]
-  T* out;             // [npix][64]
+  float* out;         // [npix][64]
   int64_t x_ps, r_ps, npix;
 };
 
-// grid ceil(npix / 128). A block stages its 128 pixels' 224 channels
-// (x and r1..r5 side by side, no concat in device memory) and the whole
-// bottleneck, then each warp computes 16 pixels x 64 channels (bf16) or
-// each thread 4 pixels x 8 channels (f32).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) tail_kernel(TailArgs<T> args) {
-  using Tg = TailGeo<T>;
+// grid ceil(npix / 128)
+__global__ void __launch_bounds__(kThreads) tail_kernel_f32(TailArgs args) {
   extern __shared__ float4 smem4[];
-  T* sa = reinterpret_cast<T*>(smem4);
-  T* sw = sa + Tg::A;
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sw = sa + tf::A;
   const int64_t p0 = int64_t(blockIdx.x) * TP;
 
-  for (int i = threadIdx.x; i < TP * Tg::GPP; i += kThreads) {
-    const int p = i / Tg::GPP, e = (i % Tg::GPP) * Tg::EPG;
+  for (int i = threadIdx.x; i < TP * tf::GPP; i += kThreads) {
+    const int p = i / tf::GPP, e = (i % tf::GPP) * 4;
     const int64_t pix = p0 + p;
     const bool ok = pix < args.npix;
-    const T* g;
+    const float* g;
     if (e < C) {
       g = args.x + (ok ? pix * args.x_ps + e : 0);
     } else {
       const int k = e - C;
       g = args.r[k / G] + (ok ? pix * args.r_ps + k % G : 0);
     }
-    cp_async16(sa + p * Tg::ARS + e, g, ok);
+    cp_async16(sa + p * tf::ARS + e, g, ok);
   }
-  constexpr int WG = Tg::WCOLS / Tg::EPG;
-  for (int i = threadIdx.x; i < Tg::WROWS * WG; i += kThreads) {
-    const int r = i / WG, e = (i % WG) * Tg::EPG;
-    cp_async16(sw + r * Tg::WRS + e, args.wb + r * Tg::WCOLS + e, true);
+  constexpr int WG = C / 4;
+  for (int i = threadIdx.x; i < KT * WG; i += kThreads) {
+    const int r = i / WG, e = (i % WG) * 4;
+    cp_async16(sw + r * tf::WRS + e, args.wb + r * C + e, true);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  if constexpr (sizeof(T) == 2) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int a_px = lane & 15, a_k = (lane >> 4) * 8;
-    const int b_n = (lane & 7) + ((lane >> 4) << 3);
-    const int b_k = ((lane >> 3) & 1) * 8;
-    float acc[8][4];
+  const int tx = threadIdx.x & 7, tp = threadIdx.x >> 3;
+  float acc[4][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < KT; k += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sa + (16 * warp + a_px) * Tg::ARS + k + a_k);
-#pragma unroll
-      for (int nh = 0; nh < 4; ++nh) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sw + (nh * 16 + b_n) * Tg::WRS + k + b_k);
-        mma_bf16(acc[2 * nh], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * nh + 1], a, bf[2], bf[3]);
-      }
-    }
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = 16 * warp + g + 8 * half;
-      if (p0 + p >= args.npix) continue;
-      const T* xs = sa + p * Tg::ARS;
-      T* o = args.out + (p0 + p) * C;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + 2 * t;
-        float v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float y = round_to<T>(round_to<T>(acc[nt][2 * half + j]) +
-                                      args.bb[n + j]);
-          v[j] = to_f32(xs[n + j]) + fmaxf(y, 0.f);
-        }
-        store2(reinterpret_cast<__nv_bfloat16*>(o + n), v[0], v[1]);
-      }
-    }
-  } else {
-    const int tx = threadIdx.x & 7, tp = threadIdx.x >> 3;
-    float acc[4][8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) acc[j][n] = 0.f;
+    for (int n = 0; n < 8; ++n) acc[j][n] = 0.f;
 #pragma unroll 4
-    for (int k = 0; k < KT; ++k) {
-      const float* wr = reinterpret_cast<const float*>(sw) + k * Tg::WRS +
-                        8 * tx;
-      const float4 w0 = *reinterpret_cast<const float4*>(wr);
-      const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = to_f32(sa[(tp + 32 * j) * Tg::ARS + k]);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[j][n] = fmaf(a, wv[n], acc[j][n]);
-      }
-    }
+  for (int k = 0; k < KT; ++k) {
+    const float* wr = sw + k * tf::WRS + 8 * tx;
+    const float4 w0 = *reinterpret_cast<const float4*>(wr);
+    const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int p = tp + 32 * j;
-      if (p0 + p >= args.npix) continue;
-      const float* xs = reinterpret_cast<const float*>(sa) + p * Tg::ARS;
-      float v[8];
+      const float a = sa[(tp + 32 * j) * tf::ARS + k];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        v[n] = xs[8 * tx + n] + fmaxf(acc[j][n] + args.bb[8 * tx + n], 0.f);
-      float* o = reinterpret_cast<float*>(args.out) + (p0 + p) * C + 8 * tx;
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      for (int n = 0; n < 8; ++n) acc[j][n] = fmaf(a, wv[n], acc[j][n]);
     }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int p = tp + 32 * j;
+    if (p0 + p >= args.npix) continue;
+    const float* xs = sa + p * tf::ARS;
+    float v[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      v[n] = xs[8 * tx + n] + fmaxf(acc[j][n] + args.bb[8 * tx + n], 0.f);
+    float* o = args.out + (p0 + p) * C + 8 * tx;
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
@@ -662,52 +679,21 @@ int growth_f32(const void* x, int64_t x_ps, void* rs, const void* w,
   return 0;
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
-// entry-point query (nullptr if the driver lacks it).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D TMA map over a channels_last bf16 tensor [b][h][wd][channels] at
 // pixel stride ps (elements), boxes of 32 channels x bw x bh pixels: with
 // the 64-byte swizzle, a 20 x 20 halo chunk as the wgmma A operand reads
 // it; without, an output box of 16 x 8 pixels.
 bool tile_map(CUtensorMap* map, const void* base, int64_t ps, int channels,
               int b, int h, int wd, int bw, int bh, bool swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t bytes = cuuint64_t(ps) * sizeof(bf16);
   const cuuint64_t dims[4] = {cuuint64_t(channels), cuuint64_t(wd),
                               cuuint64_t(h), cuuint64_t(b)};
   const cuuint64_t strides[3] = {bytes, bytes * wd, bytes * wd * h};
   const cuuint32_t box[4] = {KC, cuuint32_t(bw), cuuint32_t(bh), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                    strides, box,
+                    swizzle ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // The bf16 chain: three maps per call (the halos of x and of the growth
@@ -722,11 +708,8 @@ int growth_bf16(const void* x, int64_t x_ps, void* rs, const void* w,
     return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(growth_wgmma_kernel, wg::SMEM);
   if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int tiles = ((wd + TW - 1) / TW) * ((h + TH - 1) / TH) * b;
-  const int grid = tiles < sms ? tiles : sms;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
   const bf16* wt = static_cast<const bf16*>(w);
   for (int t = 0; t < NCONV; ++t) {
     const int nchunks = 2 + t;
@@ -739,24 +722,56 @@ int growth_bf16(const void* x, int64_t x_ps, void* rs, const void* w,
   return 0;
 }
 
-template <typename T>
-int tail(const void* x, int64_t x_ps, const void* const r[NCONV],
-         int64_t r_ps, const void* wb, const float* bb, void* out,
-         int64_t npix, cudaStream_t stream) {
-  auto kern = tail_kernel<T>;
-  cudaError_t err = allow_smem(kern, TailGeo<T>::SMEM);
+// A 2-D TMA map over `channels` bf16 channels of npix pixels at pixel
+// stride ps (elements), boxes of all the channels x 128 pixels under the
+// swizzle whose span is the box's row (128 bytes for 64 channels, 64 for
+// 32).
+bool pixel_map(CUtensorMap* map, const void* base, int64_t ps, int channels,
+               int64_t npix) {
+  const cuuint64_t dims[2] = {cuuint64_t(channels), cuuint64_t(npix)};
+  const cuuint64_t strides[1] = {cuuint64_t(ps) * sizeof(bf16)};
+  const cuuint32_t box[2] = {cuuint32_t(channels), TP};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                    strides, box,
+                    channels == C ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+int tail_bf16(const void* x, int64_t x_ps, const void* const r[NCONV],
+              int64_t r_ps, const void* wb, const float* bb, void* out,
+              int64_t npix, cudaStream_t stream) {
+  CUtensorMap xmap, rmaps[NCONV], omap;
+  bool ok = pixel_map(&xmap, x, x_ps, C, npix) &&
+            pixel_map(&omap, out, C, C, npix);
+  for (int i = 0; i < NCONV; ++i)
+    ok = ok && pixel_map(&rmaps[i], r[i], r_ps, G, npix);
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(tail_kernel_bf16, tl::SMEM);
   if (err != cudaSuccess) return int(err);
-  TailArgs<T> a;
-  a.x = static_cast<const T*>(x);
-  for (int i = 0; i < NCONV; ++i) a.r[i] = static_cast<const T*>(r[i]);
-  a.wb = static_cast<const T*>(wb);
+  const int64_t tiles = (npix + TP - 1) / TP;
+  const int grid = int(tiles < sm_count() ? tiles : sm_count());
+  tail_kernel_bf16<<<grid, tl::THREADS, tl::SMEM, stream>>>(
+      xmap, rmaps[0], rmaps[1], rmaps[2], rmaps[3], rmaps[4], omap,
+      static_cast<const bf16*>(wb), bb, npix);
+  return int(cudaGetLastError());
+}
+
+int tail_f32(const void* x, int64_t x_ps, const void* const r[NCONV],
+             int64_t r_ps, const void* wb, const float* bb, void* out,
+             int64_t npix, cudaStream_t stream) {
+  cudaError_t err = allow_smem(tail_kernel_f32, tf::SMEM);
+  if (err != cudaSuccess) return int(err);
+  TailArgs a;
+  a.x = static_cast<const float*>(x);
+  for (int i = 0; i < NCONV; ++i) a.r[i] = static_cast<const float*>(r[i]);
+  a.wb = static_cast<const float*>(wb);
   a.bb = bb;
-  a.out = static_cast<T*>(out);
+  a.out = static_cast<float*>(out);
   a.x_ps = x_ps;
   a.r_ps = r_ps;
   a.npix = npix;
   const int64_t blocks = (npix + TP - 1) / TP;
-  kern<<<unsigned(blocks), kThreads, TailGeo<T>::SMEM, stream>>>(a);
+  tail_kernel_f32<<<unsigned(blocks), kThreads, tf::SMEM, stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -785,7 +800,8 @@ int segmif_drdb_growth(const void* x, int64_t x_ps, void* rs, const void* w,
 
 // The tail. x: [npix][64] at pixel stride x_ps; r1..r5: [npix][32] at
 // pixel stride r_ps; wb: the bottleneck packed [64][224] (bf16) or
-// [224][64] (f32); bb: f32 [64]; out: [npix][64] contiguous.
+// [224][64] (f32); bb: f32 [64]; out: [npix][64] contiguous. bf16 needs
+// every pointer 16-byte aligned and x_ps, r_ps multiples of 8 (TMA).
 int segmif_drdb_tail(const void* x, int64_t x_ps, const void* r1,
                      const void* r2, const void* r3, const void* r4,
                      const void* r5, int64_t r_ps, const void* wb,
@@ -796,9 +812,9 @@ int segmif_drdb_tail(const void* x, int64_t x_ps, const void* r1,
   auto st = static_cast<cudaStream_t>(stream);
   auto bf = static_cast<const float*>(bb);
   if (dtype == kF32)
-    return tail<float>(x, x_ps, r, r_ps, wb, bf, out, npix, st);
+    return tail_f32(x, x_ps, r, r_ps, wb, bf, out, npix, st);
   if (dtype == kBF16)
-    return tail<__nv_bfloat16>(x, x_ps, r, r_ps, wb, bf, out, npix, st);
+    return tail_bf16(x, x_ps, r, r_ps, wb, bf, out, npix, st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -40,12 +40,12 @@
 //  - The output is divided by the row sum, rounded to bf16 once, staged in
 //    the warp's Q rows and stored in 16-byte rows.
 //
-// f32: the first version stays, on the CUDA cores (TF32 or a bf16 split
-// would not hold the f32 tolerance, and f32 is not the serving dtype): one
-// block per (128 queries, b*h), K and V staged whole in shared memory as
-// f32 rows of D+4 floats, one query per warp at a time, logits into a
-// per-warp row of shared memory. Shared memory is 4*(2*M*(D+4) + 16*M)
-// bytes, so M is limited (382 at D = 64) and the wrapper refuses more.
+// f32 stays on the CUDA cores in f32 FMA (TF32 or a bf16 split would not
+// hold the f32 tolerance, and f32 is not the serving dtype): one block per
+// (128 queries, b*h) with Q staged once; K and V stream through a
+// two-stage cp.async ring of 64-key tiles (rows of D+4 floats), with the
+// online softmax of the bf16 kernel per query (one warp, eight queries,
+// two keys per lane), so any M is taken, as the TPU kernel takes it.
 
 #include "common.cuh"
 
@@ -57,17 +57,49 @@ namespace {
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kQueriesPerBlock = 128;
-constexpr int kKeysPerLane = 4;
+constexpr int kQueriesPerWarp = kQueriesPerBlock / kWarps;
+constexpr int kKeyTile = 64;  // keys per streamed tile: two per lane
 
-template <int D> __host__ __device__ constexpr int row_stride() {
-  return D + 4;
+template <int D> struct F32Geo {
+  static constexpr int S = D + 4;                // padded K/V row, floats
+  static constexpr int KV = kKeyTile * S;        // one K or V tile
+  static constexpr size_t SMEM =
+      sizeof(float) * (size_t(kQueriesPerBlock) * D + 2 * 2 * KV +
+                       size_t(kWarps) * kKeyTile);
+};
+
+// 4-byte async copy (any 4-byte aligned source); with valid == false the
+// destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
-template <int D> size_t smem_bytes(int m) {
-  return sizeof(float) *
-         (size_t(2) * m * row_stride<D>() + size_t(kWarps) * m);
+// Keys [tile * 64, tile * 64 + 64) of K and V into one ring stage; rows at
+// or past m are zero-filled (nothing is read for them).
+template <int D>
+__device__ __forceinline__ void load_kv_f32(float* stage, const float* kb,
+                                            const float* vb, int64_t skm,
+                                            int64_t svm, int tile, int m) {
+  using Gf = F32Geo<D>;
+  for (int i = threadIdx.x; i < kKeyTile * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const int j = tile * kKeyTile + r;
+    const bool ok = j < m;
+    const int64_t jj = ok ? j : 0;
+    cp_async4(stage + r * Gf::S + d, kb + jj * skm + d, ok);
+    cp_async4(stage + Gf::KV + r * Gf::S + d, vb + jj * svm + d, ok);
+  }
 }
 
+// One block per (128 queries, b*h); K and V stream through a two-stage
+// cp.async ring in tiles of 64 keys, so shared memory does not depend on
+// M and any M >= 1 is taken. Warp w owns queries w, w + 16, ... of the
+// block; for each, per tile, lane l computes the logits of keys l and
+// l + 32, then the online softmax (running max and sum; the output
+// rescaled by exp(old max - new max)) and out[d] for its D / 32 dims.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     sr_attention_kernel(const float* __restrict__ q,
@@ -76,102 +108,120 @@ __global__ void __launch_bounds__(kThreads)
                         int n, int m, int h_count, int64_t sqb, int64_t sqn,
                         int64_t sqh, int64_t skb, int64_t skm, int64_t skh,
                         int64_t svb, int64_t svm, int64_t svh, float scale) {
-  constexpr int S = row_stride<D>();
+  using Gf = F32Geo<D>;
+  constexpr int S = Gf::S;
   constexpr int DPL = D / 32;  // output dims per lane
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [m][S]
-  float* vs = ks + m * S;                       // [m][S]
-  float* ps = vs + m * S;                       // [kWarps][m]
+  float* qs = reinterpret_cast<float*>(smem4);    // [128][D]
+  float* ring = qs + kQueriesPerBlock * D;        // [2][K, V][64][S]
+  float* ps = ring + 2 * 2 * Gf::KV;              // [kWarps][64]
 
   const int bh = blockIdx.y;
   const int b = bh / h_count;
   const int h = bh % h_count;
+  const int q0 = blockIdx.x * kQueriesPerBlock;
+  const float* qb = q + b * sqb + h * sqh;
   const float* kb = k + b * skb + h * skh;
   const float* vb = v + b * svb + h * svh;
-  for (int i = threadIdx.x; i < m * D; i += kThreads) {
-    const int j = i / D, d = i % D;
-    ks[j * S + d] = kb[j * skm + d];
-    vs[j * S + d] = vb[j * svm + d];
+  for (int i = threadIdx.x; i < kQueriesPerBlock * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    qs[i] = q0 + r < n ? qb[int64_t(q0 + r) * sqn + d] : 0.f;
   }
-  __syncthreads();
+  load_kv_f32<D>(ring, kb, vb, skm, svm, 0, m);
+  cp_async_commit();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* p = ps + warp * m;
-  const int q_end = min(n, (blockIdx.x + 1) * kQueriesPerBlock);
-  for (int qi = blockIdx.x * kQueriesPerBlock + warp; qi < q_end;
-       qi += kWarps) {
-    const float* qp = q + b * sqb + int64_t(qi) * sqn + h * sqh;
-    float qr[D];
+  float* p = ps + warp * kKeyTile;
+  float mrow[kQueriesPerWarp], lrow[kQueriesPerWarp];
+  float o[kQueriesPerWarp][DPL];
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qp[d];
+  for (int u = 0; u < kQueriesPerWarp; ++u) {
+    mrow[u] = -INFINITY;
+    lrow[u] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) o[u][t] = 0.f;
+  }
 
-    // logits of keys j = lane (mod 32), kept in this warp's row p
-    float mx = -INFINITY;
-    for (int j0 = 0; j0 < m; j0 += 32 * kKeysPerLane) {
-      float acc[kKeysPerLane];
-      const float* kr[kKeysPerLane];
+  const int tiles = (m + kKeyTile - 1) / kKeyTile;
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      load_kv_f32<D>(ring + ((tile + 1) & 1) * 2 * Gf::KV, kb, vb, skm, svm,
+                     tile + 1, m);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile `tile` (and Q) have landed for every thread
+    const float* ks = ring + (tile & 1) * 2 * Gf::KV;
+    const float* vs = ks + Gf::KV;
+    const bool valid0 = tile * kKeyTile + lane < m;
+    const bool valid1 = tile * kKeyTile + lane + 32 < m;
 #pragma unroll
-      for (int u = 0; u < kKeysPerLane; ++u) {
-        acc[u] = 0.f;
-        const int j = j0 + u * 32 + lane;
-        kr[u] = ks + (j < m ? j : m - 1) * S;
-      }
+    for (int u = 0; u < kQueriesPerWarp; ++u) {
+      const int r = warp + kWarps * u;
+      if (q0 + r >= n) break;  // warp-uniform; later u are past n too
+      const float* qrow = qs + r * D;
+      float acc0 = 0.f, acc1 = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
-#pragma unroll
-        for (int u = 0; u < kKeysPerLane; ++u) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr[u] + d);
-          acc[u] = fmaf(qr[d], kk.x, acc[u]);
-          acc[u] = fmaf(qr[d + 1], kk.y, acc[u]);
-          acc[u] = fmaf(qr[d + 2], kk.z, acc[u]);
-          acc[u] = fmaf(qr[d + 3], kk.w, acc[u]);
-        }
+        const float4 qq = *reinterpret_cast<const float4*>(qrow + d);
+        const float4 k0 = *reinterpret_cast<const float4*>(ks + lane * S + d);
+        const float4 k1 =
+            *reinterpret_cast<const float4*>(ks + (lane + 32) * S + d);
+        acc0 = fmaf(qq.x, k0.x, acc0);
+        acc0 = fmaf(qq.y, k0.y, acc0);
+        acc0 = fmaf(qq.z, k0.z, acc0);
+        acc0 = fmaf(qq.w, k0.w, acc0);
+        acc1 = fmaf(qq.x, k1.x, acc1);
+        acc1 = fmaf(qq.y, k1.y, acc1);
+        acc1 = fmaf(qq.z, k1.z, acc1);
+        acc1 = fmaf(qq.w, k1.w, acc1);
       }
-#pragma unroll
-      for (int u = 0; u < kKeysPerLane; ++u) {
-        const int j = j0 + u * 32 + lane;
-        if (j < m) {
-          const float l = acc[u] * scale;
-          p[j] = l;
-          mx = fmaxf(mx, l);
-        }
-      }
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < m; j += 32) {  // the same j this lane wrote
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-
-    // out[d] = sum_j p_j v[j, d] / sum, lane owns dims lane*DPL ..
-    float o0[DPL], o1[DPL];
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) o0[t] = o1[t] = 0.f;
-    const float* vcol = vs + lane * DPL;
-    int j = 0;
-    for (; j + 1 < m; j += 2) {
-      const float pa = p[j], pb = p[j + 1];
+      const float l0 = valid0 ? acc0 * scale : -INFINITY;
+      const float l1 = valid1 ? acc1 * scale : -INFINITY;
+      // key 0 is in tile 0, so the running max is finite from then on
+      const float mx = fmaxf(mrow[u], warp_max(fmaxf(l0, l1)));
+      const float alpha = expf(mrow[u] - mx);
+      const float e0 = expf(l0 - mx), e1 = expf(l1 - mx);
+      p[lane] = e0;
+      p[lane + 32] = e1;
+      lrow[u] = lrow[u] * alpha + warp_sum(e0 + e1);
+      mrow[u] = mx;
+      __syncwarp();
+      // out[d] = out[d] alpha + sum_j p_j v[j, d], lane owns dims lane*DPL..
+      const float* vcol = vs + lane * DPL;
+      float o0[DPL], o1[DPL];
 #pragma unroll
       for (int t = 0; t < DPL; ++t) {
-        o0[t] = fmaf(pa, vcol[j * S + t], o0[t]);
-        o1[t] = fmaf(pb, vcol[(j + 1) * S + t], o1[t]);
+        o0[t] = o[u][t] * alpha;
+        o1[t] = 0.f;
       }
-    }
-    if (j < m) {
-      const float pa = p[j];
+#pragma unroll 8
+      for (int j = 0; j < kKeyTile; j += 2) {
+        const float pa = p[j], pb = p[j + 1];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) o0[t] = fmaf(pa, vcol[j * S + t], o0[t]);
+        for (int t = 0; t < DPL; ++t) {
+          o0[t] = fmaf(pa, vcol[j * S + t], o0[t]);
+          o1[t] = fmaf(pb, vcol[(j + 1) * S + t], o1[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < DPL; ++t) o[u][t] = o0[t] + o1[t];
+      __syncwarp();  // p is rewritten by the next query
     }
-    const float inv = 1.f / sum;
+    __syncthreads();  // the stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int u = 0; u < kQueriesPerWarp; ++u) {
+    const int qi = q0 + warp + kWarps * u;
+    if (qi >= n) break;
+    const float inv = 1.f / lrow[u];
     float* op = out + ((int64_t(b) * n + qi) * h_count + h) * D + lane * DPL;
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) op[t] = (o0[t] + o1[t]) * inv;
-    __syncwarp();  // p is rewritten by the next query
+    for (int t = 0; t < DPL; ++t) op[t] = o[u][t] * inv;
   }
 }
 
@@ -180,23 +230,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
                int n, int m, int h, int64_t sqb, int64_t sqn, int64_t sqh,
                int64_t skb, int64_t skm, int64_t skh, int64_t svb,
                int64_t svm, int64_t svh, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(m);
-  if (m < 1 || smem > size_t(max_dynamic_smem()))
-    return int(cudaErrorInvalidValue);
+  if (m < 1) return int(cudaErrorInvalidValue);
   auto kern = sr_attention_kernel<D>;
-  cudaError_t err = allow_smem(kern, smem);
+  cudaError_t err = allow_smem(kern, F32Geo<D>::SMEM);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, b * h);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, F32Geo<D>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, m, h, sqb,
       sqn, sqh, skb, skm, skh, svb, svm, svh, scale);
   return int(cudaGetLastError());
-}
-
-template <int D> int max_m() {
-  const size_t per_key = sizeof(float) * (2 * row_stride<D>() + kWarps);
-  return int(size_t(max_dynamic_smem()) / per_key);
 }
 
 // ------------------------------------------- bf16, tensor cores
@@ -456,14 +499,6 @@ int segmif_sr_attention(const void* q, const void* k, const void* v,
   if (dtype == kBF16 && d == 32) SEGMIF_SRA(launch_bf16, 32);
 #undef SEGMIF_SRA
   return int(cudaErrorInvalidValue);
-}
-
-// Largest M the f32 kernel holds in shared memory for head dim d (0 if d
-// is not a supported head dim). The bf16 kernel takes any M.
-int segmif_sr_attention_max_m(int d) {
-  if (d == 64) return segmif::max_m<64>();
-  if (d == 32) return segmif::max_m<32>();
-  return 0;
 }
 
 const char* segmif_error_string(int err) {

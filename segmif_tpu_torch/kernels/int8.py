@@ -27,9 +27,9 @@ not have.
    every partial sum is an integer below 2^53.
  - ``drdb_int8_growth`` / ``drdb_int8_tail``: the CUDA kernels in
    ``csrc/drdb_int8.cu`` on CUDA tensors (replacing the TPU kernel
-   ``drdb_strips_int8_pallas``), the plain versions on CPU tensors. The
-   growth wrapper writes xq and r1..r5 into one int8 [B, H, W, 224] buffer
-   that the tail reads.
+   ``drdb_strips_int8_pallas``; the growth convs on wgmma with TMA-fed
+   halos), the plain versions on CPU tensors. The growth wrapper writes xq
+   and r1..r5 into one int8 [B, H, W, 224] buffer that the tail reads.
  - ``drdb_int8``: growth then tail; what ``DRDB.forward`` runs in "int8"
    mode. Serving-only: a gradient through it raises.
 """
@@ -128,15 +128,18 @@ def _source_range(s: int, c: int, g: int) -> Tuple[int, int]:
 def pack_int8_growth(kq: Sequence[torch.Tensor]) -> torch.Tensor:
     """The per-source int8 weights as the growth kernel stages them: per
     conv t, per 32-channel chunk of its input (x's two, then r1..r_t), per
-    tap, [n = 32][k = 32] (the mma B operand). Flat, 20 chunks of
-    9 x 32 x 32."""
+    tap, [k granule of 16][n = 32][16] (the wgmma B operand: 8 x 16-byte
+    core matrices of 8 output channels by 16 input channels, K-major).
+    Flat, 20 chunks of 9 x 32 x 32."""
     parts = []
     for t in range(NCONV):
         for chunk in range(2 + t):
             s = 0 if chunk < 2 else chunk - 1
             k0 = KC * chunk if s == 0 else 0
             w = kq[s][G * (t - s):G * (t - s + 1), k0:k0 + KC]  # [n, k, 3, 3]
-            parts.append(w.permute(2, 3, 0, 1).reshape(-1))
+            # [n, granule, e, ky, kx] -> [ky, kx, granule, n, e]
+            w = w.reshape(G, KC // 16, 16, 3, 3).permute(3, 4, 1, 0, 2)
+            parts.append(w.reshape(-1))
     return torch.cat(parts).contiguous()
 
 

@@ -46,6 +46,9 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    kernels' f32 epilogues (explicit _rn intrinsics, no FMA) run the plain
    version's operations in its order, so the int8 buffer and the output
    are compared with torch.equal; a planted fault must change them.
+ - bf16 serving against f32 end to end (test_bf16_vs_f32_pipeline):
+   segmif_tpu_torch.drift's limits, those of tests/test_bf16_drift.py;
+   a dropped DRDB1 tail bias must fail them.
 """
 import numpy as np
 import pytest
@@ -199,14 +202,29 @@ def test_sr_attention_and_apply_checks_catch_a_fault(cuda, fault):
     assert not _close(got, want, tol)
 
 
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (2, 70, 1, 2, 64),         # one key
+    (1, 130, 65, 1, 32),       # one key past a whole 64-key tile, D = 32
+    (2, 1000, 383, 2, 64),     # one key more than the f32 kernel once held
+    (2, 4000, 1980, 1, 64),    # the 1080p stage-1 key count (31 tiles)
+])
+def test_sr_attention_f32_takes_any_m(cuda, b, n, m, h, d):
+    """The f32 kernel streams K/V in 64-key tiles with an online softmax,
+    so M has no limit; held to the plain version within the unchanged f32
+    tolerance."""
+    q, k, v = _sr_inputs(19, b, n, m, h, d, torch.float32, cuda)
+    with torch.inference_mode():
+        got = sr_attention(q, k, v, d ** -0.5)
+        want = sr_attention_ref(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, h, d) and got.dtype == torch.float32
+    assert _close(got, want, SR_TOL[torch.float32])
+
+
 def test_sr_attention_refuses_what_it_does_not_take(cuda):
     g = torch.Generator().manual_seed(1)
     q = _randn(g, (1, 8, 1, 64), torch.float32, cuda)
-    big = _randn(g, (1, 4096, 1, 64), torch.float32, cuda)
     with torch.inference_mode():
-        # the f32 kernel holds K/V whole in shared memory
-        with pytest.raises(ValueError, match="exceed"):
-            sr_attention(q, big, big, 0.125)
         # bf16 rows are copied 16 bytes at a time
         qb = _randn(g, (1, 8, 1, 68), torch.bfloat16, cuda)[..., :64]
         with pytest.raises(ValueError, match="16 bytes"):
@@ -415,6 +433,53 @@ def test_drdb_tail_kernel_matches_plain(cuda, dtype, b, h, w):
     assert got.shape == x.shape and got.dtype == dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert _within(got, want, TAIL_TOL[dtype], x)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 17, 33), (2, 5, 7), (2, 100, 172)])
+def test_drdb_tail_bf16_on_a_channel_slice(cuda, b, h, w):
+    """The bf16 tail (TMA boxes read through pixel strides) with x a
+    channel slice (channels 16-79) of a wider channels_last tensor (pixel
+    stride 96) and r1..r5 separate tensors (pixel stride 32), at pixel
+    counts that end inside a 128-pixel tile."""
+    gen = torch.Generator().manual_seed(23)
+    x, _, (wb, bb) = _drdb_inputs(gen, b, h, w, torch.bfloat16, cuda)
+    wide = _randn(gen, (b, h, w, 96), torch.bfloat16, cuda)
+    wide[..., 16:80] = x.permute(0, 2, 3, 1)
+    x = wide.permute(0, 3, 1, 2)[:, 16:80]
+    rs = [torch.relu(_randn(gen, (b, h, w, 32), torch.bfloat16, cuda)
+                     ).permute(0, 3, 1, 2) for _ in range(5)]
+    assert x.stride(3) == 96 and rs[0].stride(3) == 32
+    with torch.inference_mode():
+        got = drdb_tail(x, rs, wb, bb)
+        want = drdb_tail_ref(x, rs, wb, bb)
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _within(got, want, TAIL_TOL[torch.bfloat16], x)
+
+
+@pytest.mark.parametrize("fault", ["r2_r3_swapped", "r5_weights_zeroed",
+                                   "x_weights_shifted_one"])
+def test_drdb_tail_bf16_check_catches_a_fault(cuda, fault):
+    """The bf16 tail run with a fault planted in its arguments (two growth
+    slices passed in each other's place; the bottleneck's weights for r5
+    zeroed; its weights for x shifted by one input channel) fails the
+    tail limit against the plain version on the true arguments."""
+    gen = torch.Generator().manual_seed(24)
+    x, dconvs, (wb, bb) = _drdb_inputs(gen, 2, 100, 172, torch.bfloat16,
+                                       cuda)
+    with torch.inference_mode():
+        rs = drdb_growth(x, dconvs)   # slices of the kernel's buffer
+        want = drdb_tail_ref(x, rs, wb, bb)
+        bad_rs, bad_wb = list(rs), wb.clone()
+        if fault == "r2_r3_swapped":
+            bad_rs[1], bad_rs[2] = rs[2], rs[1]
+        elif fault == "r5_weights_zeroed":
+            bad_wb[:, 192:] = 0
+        else:
+            bad_wb[:, :64] = wb[:, :64].roll(1, dims=1)
+        got = drdb_tail(x, bad_rs, bad_wb, bb)
+    torch.cuda.synchronize()
+    assert not _within(got, want, TAIL_TOL[torch.bfloat16], x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -692,3 +757,28 @@ def test_drdb_int8_forward_on_card_runs_only_the_int8_kernels(
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [1, 1, 0, 0]
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("fault", [None, "drdb1_tail_bias_dropped"])
+def test_bf16_vs_f32_pipeline(cuda, fault):
+    """mit_b3 JointPipeline at 480x640, batch 2, weights at the reference
+    modules' scale: the bf16 serving form (channels_last) against f32 on
+    the card holds the limits of tests/test_bf16_drift.py (fused-Y max abs
+    < 0.02, argmax agreement > 0.95, logits max abs < 1 f32 std); the
+    bf16 run with DRDB1's tail bias dropped must fail them."""
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    model = drift.init_reference_scale(JointPipeline("mit_b3"),
+                                       torch.Generator().manual_seed(25))
+    g = torch.Generator().manual_seed(26)
+    ir = torch.rand((2, 480, 640, 1), generator=g)
+    vis = torch.rand((2, 480, 640, 3), generator=g)
+    ref = drift.pipeline_outputs(model, ir, vis, torch.float32, cuda)
+    if fault is not None:
+        with torch.no_grad():
+            model.fusion.DRDB1.conv.bias.zero_()
+    got = drift.pipeline_outputs(model, ir, vis, torch.bfloat16, cuda)
+    torch.cuda.synchronize()
+    d = drift.drift(ref, got)
+    assert drift.within_limits(d) == (fault is None), drift.describe(d)

@@ -170,11 +170,13 @@ def test_int8_path_is_serving_only():
 def test_packing_as_the_kernel_reads_it():
     """The growth kernel's schedule on the packed weights, written out in
     torch: per conv, per 32-channel chunk and per tap, the zero-padded
-    window of the int8 buffer times that chunk's [n][k] weights, one
-    accumulator per source (x: chunks 0-1), folded into f32 partial sums
-    by the packed column scales in the kernel's order, then requantised;
-    then the tail's [224] x [64][224] product. Each source's accumulators
-    equal the plain version's exactly, and so do the buffer and output."""
+    window of the int8 buffer times that chunk's weights as the wgmma B
+    descriptor walks them ([k granule of 16][n][16]: the granule 512
+    bytes on, n 16 bytes on), one accumulator set per source (x: chunks
+    0-1), all folded after the last chunk into f32 partial sums by the
+    packed column scales in the reference's order, then requantised; then
+    the tail's [224] x [64][224] product. Each source's accumulators equal
+    the plain version's exactly, and so do the buffer and output."""
     x, w, amax = _case(9, 64, 32, (1, 7, 9))
     q = _quantized(w, amax)
     xt = _nchw(x)
@@ -186,25 +188,25 @@ def test_packing_as_the_kernel_reads_it():
     off = 0
     for t in range(5):
         xp = F.pad(feat.double(), (0, 0, 2, 2, 2, 2))
-        acc = torch.zeros((1, h, wd, 32), dtype=torch.float64)
-        pre = None
+        accs = torch.zeros((t + 1, 1, h, wd, 32), dtype=torch.float64)
         for c in range(2 + t):
-            wc = q.wpk[off:off + 9 * 32 * 32].reshape(9, 32, 32).double()
+            # [tap][granule][n][16] -> [tap][n][k = 16 granule + e]
+            wc = q.wpk[off:off + 9 * 32 * 32].reshape(9, 2, 32, 16).permute(
+                0, 2, 1, 3).reshape(9, 32, 32).double()
             off += 9 * 32 * 32
             for tap in range(9):
                 ky, kx = divmod(tap, 3)
-                acc += xp[:, 2 * ky:2 * ky + h, 2 * kx:2 * kx + wd,
-                          32 * c:32 * c + 32] @ wc[tap].t()
-            if c == 0:
-                continue
-            s = c - 1
+                accs[max(c - 1, 0)] += xp[:, 2 * ky:2 * ky + h,
+                                          2 * kx:2 * kx + wd,
+                                          32 * c:32 * c + 32] @ wc[tap].t()
+        for s in range(t + 1):
             lo, hi = (0, 64) if s == 0 else (32 + 32 * s, 64 + 32 * s)
             plain = tint8._iconv(want_feat[..., lo:hi], q.kq[s])
-            assert torch.equal(acc.float(),
+            assert torch.equal(accs[s].float(),
                                plain[..., 32 * (t - s):32 * (t - s + 1)])
-            v = acc.float() * q.svk[t, s]
-            pre = v + q.bias[32 * t:32 * t + 32] if s == 0 else pre + v
-            acc.zero_()
+        pre = accs[0].float() * q.svk[t, 0] + q.bias[32 * t:32 * t + 32]
+        for s in range(1, t + 1):
+            pre = pre + accs[s].float() * q.svk[t, s]
         r = torch.round(torch.relu(pre) * q.invs[t + 1])
         feat[..., 64 + 32 * t:96 + 32 * t] = torch.clamp(r, -127, 127)
     assert torch.equal(feat, want_feat)
@@ -214,6 +216,30 @@ def test_packing_as_the_kernel_reads_it():
         torch.relu(acc * q.svb + q.bb)
     want = tint8.drdb_int8_tail_ref(xt, want_feat, q)
     assert torch.equal(out, want.permute(0, 2, 3, 1).reshape(-1, 64))
+
+
+def test_growth_packing_by_index_formula():
+    """Every byte of ``pack_int8_growth`` read back by its flat index
+    equals the int8 weight it stands for: conv t, chunk c, tap (ky, kx),
+    output n, chunk channel k = 16 gr + e sits at base_t + 9216 c + 1024
+    tap + 512 gr + 16 n + e ([chunk][tap][granule][n][16], the wgmma B
+    operand), where base_t counts the earlier convs' chunks; chunks 0-1
+    are x's channels, chunk c >= 2 is r_{c-1}."""
+    x, w, amax = _case(10, 64, 32, (1, 4, 5))
+    q = _quantized(w, amax)
+    wpk = q.wpk.numpy()
+    n, k, ky, kx = np.meshgrid(np.arange(32), np.arange(32), np.arange(3),
+                               np.arange(3), indexing="ij")
+    flat = 1024 * (3 * ky + kx) + 512 * (k // 16) + 16 * n + k % 16
+    base = 0
+    for t in range(5):
+        for c in range(2 + t):
+            s = 0 if c < 2 else c - 1
+            k0 = 32 * c if s == 0 else 0
+            want = q.kq[s][32 * (t - s) + n, k0 + k, ky, kx].numpy()
+            np.testing.assert_array_equal(wpk[base + flat], want)
+            base += 9216
+    assert base == wpk.size
 
 
 B, H, W = 2, 32, 32

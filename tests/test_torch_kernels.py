@@ -391,11 +391,60 @@ def test_drdb_kernel_weights_repack_only_when_a_weight_changes(
     assert fifth[0][1][0] == sd["Dcov1.bias"][0].float()
 
 
+def _tail_bf16_schedule(rows, wpk, bb):
+    """The bf16 tail kernel on one 128-pixel tile, written out in torch.
+    rows: [128, 224] (x's 64 channels, then r1..r5's 32). The TMA boxes
+    land in shared memory as 16-byte chunks (8 channels) under the
+    swizzle whose span is the box row: x's 128-byte rows at chunk c ^ (row
+    % 8), each r_i's 64-byte rows at c ^ (row / 2 % 4). Lane l of warp w
+    reads row 16 w + l % 16, chunk 2 ks + l / 16 of x (k16 step ks < 4),
+    or chunk 2 kk + l / 16 of r_i (ks = 4 + 2 i + kk), at the kernel's
+    swizzled address; the product runs against the [n][k] weights; the
+    epilogue (bf16 rounding steps) overwrites x's elements in place, and
+    the store un-swizzles the x box. Returns the [128, 64] output."""
+    tp = rows.shape[0]
+    x_box = torch.zeros((tp, 8, 8))               # [row][physical chunk][8]
+    r_boxes = torch.zeros((5, tp, 4, 8))
+    for p in range(tp):
+        for c in range(8):
+            x_box[p, c ^ (p % 8)] = rows[p, 8 * c:8 * c + 8]
+        for i in range(5):
+            for c in range(4):
+                r_boxes[i, p, c ^ ((p // 2) % 4)] = \
+                    rows[p, 64 + 32 * i + 8 * c:64 + 32 * i + 8 * c + 8]
+    a = torch.zeros((tp, 224))
+    for w in range(tp // 16):
+        for lane in range(32):
+            row, hi = 16 * w + lane % 16, lane // 16
+            for ks in range(14):
+                if ks < 4:
+                    frag = x_box[row, (2 * ks + hi) ^ (row % 8)]
+                else:
+                    i, kk = divmod(ks - 4, 2)
+                    frag = r_boxes[i, row, (2 * kk + hi) ^ ((row // 2) % 4)]
+                a[row, 16 * ks + 8 * hi:16 * ks + 8 * hi + 8] = frag
+    assert torch.equal(a, rows)
+    acc = (a.double() @ wpk.double().t()).float()          # f32 accumulate
+    y = (acc.bfloat16().float() + bb).bfloat16().float()
+    for p in range(tp):
+        for nt in range(8):
+            xs = x_box[p, nt ^ (p % 8)]
+            x_box[p, nt ^ (p % 8)] = (xs + torch.relu(
+                y[p, 8 * nt:8 * nt + 8])).bfloat16().float()
+    return torch.stack([torch.cat([x_box[p, nt ^ (p % 8)]
+                                   for nt in range(8)]) for p in range(tp)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_drdb_tail_packing_as_the_kernel_reads_it(dtype):
-    """The tail kernel's product: the [pixels, 224] rows of x and r1..r5
-    side by side times the packed bottleneck ([n][k] for bf16, [k][n] for
-    f32), bias, relu, residual; against the plain tail (1e-5)."""
+    """The tail kernel's product: the rows of x and r1..r5 side by side
+    times the packed bottleneck ([n][k] for bf16, [k][n] for f32), bias,
+    relu, residual; for bf16, on swizzled shared-memory tiles as
+    ``_tail_bf16_schedule`` walks them, with the kernel's rounding steps,
+    against the plain tail in bf16 within the card tests' bf16 tail limit
+    (one bf16 step of the output and of the bottleneck term: the CPU's
+    bf16 conv sums in another order, so a rounding may land one step
+    away); for f32 against the plain tail (1e-5)."""
     rng = np.random.default_rng(10)
     x = _t(rng.standard_normal((2, 5, 7, C)).astype(np.float32))
     rs = [torch.relu(_t(rng.standard_normal((2, 5, 7, 32)
@@ -406,11 +455,28 @@ def test_drdb_tail_packing_as_the_kernel_reads_it(dtype):
     wpk = tdrdb.pack_tail_weights(wb, dtype).float()
     w_kn = wpk.t() if dtype == torch.bfloat16 else wpk
     assert w_kn.shape == (224, C)
-    got = x + torch.relu(torch.cat([x, *rs], -1) @ w_kn + bb)
-    want = tdrdb.drdb_tail_ref(x.permute(0, 3, 1, 2),
-                               [r.permute(0, 3, 1, 2) for r in rs], wb, bb)
-    np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(),
-                               atol=1e-5)
+    if dtype == torch.float32:
+        got = x + torch.relu(torch.cat([x, *rs], -1) @ w_kn + bb)
+        want = tdrdb.drdb_tail_ref(x.permute(0, 3, 1, 2),
+                                   [r.permute(0, 3, 1, 2) for r in rs], wb, bb)
+        np.testing.assert_allclose(got.numpy(),
+                                   want.permute(0, 2, 3, 1).numpy(),
+                                   atol=1e-5)
+        return
+    x, rs, bb = _bf16_exact(x), [_bf16_exact(r) for r in rs], _bf16_exact(bb)
+    rows = torch.cat([x, *rs], -1).reshape(-1, 224)
+    tile = torch.zeros((128, 224))                # the TMA zero fill
+    tile[:rows.shape[0]] = rows
+    got = _tail_bf16_schedule(tile, wpk, bb)[:rows.shape[0]]
+    bf = torch.bfloat16
+    want = tdrdb.drdb_tail_ref(x.permute(0, 3, 1, 2).to(bf),
+                               [r.permute(0, 3, 1, 2).to(bf) for r in rs],
+                               wb.to(bf), bb.to(bf))
+    want = want.permute(0, 2, 3, 1).reshape(-1, C).float()
+    xr = x.reshape(-1, C)
+    limit = 2 ** -10 + 2 ** -7 * (want.abs() + (want - xr).abs())
+    assert bool(((got - want).abs() <= limit).all())
+    assert (got != want).float().mean().item() < 0.01
 
 
 def test_port_imports_no_jax():
