@@ -50,7 +50,29 @@ line):
     modules' scale) under the limits of tests/test_bf16_drift.py
     (``segmif_tpu_torch.drift``), and a bf16 run with DRDB1's tail bias
     dropped, which must fail them;
- 7. print pairs/s for the four serving modes, timed with CUDA events.
+ 7. print pairs/s for the four serving modes, timed with CUDA events;
+ 8. fusion-phase training (``segmif_tpu_torch.train.steps.
+    make_fusion_train_step``; the kernels' autograd.Functions recompute
+    their plain versions in the backward): (a) one round >= 2 step of a
+    mit_b3 model (weights at the reference modules' scale) in f32 on the
+    card against the same step on the CPU, batch 2 at 240x320, every
+    gradient leaf held to the CPU's, and a DRDB Function that returns a
+    zero bottleneck-bias gradient must fail that check; (b) the slice at
+    full width, batch 8 at 480x640, bf16 compute with f32 master weights,
+    AdamW (poly schedule): 6 round >= 2 steps on one batch, then a round-1
+    step, with the kernel launches of every step counted (sr-attention 35
+    or 7, FFM 2 + 2, DRDB 4 + 4, int8 0: the backward launches none),
+    finite losses and loss_fusion falling from step 1 to step 5, and no
+    synchronizing CUDA call in a step; (c) one bf16 step against one f32
+    step on the card, beside an f32 step with the weights rounded to bf16:
+    at that shape the loss within a relative limit and every gradient
+    leaf's norm within a range of f32's (cosines printed); at 64x96 every
+    leaf's cosine and the whole gradient's above a limit, every norm
+    within a tighter range (128x160 printed); the (a) fault must fail both;
+    (d) ms per step and pairs/s (CUDA events, three steps after two
+    warm-up steps, host-paced), the share of a step spent in the
+    Functions' recompute backward, peak device memory, each part's
+    seconds.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +82,7 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -143,6 +166,40 @@ PIPE_RTOL = {"fused_y": 1e-4, "logits": 1e-3}
 # fused Y's rmse below a quarter of its std, the JAX package's sanity bound
 # for int8 against float end to end (tests/test_int8.py:140-145)
 INT8_DRIFT_RMSE = 0.25
+# Phase 8, training. (a) card f32 against CPU f32, one step: the losses
+# within 1e-4 relative (f32 sums in other orders through the network),
+# every gradient leaf within 1e-2 of its largest magnitude: those sums,
+# and relu inputs within rounding of zero that take the other branch on
+# one device (on the CPU at 32x32 one such pixel moved a DRDB bias
+# gradient by up to 2.9e-2 of its largest magnitude against JAX; at
+# 240x320 a pixel weighs 75 times less). A zeroed gradient reads 1.
+TRAIN_HW = (240, 320)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_LEAF_RTOL = 1e-2
+# (c) bf16 against f32 on the card, one step each, mit_b3 batch 8. At
+# 480x640 no fixed cosine limit holds for this model: its f32 gradient
+# moves when only the weights are rounded to bf16 (``compare.bf16_rounded``,
+# f32 arithmetic throughout; the FFM's context softmax over grams of
+# 307,200 tokens is saturated, and one bf16 step of a weight moves its
+# logits by whole units), and the JAX package's own bf16 step departs from
+# its f32 step in the same way, and further than the port's, on the CPU
+# (tests/test_torch_train_bf16.py). So at 480x640 the loss within 2e-2
+# relative (the fused Y moves by up to about 0.008 in bf16 serving, phase
+# 6) and every leaf's norm within [0.02, 20] times f32's (a vanished leaf
+# reads 0; an order of magnitude above the largest ratio read on the H100,
+# 7.0), the cosines printed beside the rounded-weights step's; at 128x160
+# both printed; at 64x96, where the rounded-weights step kept every
+# leaf's cosine above 0.98 on the H100: every leaf's cosine at or above
+# 0.95, all leaves' at or above 0.99, every norm within [0.8, 1.25] times
+# f32's. A zeroed leaf reads cosine 0 and norm ratio 0.
+BF16_TRAIN_LOSS_RTOL = 2e-2
+BF16_TRAIN_RATIO = {"full": (0.02, 20.0), "held": (0.8, 1.25)}
+BF16_TRAIN_HELD_HW = (64, 96)
+BF16_TRAIN_PRINTED_HW = (128, 160)
+BF16_TRAIN_LEAF_COS = 0.95
+BF16_TRAIN_ALL_COS = 0.99
+TRAIN_LR = 1e-4           # the JAX bench.py train cell's adamw_poly
+TRAIN_FUSION_SCALE = 0.2
 # Peaks of one H100 SXM (NVIDIA's datasheet, dense, 700 W) for the bounds
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -857,6 +914,272 @@ def requests(gen, n_req, batch, dev):
     return out
 
 
+def train_batch(gen, b, h, w, dev):
+    import torch
+
+    return {"ir": torch.rand((b, h, w, 1), generator=gen).to(dev),
+            "vis": torch.rand((b, h, w, 3), generator=gen).to(dev),
+            "guide": torch.rand((b, h, w, 3), generator=gen).to(dev),
+            "label": torch.randint(0, 9, (b, h, w), generator=gen).to(dev)}
+
+
+class planted_zero_bias_grad:
+    """While active, the DRDB Function's backward returns a zero gradient
+    for the bottleneck bias."""
+
+    def __enter__(self):
+        from segmif_tpu_torch.kernels import drdb as kdrdb
+
+        self.cls, self.real = kdrdb._DrdbFn, kdrdb._DrdbFn.backward
+        real = self.real
+
+        def faulty(ctx, g):
+            grads = list(real(ctx, g))
+            grads[-1] = grads[-1] * 0
+            return tuple(grads)
+
+        self.cls.backward = staticmethod(faulty)
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.real)
+
+
+def train_checks(dev, counters):
+    """Phase 8: fusion-phase training; see the module docstring."""
+    import warnings
+
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.models.network import JointPipeline
+    from segmif_tpu_torch.train.compare import (bf16_rounded, leaf_cosines,
+                                                leaf_errors, step_grads)
+    from segmif_tpu_torch.train.optimizer import adamw_poly
+    from segmif_tpu_torch.train.state import FusionTrainState
+    from segmif_tpu_torch.train.steps import make_fusion_train_step
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    model = drift.init_reference_scale(JointPipeline("mit_b3"),
+                                       torch.Generator().manual_seed(SEED + 6))
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    # (a) card f32 against CPU f32
+    t0 = time.perf_counter()
+    small = train_batch(gen, 2, *TRAIN_HW, "cpu")
+    want_m, want = step_grads(model, small, False, f32, "cpu",
+                              TRAIN_FUSION_SCALE)
+    cpu_s = time.perf_counter() - t0
+    on_card = {k: v.to(dev) for k, v in small.items()}
+    got_m, got = step_grads(model, on_card, False, f32, dev,
+                            TRAIN_FUSION_SCALE)
+    for k in ("loss", "loss_fusion", "loss_seg"):
+        a, b = got_m[k].item(), want_m[k].item()
+        print(f"train (a) f32 card vs CPU {k}: {a:.6f} vs {b:.6f}, "
+              f"relative {abs(a - b) / abs(b):.2e} (limit "
+              f"{TRAIN_LOSS_RTOL:g})", flush=True)
+        check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b), f"train (a) {k}")
+    errs = leaf_errors(got, want)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"train (a) f32 card vs CPU, mit_b3 batch 2 {TRAIN_HW[0]}x"
+          f"{TRAIN_HW[1]}, round >= 2: {len(errs)} gradient leaves, worst "
+          f"max|err|/max|ref| {worst[0][1]:.3e} ({worst[0][0]}), next "
+          f"{worst[1][1]:.3e} ({worst[1][0]}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} (limit "
+          f"{TRAIN_LEAF_RTOL:g}); CPU step {cpu_s:.1f} s", flush=True)
+    check(worst[0][1] <= TRAIN_LEAF_RTOL, "train (a) gradients differ")
+    with planted_zero_bias_grad():
+        _, bad = step_grads(model, on_card, False, f32, dev,
+                            TRAIN_FUSION_SCALE)
+    bad_worst = max(leaf_errors(bad, want).items(), key=lambda kv: kv[1])
+    print(f"planted fault, train (a), DRDB bottleneck-bias gradient "
+          f"zeroed: worst {bad_worst[1]:.3e} ({bad_worst[0]}) (the check "
+          f"fails, as it must)", flush=True)
+    check(bad_worst[1] > TRAIN_LEAF_RTOL, "the train (a) check passes a "
+                                          "zeroed DRDB bias gradient")
+    del got, bad, want, on_card
+    print(f"train (a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) the slice at full width
+    t0 = time.perf_counter()
+    full = train_batch(gen, BATCH, H, W, dev)
+    m = copy.deepcopy(model)
+    tx = adamw_poly(TRAIN_LR, 0, 20000)
+    step = make_fusion_train_step(m, tx, round1=False)
+    step1 = make_fusion_train_step(m, tx, round1=True)
+    state = FusionTrainState.create(m.fusion, tx)
+    float_drdb = {"drdb_growth": 4, "drdb_tail": 4, "drdb_int8_growth": 0,
+                  "drdb_int8_tail": 0}
+    expect = {r: {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
+                  **float_drdb} for r, sr in (("r2", 35), ("r1", 7))}
+
+    def counted(fn, which):
+        for c in counters.values():
+            c.launches = 0
+        metrics = fn(state, full, TRAIN_FUSION_SCALE)
+        counts = {k: c.launches for k, c in counters.items()}
+        check(counts == expect[which], f"train step launches {counts}, "
+                                       f"expected {expect[which]}")
+        return metrics
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    losses = [counted(step, "r2")]          # step 1, warm-up
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")     # step 2, warm-up, untimed
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses.append(counted(step, "r2"))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ev[0].record()
+    for _ in range(3):                      # steps 3-5, timed
+        losses.append(counted(step, "r2"))
+    ev[1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    # step 6: the Functions' recompute backward timed inside the step
+    real, spans = _build.plain_vjp, []
+
+    def timed_vjp(*a, **k):
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        out = real(*a, **k)
+        e_.record()
+        spans.append((s_, e_))
+        return out
+
+    _build.plain_vjp = timed_vjp
+    try:
+        ev[2].record()
+        losses.append(counted(step, "r2"))
+        ev[3].record()
+        torch.cuda.synchronize()
+    finally:
+        _build.plain_vjp = real
+    syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
+    recompute_ms = sum(a.elapsed_time(b) for a, b in spans)
+    inst_ms = ev[2].elapsed_time(ev[3])
+    fus = [mt["loss_fusion"].item() for mt in losses]
+    tot = [mt["loss"].item() for mt in losses]
+    print(f"train (b) mit_b3 batch {BATCH} {H}x{W}, bf16 compute, f32 "
+          f"master weights, AdamW lr {TRAIN_LR:g}: 6 round >= 2 steps, "
+          f"loss {' '.join(f'{v:.5f}' for v in tot)}, loss_fusion "
+          f"{' '.join(f'{v:.5f}' for v in fus)}; launches per step "
+          f"{expect['r2']} (the backward launches none)", flush=True)
+    check(all(math.isfinite(v) for v in tot + fus), "train losses not "
+                                                   "finite")
+    check(fus[4] < fus[0], "loss_fusion did not fall over 5 steps")
+    r1 = counted(step1, "r1")
+    r1_loss = r1["loss"].item()
+    check(math.isfinite(r1_loss) and r1["loss_seg"].item() == 0.0,
+          "round-1 step")
+    check(int(state.step.item()) == 7 and int(state.dwa.step.item()) == 7,
+          "train state step counts")
+    print(f"train (b) round-1 step: loss {r1_loss:.5f}, launches "
+          f"{expect['r1']}", flush=True)
+    print(f"train (d) ms per step {step_ms:.2f} (steps 3-5 after two "
+          f"warm-up steps, CUDA events, host-paced), "
+          f"{BATCH * 1e3 / step_ms:.3f} train pairs/s; peak device memory of "
+          f"steps 3-5 above the model and batch {peak / 2**30:.2f} GiB; step "
+          f"6 {inst_ms:.2f} ms of which the Functions' recompute backward "
+          f"{recompute_ms:.2f} ms ({recompute_ms / inst_ms:.3f} of the step, "
+          f"{len(spans)} recomputes); synchronizing CUDA calls in step 2 "
+          f"(torch.cuda.set_sync_debug_mode): {len(syncs)}", flush=True)
+    check(not syncs, f"the train step waits for the device: "
+                     f"{syncs[0].message if syncs else ''}")
+    del m, state, step, step1, losses
+    torch.cuda.empty_cache()
+    print(f"train (b): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) bf16 against f32 on the card
+    t0 = time.perf_counter()
+    rounded = bf16_rounded(model)
+    shapes = (("full", (H, W)), ("printed", BF16_TRAIN_PRINTED_HW),
+              ("held", BF16_TRAIN_HELD_HW))
+    for kind, (h, w) in shapes:
+        data = full if kind == "full" else train_batch(gen, BATCH, h, w, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        m32, g32 = step_grads(model, data, False, f32, dev,
+                              TRAIN_FUSION_SCALE)
+        peak32 = torch.cuda.max_memory_allocated(dev)
+        _, gw = step_grads(rounded, data, False, f32, dev, TRAIN_FUSION_SCALE)
+        m16, g16 = step_grads(model, data, False, bf16, dev,
+                              TRAIN_FUSION_SCALE)
+        rel = abs(m16["loss"].item() - m32["loss"].item()) / abs(
+            m32["loss"].item())
+        cos_w = leaf_cosines(gw, g32)
+        label = f"train (c) bf16 vs f32 step, mit_b3 batch {BATCH} {h}x{w}"
+        print(f"{label}: loss {m16['loss'].item():.6f} vs "
+              f"{m32['loss'].item():.6f}, relative {rel:.3e} (limit "
+              f"{BF16_TRAIN_LOSS_RTOL:g}); bf16 step {bf16_summary(g16, g32)}"
+              f"; f32 step at bf16-rounded weights "
+              f"{bf16_summary(gw, g32)}; f32 step peak device memory "
+              f"{peak32 / 2**30:.2f} GiB", flush=True)
+        if kind == "full":
+            cos = leaf_cosines(g16, g32)
+            print(f"{label}: leaves below cosine {BF16_TRAIN_LEAF_COS} (bf16 "
+                  f"/ rounded weights): " + ", ".join(
+                      f"{k} {c:.3f}/{cos_w[k]:.3f}" for k, c in sorted(
+                          cos.items(), key=lambda kv: kv[1])
+                      if c < BF16_TRAIN_LEAF_COS), flush=True)
+        check(rel <= BF16_TRAIN_LOSS_RTOL, f"{label}: the bf16 loss drifts")
+        if kind == "printed":
+            continue
+        faults = bf16_faults(g16, g32, kind)
+        check(not faults, f"{label}: {'; '.join(faults)}")
+        with planted_zero_bias_grad():
+            _, bad = step_grads(model, data, False, bf16, dev,
+                                TRAIN_FUSION_SCALE)
+        caught = bf16_faults(bad, g32, kind)
+        print(f"planted fault, {label}, DRDB bottleneck-bias gradient "
+              f"zeroed: {'; '.join(caught)} (the check fails, as it must)",
+              flush=True)
+        check(bool(caught), f"{label}: the check passes a zeroed DRDB bias "
+                            "gradient")
+        del g32, gw, g16, bad
+    del full, rounded
+    torch.cuda.empty_cache()
+    print(f"train (c): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def bf16_summary(got, want) -> str:
+    """Cosines and norm ratios of a step's gradients against f32's."""
+    from segmif_tpu_torch.train.compare import (leaf_cosines, norm_ratios,
+                                                overall_cosine)
+
+    cos, ratio = leaf_cosines(got, want), norm_ratios(got, want)
+    low = min(cos, key=cos.get)
+    return (f"cosine {overall_cosine(got, want):.4f} overall, lowest leaf "
+            f"{cos[low]:.4f} ({low}), median "
+            f"{sorted(cos.values())[len(cos) // 2]:.4f}, "
+            f"{sum(c >= BF16_TRAIN_LEAF_COS for c in cos.values())} of "
+            f"{len(cos)} at or above {BF16_TRAIN_LEAF_COS}; norm ratio "
+            f"{min(ratio.values()):.3f}-{max(ratio.values()):.3f}")
+
+
+def bf16_faults(got, want, kind: str) -> list:
+    """The (c) limits that the bf16 gradients break: at "full" the norm
+    ratios, at "held" the ratios and the cosines."""
+    from segmif_tpu_torch.train.compare import (leaf_cosines, norm_ratios,
+                                                overall_cosine)
+
+    lo, hi = BF16_TRAIN_RATIO[kind]
+    out = [f"{k} norm ratio {r:.4f} outside [{lo:g}, {hi:g}]"
+           for k, r in norm_ratios(got, want).items() if not lo <= r <= hi]
+    if kind == "held":
+        out += [f"{k} cosine {c:.4f} < {BF16_TRAIN_LEAF_COS}"
+                for k, c in leaf_cosines(got, want).items()
+                if c < BF16_TRAIN_LEAF_COS]
+        whole = overall_cosine(got, want)
+        if whole < BF16_TRAIN_ALL_COS:
+            out.append(f"overall cosine {whole:.4f} < {BF16_TRAIN_ALL_COS}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1049,6 +1372,11 @@ def main() -> int:
     print(f"peak device memory, serving (phases 5 and 7): "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
           flush=True)
+    del serves, model, qmodel, reqs, guide, cal
+    torch.cuda.empty_cache()
+
+    # phase 8: fusion-phase training
+    train_checks(dev, counters)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

@@ -6,18 +6,18 @@ to the port: the same ``JointPipeline`` and weights run once in f32 and
 once in bf16 (on the card, channels_last: the serving form), and the bf16
 run must keep
 
+ - the fused-Y SSIM against f32 above 0.99 (``ops.ssim``, the
+   reference's 11x11 Gaussian window),
  - the fused Y within 0.02 of f32 at every pixel (Y lies in [0, 1]),
  - the segmentation argmax equal at more than 95% of the 1/4-resolution
    pixels (random-init logits hold near-ties, so agreement, not equality),
  - the logits within one standard deviation of the f32 logits.
 
-The fused-Y SSIM limit (> 0.99) waits for the port of ``ops/ssim.py``.
-
  - ``init_reference_scale``: random weights at the reference modules'
    scale (torch's default layer init), under which the limits mean what
    they mean for a converted reference checkpoint.
  - ``pipeline_outputs``: one forward of a copy of the model in a dtype.
- - ``drift`` / ``within_limits``: the three numbers and the verdict.
+ - ``drift`` / ``within_limits``: the four numbers and the verdict.
 """
 from __future__ import annotations
 
@@ -28,9 +28,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
+from .ops.ssim import ssim
+
 # (name, comparison, limit): the bf16 run passes when every
 # `value <comparison> limit` holds
-BF16_LIMITS = (("fused_y_max_abs", "<", 0.02),
+BF16_LIMITS = (("fused_y_ssim", ">", 0.99),
+               ("fused_y_max_abs", "<", 0.02),
                ("argmax_agreement", ">", 0.95),
                ("logits_max_abs_per_std", "<", 1.0))
 
@@ -78,10 +81,11 @@ def pipeline_outputs(model: nn.Module, ir: torch.Tensor, vis: torch.Tensor,
 
 def drift(ref: Tuple[torch.Tensor, torch.Tensor],
           got: Tuple[torch.Tensor, torch.Tensor]) -> Dict[str, float]:
-    """The three drift numbers of ``got`` (fused Y, logits) against the
+    """The four drift numbers of ``got`` (fused Y, logits) against the
     f32 ``ref``; logits are [..., classes]."""
     (y_ref, l_ref), (y, logits) = ref, got
     return {
+        "fused_y_ssim": ssim(y.float(), y_ref.float()).item(),
         "fused_y_max_abs": (y - y_ref).abs().max().item(),
         "argmax_agreement": (logits.argmax(-1) == l_ref.argmax(-1)
                              ).float().mean().item(),

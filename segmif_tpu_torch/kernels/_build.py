@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -170,13 +170,47 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def refuse_grad(*ts: torch.Tensor) -> None:
-    """The kernels are forward-only (serving): raise if autograd would
-    need a gradient through them."""
+def refuse_grad(*ts: torch.Tensor, instead: Optional[str] = None) -> None:
+    """Raise if autograd would need a gradient through a forward-only
+    kernel wrapper. ``instead``: the function whose autograd.Function
+    carries the gradient (its backward recomputes the plain version)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(
-            "the CUDA kernels are forward-only (serving); call them under "
-            "torch.inference_mode() or torch.no_grad()")
+        hint = (f"call {instead}, whose backward recomputes the plain "
+                "version, for a gradient" if instead else
+                "call it under torch.inference_mode() or torch.no_grad()")
+        raise RuntimeError(f"this CUDA kernel wrapper is forward-only; "
+                           f"{hint}")
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a graph through any of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: f32 for f32 and bf16 inputs
+    (as the kernels accumulate), f64 for f64 (so that gradcheck can read
+    their gradients)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def plain_vjp(plain: Callable, saved: Sequence[torch.Tensor],
+              needs: Sequence[bool], cotangents) -> tuple:
+    """The backward of a kernel's autograd.Function: the gradients of
+    ``plain(*saved)`` (the kernel's plain PyTorch version) against the
+    output cotangents, recomputed here with autocast off, for the saved
+    inputs whose ``needs`` flag is set (None for the others). The JAX
+    package's custom_vjp backwards recompute through XLA the same way; no
+    kernel runs here."""
+    ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, needs)]
+    with torch.enable_grad(), torch.autocast(saved[0].device.type,
+                                             enabled=False):
+        out = plain(*ins)
+    outs = (out,) if torch.is_tensor(out) else tuple(out)
+    wanted = [t for t in ins if t.requires_grad]
+    got = iter(torch.autograd.grad(outs, wanted, cotangents)
+               if wanted else ())
+    return tuple(next(got) if t.requires_grad else None for t in ins)
 
 
 def check(err: int, what: str) -> None:

@@ -18,7 +18,14 @@ channels_last memory (the fusion trunk's layout); weights are the
    the buffer's slices through their strides, so no concat exists.
  - ``pack_growth`` / ``pack_tail``: the weights as the kernels read them;
    ``DRDB`` packs once and passes them as ``wpk``.
- - ``drdb_block``: growth then tail; what ``DRDB.forward`` runs.
+ - ``drdb_block``: growth then tail; what ``DRDB.forward`` runs. Under
+   autograd the two kernels sit in one ``autograd.Function`` that saves
+   only its inputs and whose backward is the VJP of ``drdb_chain`` with
+   respect to x and the 12 conv tensors, recomputed in plain PyTorch (the
+   JAX ``custom_vjp`` of ``pallas_drdb.py``: ``_bwd`` recomputes
+   ``drdb_xla``; saving only the inputs is what the JAX package's
+   ``nn.remat(DRDB)`` buys). ``drdb_growth`` and ``drdb_tail`` called
+   alone are forward-only.
 """
 from __future__ import annotations
 
@@ -167,7 +174,7 @@ def drdb_growth(x: torch.Tensor, dconvs: Sequence[Conv],
     if x.device.type != "cuda":
         raise ValueError(f"drdb_growth: unsupported device {x.device}")
     ws = [t for wb in dconvs for t in wb]
-    _build.refuse_grad(x, *ws)
+    _build.refuse_grad(x, *ws, instead="drdb_block")
     if len(dconvs) != NCONV:
         raise ValueError(f"drdb_growth: {len(dconvs)} convs, expected 5")
     for t, (w, b) in enumerate(dconvs):
@@ -212,7 +219,7 @@ def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
         return drdb_tail_ref(x, rs, wb, bb)
     if x.device.type != "cuda":
         raise ValueError(f"drdb_tail: unsupported device {x.device}")
-    _build.refuse_grad(x, *rs, wb, bb)
+    _build.refuse_grad(x, *rs, wb, bb, instead="drdb_block")
     if len(rs) != NCONV:
         raise ValueError(f"drdb_tail: {len(rs)} growth tensors, expected 5")
     if wb.shape != (C, C + G * NCONV, 1, 1) or bb.shape != (C,):
@@ -246,11 +253,49 @@ def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
 drdb_tail.launches = 0
 
 
+def _drdb_kernels(x, dconvs, bottleneck, wpk=None) -> torch.Tensor:
+    gpk, tpk = (None, None) if wpk is None else wpk
+    return drdb_tail(x, drdb_growth(x, dconvs, gpk), *bottleneck, wpk=tpk)
+
+
+def _convs(ws) -> Tuple[list, Conv]:
+    """(w1, b1, ..., w5, b5, wb, bb) -> (dconvs, bottleneck)."""
+    return [(ws[2 * t], ws[2 * t + 1]) for t in range(NCONV)], (ws[-2],
+                                                                 ws[-1])
+
+
+class _DrdbFn(torch.autograd.Function):
+    """The growth and tail kernels' forward; the backward recomputes
+    ``drdb_chain`` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, forward, wpk, x, *ws):
+        ctx.save_for_backward(x, *ws)
+        return forward(x, *_convs(ws), wpk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + _build.plain_vjp(
+            lambda x, *ws: drdb_chain(x, *_convs(ws)), ctx.saved_tensors,
+            ctx.needs_input_grad[2:], (g,))
+
+
+def _drdb_grad(x, dconvs, bottleneck, wpk=None, forward=None):
+    """The DRDB that carries a gradient. ``forward`` stands in for the
+    kernels (a test passes the plain chain to gradcheck the Function on
+    the CPU); nothing on the main path sets it."""
+    ws = [t for c in (*dconvs, bottleneck) for t in c]
+    return _DrdbFn.apply(forward or _drdb_kernels, wpk, x, *ws)
+
+
 def drdb_block(x: torch.Tensor, dconvs: Sequence[Conv], bottleneck: Conv,
                wpk: Optional[Tuple[Packed, Packed]] = None) -> torch.Tensor:
     """The whole DRDB: ``drdb_growth`` then ``drdb_tail``, each the
     kernel on a CUDA tensor and the plain version on a CPU tensor.
     x: [B, 64, H, W] -> same shape (channels_last on the card). ``wpk``:
-    (``pack_growth``, ``pack_tail``) for x's dtype, or None."""
-    gpk, tpk = (None, None) if wpk is None else wpk
-    return drdb_tail(x, drdb_growth(x, dconvs, gpk), *bottleneck, wpk=tpk)
+    (``pack_growth``, ``pack_tail``) for x's dtype, or None. On the card,
+    when a gradient is needed the kernels run inside ``_DrdbFn``."""
+    if x.is_cuda and _build.needs_grad(
+            x, *(t for c in (*dconvs, bottleneck) for t in c)):
+        return _drdb_grad(x, dconvs, bottleneck, wpk)
+    return _drdb_kernels(x, dconvs, bottleneck, wpk)

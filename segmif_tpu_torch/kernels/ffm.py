@@ -12,7 +12,14 @@ ln1/2_scale and _bias [C].
    kernels in ``csrc/ffm.cu`` on CUDA tensors (replacing ``_grams_pallas``
    and ``_apply_pallas``), their plain versions on CPU tensors.
  - ``crosspath_fused``: grams -> per-head contexts and end-projection fold
-   (tiny [B, C, C] matrices, plain torch) -> apply.
+   (tiny [B, C, C] matrices, plain torch) -> apply. Under autograd the
+   whole of it sits in one ``autograd.Function`` whose backward is the VJP
+   of ``crosspath_folded_ref`` with respect to x1, x2, s and every weight,
+   recomputed in plain PyTorch (the JAX ``custom_vjp`` of
+   ``pallas_ffm.py``: ``_bwd`` recomputes ``crosspath_folded_xla``). The
+   Function takes the weights as ``w`` holds them (the module's
+   ``.t()`` views), so their gradients reach the ``nn.Linear`` and
+   ``nn.LayerNorm`` leaves. The two passes called alone are forward-only.
  - ``crosspath_apply``: CPU tensors take the plain folded maths, CUDA
    tensors the two kernels.
 
@@ -46,8 +53,10 @@ def _layer_norm(t: torch.Tensor, gamma: torch.Tensor,
 
 def _relu_proj(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
-    """relu(x w + b) in f32, rounded to x's dtype, returned as f32."""
-    return torch.relu(x.float() @ w + b).to(x.dtype).float()
+    """relu(x w + b) in f32 (f64 for f64 x), rounded to x's dtype,
+    returned in the arithmetic type."""
+    acc = _build.acc_dtype(x.dtype)
+    return torch.relu(x.to(acc) @ w + b).to(x.dtype).to(acc)
 
 
 def crosspath_folded_ref(x1: torch.Tensor, x2: torch.Tensor,
@@ -56,14 +65,16 @@ def crosspath_folded_ref(x1: torch.Tensor, x2: torch.Tensor,
     """Plain folded CrossPath; any leading layout [B, ..., C]. The grams
     are [2C, 2C] blocks of the full r_i gram and the contexts apply as
     K = 2C products against zero-padded [2C, C] folded matrices, as in
-    ``crosspath_folded_xla``. Arithmetic in f32; outputs in x1's dtype."""
+    ``crosspath_folded_xla``. Arithmetic in f32 (f64 for f64 inputs);
+    outputs in x1's dtype."""
     dim = x1.shape[-1]
     dt = x1.dtype
+    acc = _build.acc_dtype(dt)
     b = x1.shape[0]
 
     def proj(x, i):
-        return _relu_proj(x, w[f"wp{i}"].to(dt).float(),
-                          w[f"bp{i}"].to(dt).float())
+        return _relu_proj(x, w[f"wp{i}"].to(dt).to(acc),
+                          w[f"bp{i}"].to(dt).to(acc))
 
     r1, r2, r3 = proj(x1, 1), proj(x2, 2), proj(s, 3)
 
@@ -81,7 +92,7 @@ def crosspath_folded_ref(x1: torch.Tensor, x2: torch.Tensor,
     z = torch.zeros_like(bd_s)
 
     def fold(bd, we_half, top):
-        m = (bd @ we_half.float()).to(dt).float()
+        m = (bd @ we_half.to(acc)).to(dt).to(acc)
         return torch.cat([m, z] if top else [z, m], dim=-2)
 
     def apply(r, m):   # [B, ..., 2C] x [B, 2C, C]
@@ -89,13 +100,13 @@ def crosspath_folded_ref(x1: torch.Tensor, x2: torch.Tensor,
             r.shape[:-1] + (m.shape[-1],))
 
     o1 = (apply(r3, fold(bd_1, w["we1"][:dim], True))
-          + apply(r1, fold(bd_s, w["we1"][dim:], False)) + w["be1"].float())
+          + apply(r1, fold(bd_s, w["we1"][dim:], False)) + w["be1"].to(acc))
     o2 = (apply(r3, fold(bd_2, w["we2"][:dim], True))
-          + apply(r2, fold(bd_s, w["we2"][dim:], False)) + w["be2"].float())
-    out1 = _layer_norm(x1.float() + o1, w["ln1_scale"].float(),
-                       w["ln1_bias"].float())
-    out2 = _layer_norm(x2.float() + o2, w["ln2_scale"].float(),
-                       w["ln2_bias"].float())
+          + apply(r2, fold(bd_s, w["we2"][dim:], False)) + w["be2"].to(acc))
+    out1 = _layer_norm(x1.to(acc) + o1, w["ln1_scale"].to(acc),
+                       w["ln1_bias"].to(acc))
+    out2 = _layer_norm(x2.to(acc) + o2, w["ln2_scale"].to(acc),
+                       w["ln2_bias"].to(acc))
     return out1.to(dt), out2.to(dt)
 
 
@@ -172,7 +183,7 @@ def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
         return crosspath_grams_ref(x1, x2, s, wp, bp)
     if x1.device.type != "cuda":
         raise ValueError(f"crosspath_grams: unsupported device {x1.device}")
-    _build.refuse_grad(x1, x2, s, wp, bp)
+    _build.refuse_grad(x1, x2, s, wp, bp, instead="crosspath_fused")
     _check_tokens("crosspath_grams", x1, x2, s)
     bsz, n, c = x1.shape
     w, b = _halves(wp.to(x1.device), bp.to(x1.device), x1.dtype,
@@ -241,7 +252,8 @@ def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
     if x1.device.type != "cuda":
         raise ValueError(
             f"crosspath_apply_rows: unsupported device {x1.device}")
-    _build.refuse_grad(x1, x2, s, wp, bp, mats, be, lnp)
+    _build.refuse_grad(x1, x2, s, wp, bp, mats, be, lnp,
+                       instead="crosspath_fused")
     _check_tokens("crosspath_apply_rows", x1, x2, s)
     bsz, n, c = x1.shape
     if mats.shape != (bsz, 4, c, c) or be.shape != (2, c) or \
@@ -277,9 +289,14 @@ crosspath_apply_rows.launches = 0
 
 # --------------------------------------------------------------- assembled
 
-def crosspath_fused(x1, x2, s, w: Dict, scale: float, num_heads: int):
-    """Two-pass CrossPath on [B, N, C] tokens: pass A grams, the tiny
-    context/fold step in plain torch, pass B."""
+# the weights the Function takes, in this order
+W_KEYS = ("wp1", "bp1", "wp2", "bp2", "wp3", "bp3", "wkv1", "wkv2", "wkv3",
+          "we1", "be1", "we2", "be2", "ln1_scale", "ln1_bias", "ln2_scale",
+          "ln2_bias")
+
+
+def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int):
+    """Pass A grams (kernel), the context/fold step, pass B (kernel)."""
     dim = x1.shape[-1]
     wp = torch.stack([w["wp1"], w["wp2"], w["wp3"]])
     bp = torch.stack([w["bp1"], w["bp2"], w["bp3"]])
@@ -297,6 +314,44 @@ def crosspath_fused(x1, x2, s, w: Dict, scale: float, num_heads: int):
     lnp = torch.stack([torch.stack([w["ln1_scale"], w["ln1_bias"]]),
                        torch.stack([w["ln2_scale"], w["ln2_bias"]])]).float()
     return crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp)
+
+
+class _CrossPathFn(torch.autograd.Function):
+    """The two kernels' forward; the backward recomputes the plain folded
+    CrossPath."""
+
+    @staticmethod
+    def forward(ctx, scale, num_heads, forward, x1, x2, s, *ws):
+        ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.save_for_backward(x1, x2, s, *ws)
+        return forward(x1, x2, s, dict(zip(W_KEYS, ws)), scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        def plain(x1, x2, s, *ws):
+            return crosspath_folded_ref(x1, x2, s, dict(zip(W_KEYS, ws)),
+                                        ctx.scale, ctx.num_heads)
+
+        return (None, None, None) + _build.plain_vjp(
+            plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (g1, g2))
+
+
+def _crosspath_grad(x1, x2, s, w: Dict, scale: float, num_heads: int,
+                    forward=None):
+    """The fused CrossPath that carries a gradient. ``forward`` stands in
+    for the kernels (a test passes the plain version to gradcheck the
+    Function on the CPU); nothing on the main path sets it."""
+    return _CrossPathFn.apply(scale, num_heads, forward or _crosspath_kernels,
+                              x1, x2, s, *(w[k] for k in W_KEYS))
+
+
+def crosspath_fused(x1, x2, s, w: Dict, scale: float, num_heads: int):
+    """Two-pass CrossPath on [B, N, C] tokens: pass A grams, the tiny
+    context/fold step in plain torch, pass B. When a gradient is needed it
+    runs inside ``_CrossPathFn``."""
+    if _build.needs_grad(x1, x2, s, *w.values()):
+        return _crosspath_grad(x1, x2, s, w, scale, num_heads)
+    return _crosspath_kernels(x1, x2, s, w, scale, num_heads)
 
 
 def crosspath_apply(x1, x2, s, w: Dict, scale: float, num_heads: int):

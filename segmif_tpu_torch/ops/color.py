@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .image import const
+
 _INV_MAT = ((1.0, 1.0, 1.0), (1.403, -0.714, 0.0), (0.0, -0.344, 1.773))
 _INV_BIAS = (0.0, -0.5, -0.5)
 
@@ -24,8 +26,8 @@ def rgb_to_ycrcb(rgb: torch.Tensor) -> torch.Tensor:
 
 def ycrcb_to_rgb(ycrcb: torch.Tensor) -> torch.Tensor:
     """[..., 3] (Y, Cr, Cb) -> [..., 3] RGB (unclipped)."""
-    mat = torch.tensor(_INV_MAT, dtype=ycrcb.dtype, device=ycrcb.device)
-    bias = torch.tensor(_INV_BIAS, dtype=ycrcb.dtype, device=ycrcb.device)
+    mat = const(_INV_MAT, ycrcb.device, ycrcb.dtype)
+    bias = const(_INV_BIAS, ycrcb.device, ycrcb.dtype)
     return (ycrcb + bias) @ mat
 
 

@@ -2,6 +2,7 @@
 ``segmif_tpu/ops/image.py``)."""
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -9,6 +10,19 @@ import torch.nn.functional as F
 
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """A constant (nested tuples of numbers) as a tensor on ``device``,
+    made once per device and dtype: a fresh ``torch.tensor(...,
+    device=cuda)`` per call is a blocking host-to-device copy, which waits
+    for the stream. Made outside inference mode, so that autograd may
+    save it when the first caller ran under ``torch.inference_mode()``.
+    Callers must not write to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +46,6 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
 
 def normalize_imagenet(rgb01: torch.Tensor) -> torch.Tensor:
     """[0,1] RGB [..., 3] -> (x*255 - mean) / std, ImageNet statistics."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=rgb01.dtype, device=rgb01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=rgb01.dtype, device=rgb01.device)
+    mean = const(IMAGENET_MEAN, rgb01.device, rgb01.dtype)
+    std = const(IMAGENET_STD, rgb01.device, rgb01.dtype)
     return (rgb01 * 255.0 - mean) / std

@@ -22,25 +22,12 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ._device import place, resolve as _device
 from .ops.image import resize_bilinear
 
 
-def _device(device=None) -> torch.device:
-    """``cuda`` unless another device is named; raises when CUDA is asked
-    for and there is none (nothing falls back to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the serving entry points run on "
-                           "the card; pass device='cpu' to serve on the CPU")
-    return dev
-
-
 def _place(model, dev: torch.device):
-    if dev.type == "cuda":
-        model.to(dev, memory_format=torch.channels_last)
-    else:
-        model.to(dev)
-    return model.eval()
+    return place(model, dev).eval()
 
 
 def precompute_guide_taps(model, guide_rgb: torch.Tensor, device=None):

@@ -100,6 +100,26 @@ def test_drift_limit_logic(case, ok):
     assert drift.within_limits(d) == ok, drift.describe(d)
 
 
+@pytest.mark.parametrize("change,ok", [("shift", True),
+                                       ("checkerboard", False)])
+def test_drift_ssim_limit(change, ok):
+    """The SSIM limit on a smooth fused Y: a uniform shift of 0.015 keeps
+    the structure (SSIM about 0.9996) and passes; a +-0.015 checkerboard
+    stays inside the max-abs limit but breaks the structure, and only the
+    SSIM limit fails it."""
+    ramp = torch.linspace(0.3, 0.7, 16)
+    y = (ramp[:, None] + ramp[None, :] * 0.5).expand(2, 16, 16)[..., None]
+    logits = torch.randn((2, 4, 4, 9), generator=torch.Generator()
+                         .manual_seed(4))
+    board = (torch.arange(16)[:, None] + torch.arange(16)[None, :]) % 2
+    delta = (torch.full_like(y, 0.015) if change == "shift" else
+             (board * 2 - 1)[None, :, :, None] * 0.015)
+    d = drift.drift((y, logits), (y + delta, logits))
+    assert d["fused_y_max_abs"] < 0.02
+    assert drift.within_limits(d) == ok, drift.describe(d)
+    assert (d["fused_y_ssim"] > 0.99) == ok
+
+
 def test_reference_scale_init():
     """Every conv and linear weight and bias lies within 1/sqrt(fan_in),
     spread over it (not the JAX initialisers' normal or zero biases); norm

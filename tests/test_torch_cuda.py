@@ -49,6 +49,16 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
  - bf16 serving against f32 end to end (test_bf16_vs_f32_pipeline):
    segmif_tpu_torch.drift's limits, those of tests/test_bf16_drift.py;
    a dropped DRDB1 tail bias must fail them.
+ - gradients (test_function_gradients_match_plain): each kernel's
+   autograd.Function against autograd through its plain version on the
+   same inputs, the computation its backward repeats: every input's
+   gradient within 1e-5 (f32) or 2^-7 (bf16, one step) of its largest
+   magnitude (cuDNN's and cuBLAS's backward kernels may sum in another
+   order between the two runs).
+ - a fusion-phase train step on the card in f32 against the CPU
+   (test_train_step_card_matches_cpu): the losses within 1e-4 relative,
+   every gradient leaf within TRAIN_LEAF_RTOL of its largest magnitude;
+   a DRDB Function that returns a zero bottleneck-bias gradient fails it.
 """
 import numpy as np
 import pytest
@@ -56,6 +66,7 @@ import torch
 
 from segmif_tpu_torch.kernels import _build
 from segmif_tpu_torch.kernels import drdb as kdrdb
+from segmif_tpu_torch.kernels import ffm as kffm
 from segmif_tpu_torch.kernels.attention import sr_attention, sr_attention_ref
 from segmif_tpu_torch.kernels.drdb import (
     drdb_block,
@@ -234,9 +245,13 @@ def test_sr_attention_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="head dim"):
             q48 = _randn(g, (1, 8, 1, 48), torch.float32, cuda)
             sr_attention(q48, q48, q48, 0.125)
+    # under autograd the kernel runs inside its Function and q takes a
+    # gradient (test_function_gradients_match_plain holds its values)
     qg = q.clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        sr_attention(qg, q, q, 0.125)
+    sr_attention.launches = 0
+    (g,) = torch.autograd.grad(sr_attention(qg, q, q, 0.125).sum(), qg)
+    assert sr_attention.launches == 1
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
 
 
 def _ffm_inputs(gen, b, n, dtype, device):
@@ -609,9 +624,14 @@ def test_drdb_refuses_what_it_does_not_take(cuda):
         drdb_growth(xg, dconvs)
     with pytest.raises(RuntimeError, match="forward-only"):
         drdb_tail(xg, [r.clone() for r in rs], wb, bb)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        drdb_block(x, [(w.requires_grad_(True), b) for w, b in dconvs],
-                   (wb, bb))
+    # the whole block carries a gradient: the kernels run inside its
+    # Function (test_function_gradients_match_plain holds the values)
+    dg = [(w.clone().requires_grad_(True), b) for w, b in dconvs]
+    drdb_growth.launches = drdb_tail.launches = 0
+    grads = torch.autograd.grad(drdb_block(x, dg, (wb, bb)).sum(),
+                                [w for w, _ in dg])
+    assert (drdb_growth.launches, drdb_tail.launches) == (1, 1)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
@@ -782,3 +802,127 @@ def test_bf16_vs_f32_pipeline(cuda, fault):
     torch.cuda.synchronize()
     d = drift.drift(ref, got)
     assert drift.within_limits(d) == (fault is None), drift.describe(d)
+
+
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+GRAD_CASES = [("sr_attention", (2, 70, 65, 2, 64)),
+              ("sr_attention", (8, 19200, 300, 1, 64)),   # mit_b3 stage 1
+              ("sr_attention", (8, 1200, 300, 5, 64)),    # stage 3
+              ("ffm", (2, 1000)), ("ffm", (8, 307200)),
+              ("drdb", (1, 5, 7)), ("drdb", (8, 480, 640))]
+
+
+def _grad_case(kind, shape, dtype, device, gen):
+    """(inputs needing a gradient, kernel-path output, plain output, the
+    counters that must move by one)."""
+    from segmif_tpu_torch.kernels.drdb import drdb_chain
+    from segmif_tpu_torch.models.fusion import DRDB, CrossPath
+
+    if kind == "sr_attention":
+        b, n, m, h, d = shape
+        q = _randn(gen, (b, n, h, d), dtype, device).requires_grad_(True)
+        kv = _randn(gen, (b, m, 2 * h * d), dtype,
+                    device).requires_grad_(True)
+        k = kv[..., :h * d].unflatten(-1, (h, d))
+        v = kv[..., h * d:].unflatten(-1, (h, d))
+        return ([q, kv], lambda: sr_attention(q, k, v, d ** -0.5),
+                lambda: sr_attention_ref(q, k, v, d ** -0.5),
+                [sr_attention])
+    if kind == "ffm":
+        b, n = shape
+        cp = CrossPath(64).to(device, dtype)
+        xs = [_randn(gen, (b, n, 64), dtype, device).requires_grad_(True)
+              for _ in range(3)]
+        return ([*xs, *cp.parameters()], lambda: cp(*xs),
+                lambda: kffm.crosspath_folded_ref(
+                    *xs, cp.folded_weights(), cp.scale, cp.num_heads),
+                [crosspath_grams, crosspath_apply_rows])
+    b, h, w = shape
+    block = DRDB().to(device, dtype, memory_format=torch.channels_last)
+    x = _randn(gen, (b, h, w, 64), dtype, device).permute(0, 3, 1, 2)
+    x.requires_grad_(True)
+    return ([x, *block.parameters()], lambda: block(x),
+            lambda: drdb_chain(x, *block._weights()),
+            [drdb_growth, drdb_tail])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", GRAD_CASES)
+def test_function_gradients_match_plain(cuda, dtype, kind, shape):
+    """Each kernel's autograd.Function on the card: the forward launches
+    the kernel (each counter moves by one; the backward launches none),
+    and every input's gradient equals that of autograd through the plain
+    version on the same inputs, which the Function's backward recomputes
+    (GRAD_TOL of the gradient's largest magnitude)."""
+    gen = torch.Generator().manual_seed(30)
+    ins, kernel, plain, counters = _grad_case(kind, shape, dtype, cuda, gen)
+    for fn in counters:
+        fn.launches = 0
+    out = kernel()
+    outs = (out,) if torch.is_tensor(out) else tuple(out)
+    cot = [_randn(gen, o.shape, dtype, cuda) for o in outs]
+    got = torch.autograd.grad(outs, ins, cot)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [1] * len(counters)
+    ref = plain()
+    want = torch.autograd.grad((ref,) if torch.is_tensor(ref) else ref,
+                               ins, cot)
+    for i, (g, e) in enumerate(zip(got, want)):
+        assert g.shape == e.shape and g.dtype == e.dtype, i
+        scale = e.float().abs().max().item()
+        assert scale > 0, i
+        assert _max_err(g, e) <= GRAD_TOL[dtype] * scale, (i, _max_err(g, e),
+                                                           scale)
+
+
+TRAIN_LEAF_RTOL = 1e-2
+
+
+def _planted_zero_bias_grad(monkeypatch):
+    """The DRDB Function returns a zero gradient for the bottleneck bias."""
+    real = kdrdb._DrdbFn.backward
+
+    def faulty(ctx, g):
+        grads = list(real(ctx, g))
+        grads[-1] = torch.zeros_like(grads[-1])
+        return tuple(grads)
+
+    monkeypatch.setattr(kdrdb._DrdbFn, "backward", staticmethod(faulty))
+
+
+@pytest.mark.parametrize("fault", [None, "drdb_bias_grad_zero"])
+def test_train_step_card_matches_cpu(cuda, monkeypatch, fault):
+    """One round >= 2 fusion-phase step (mit_b3, batch 2, 120x160, f32,
+    weights at the reference modules' scale) on the card, through the
+    kernels and their Functions, against the same step on the CPU (plain
+    versions): the losses within 1e-4 relative and every gradient leaf
+    within TRAIN_LEAF_RTOL of its largest magnitude (f32 sums in other
+    orders on two devices, and relu inputs within rounding of zero that
+    take the other branch on one device; chip_smoke.py phase 8 reads the
+    margin at 240x320). With the DRDB Function's bottleneck-bias gradient
+    zeroed, the check fails."""
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+    from segmif_tpu_torch.train.compare import leaf_errors, step_grads
+
+    model = drift.init_reference_scale(JointPipeline("mit_b3"),
+                                       torch.Generator().manual_seed(31))
+    g = torch.Generator().manual_seed(32)
+    b, h, w = 2, 120, 160
+    data = {"ir": torch.rand((b, h, w, 1), generator=g),
+            "vis": torch.rand((b, h, w, 3), generator=g),
+            "guide": torch.rand((b, h, w, 3), generator=g),
+            "label": torch.randint(0, 9, (b, h, w), generator=g)}
+    want_m, want = step_grads(model, data, False, torch.float32, "cpu")
+    if fault:
+        _planted_zero_bias_grad(monkeypatch)
+    got_m, got = step_grads(model, {k: v.to(cuda) for k, v in data.items()},
+                            False, torch.float32, cuda)
+    for k in ("loss", "loss_fusion", "loss_seg"):
+        assert abs(got_m[k].item() - want_m[k].item()) <= \
+            1e-4 * abs(want_m[k].item()), k
+    errs = leaf_errors(got, want)
+    assert set(errs) == set(dict(model.fusion.named_parameters()))
+    worst = max(errs.values())
+    assert (worst <= TRAIN_LEAF_RTOL) == (fault is None), \
+        sorted(errs.items(), key=lambda kv: -kv[1])[:4]
