@@ -72,7 +72,28 @@ line):
     (d) ms per step and pairs/s (CUDA events, three steps after two
     warm-up steps, host-paced), the share of a step spent in the
     Functions' recompute backward, peak device memory, each part's
-    seconds.
+    seconds;
+ 9. the interactive trainer (``segmif_tpu_torch.train``): (a) one seg
+    step of a mit_b3 ``SegmentationNetwork`` (drop-path and dropout at 0)
+    in f32 on the card against the CPU at 2x240x320, every gradient leaf
+    and BatchNorm buffer held to the CPU's, and the running variance
+    folded as flax folds it (the biased batch variance), which a planted
+    unbiased fold must fail; (b) each float kernel once against its plain
+    version at the driver's shapes: sr-attention with M = 100 (the fusion
+    phase's 2x320x320 crops) and M = 225 (the seg phase's 4x480x480), FFM
+    and DRDB at 2x320x320, f32 and bf16, under phase 4's limits; (c)
+    ``python -m segmif_tpu_torch.cli.train`` through its ``main`` at full
+    width (mit_b3, 8 synthetic 480x640 training pairs and 4 validation
+    pairs, the default crops, bf16, 2 rounds of 3 fusion and 3 seg
+    iterations, in a temporary checkpoint dir): the best mIoU in [0, 1],
+    the kernel launches of every fusion step, seg step, regenerated batch
+    and eval batch (int8 0), the static guide unchanged and the fused
+    images changed, the role checkpoints reloaded into a fresh port model
+    giving the trainer's logits, each phase's seconds; (d) the seg step
+    alone at 4x480x480 bf16 (drop-path and dropout on): ms per step over
+    steps 3-5 after two warm-ups, seg train pairs/s, the share in the
+    recompute backward, peak memory, and no synchronizing CUDA call in a
+    step of its own.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -200,6 +221,21 @@ BF16_TRAIN_LEAF_COS = 0.95
 BF16_TRAIN_ALL_COS = 0.99
 TRAIN_LR = 1e-4           # the JAX bench.py train cell's adamw_poly
 TRAIN_FUSION_SCALE = 0.2
+# Phase 9 (a): the seg step, card f32 against CPU f32, as phase 8 (a): the
+# loss within 1e-4 relative, every leaf and buffer within 1e-2 of its
+# largest magnitude (the five leaves whose exact gradient is zero:
+# ``compare.exact_zero_grad``, both sides within 1e-6 of the largest
+# gradient). An unbiased running variance moves the buffer by a 1 / (n - 1)
+# share of the folded variance, about 1e-5 of it at n = 2x60x80, far inside
+# any card-vs-CPU limit; so the fold itself is held: ``bn_fold_ratio``
+# below 1/4 (the unbiased fold reads 1).
+SEG_HW = (240, 320)
+SEG_FOLD_LIMIT = 0.25
+# (c) the trainer at full width; (d) the seg step at the seg phase's crops
+TRAINER_ARGS = ["--synthetic", "8", "--synthetic_val", "4", "--rounds", "2",
+                "--fusion_iters", "3", "--seg_iters", "3",
+                "--backbone", "mit_b3", "--compute_dtype", "bfloat16"]
+SEG_BATCH, SEG_CROP = 4, 480
 # Peaks of one H100 SXM (NVIDIA's datasheet, dense, 700 W) for the bounds
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -1146,6 +1182,440 @@ def train_checks(dev, counters):
     print(f"train (c): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def seg_step_checks(dev):
+    """Phase 9 (a): the seg step, card against CPU, and the BN fold."""
+    import torch
+
+    from segmif_tpu_torch.models import segformer_head
+    from segmif_tpu_torch.models.network import (SegmentationNetwork,
+                                                 init_params)
+    from segmif_tpu_torch.train.compare import (exact_zero_grad, leaf_errors,
+                                                seg_step_grads,
+                                                without_regularisers)
+
+    t0 = time.perf_counter()
+    model = without_regularisers(init_params(
+        SegmentationNetwork("mit_b3"),
+        torch.Generator().manual_seed(SEED + 8)))
+    gen = torch.Generator().manual_seed(SEED + 9)
+    b, (h, w) = 2, SEG_HW
+    data = {"image": torch.rand((b, h, w, 3), generator=gen),
+            "label": torch.randint(0, 9, (b, h, w), generator=gen)}
+    want_m, want, want_s, want_r = seg_step_grads(model, data,
+                                                  torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t0
+    on_card = {k: v.to(dev) for k, v in data.items()}
+
+    def held_to_cpu(got_m, got, got_s):
+        a, e = got_m["loss"].item(), want_m["loss"].item()
+        top = max(v.abs().max().item() for v in want.values())
+        zero = max(max(got[k].abs().max().item(), want[k].abs().max().item())
+                   for k in want if exact_zero_grad(k)) / top
+        errs = leaf_errors(
+            {k: v for k, v in {**got, **got_s}.items()
+             if not exact_zero_grad(k)},
+            {k: v for k, v in {**want, **want_s}.items()
+             if not exact_zero_grad(k)})
+        return abs(a - e) / abs(e), zero, errs
+
+    got_m, got, got_s, ratio = seg_step_grads(model, on_card, torch.float32,
+                                              dev)
+    rel, zero, errs = held_to_cpu(got_m, got, got_s)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    stat_err = max(v for k, v in errs.items() if k.endswith("running_var"))
+    print(f"seg (a) f32 card vs CPU, mit_b3 batch {b} {h}x{w}, regularisers "
+          f"0: loss relative {rel:.2e} (limit {TRAIN_LOSS_RTOL:g}); "
+          f"{len(errs)} leaves and buffers, worst max|err|/max|ref| "
+          f"{worst[0][1]:.3e} ({worst[0][0]}), next {worst[1][1]:.3e} "
+          f"({worst[1][0]}) (limit {TRAIN_LEAF_RTOL:g}); the five "
+          f"exact-zero leaves at most {zero:.2e} of the largest gradient "
+          f"(limit 1e-6); running_var {stat_err:.3e}; BN fold ratio "
+          f"{ratio:.4f} (limit {SEG_FOLD_LIMIT}; CPU {want_r:.4f}); CPU "
+          f"step {cpu_s:.1f} s", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, "seg (a) loss")
+    check(worst[0][1] <= TRAIN_LEAF_RTOL, "seg (a) leaves differ")
+    check(zero <= 1e-6, "seg (a) an exact-zero leaf is not")
+    check(ratio < SEG_FOLD_LIMIT and want_r < SEG_FOLD_LIMIT,
+          "seg (a) the running variance is not flax's fold")
+    real = segformer_head.update_running_stats
+    segformer_head.update_running_stats = \
+        lambda bn, mean, var, n: real(bn, mean, var * n / (n - 1), n)
+    try:
+        bad_m, bad, bad_s, bad_r = seg_step_grads(model, on_card,
+                                                  torch.float32, dev)
+    finally:
+        segformer_head.update_running_stats = real
+    _, _, bad_errs = held_to_cpu(bad_m, bad, bad_s)
+    bad_stat = max(v for k, v in bad_errs.items()
+                   if k.endswith("running_var"))
+    print(f"planted fault, seg (a), unbiased running variance: BN fold "
+          f"ratio {bad_r:.4f} (the fold check fails, as it must); its "
+          f"running_var against the CPU {bad_stat:.3e}, inside the leaf "
+          f"limit: why the fold is held on its own", flush=True)
+    check(bad_r >= SEG_FOLD_LIMIT, "the seg (a) fold check passes an "
+                                   "unbiased running variance")
+    print(f"seg (a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def driver_kernel_checks(dev, res):
+    """Phase 9 (b): each float kernel once against its plain version at
+    the driver's shapes, under phase 4's limits; the largest errors join
+    ``res``."""
+    import torch
+
+    from segmif_tpu_torch.kernels.attention import (sr_attention,
+                                                    sr_attention_ref)
+    from segmif_tpu_torch.kernels.drdb import (drdb_block, drdb_chain,
+                                               drdb_growth, drdb_growth_ref,
+                                               drdb_tail, drdb_tail_ref)
+    from segmif_tpu_torch.kernels.ffm import (crosspath_apply_rows,
+                                              crosspath_apply_rows_ref,
+                                              crosspath_grams,
+                                              crosspath_grams_ref)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 10)
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
+
+    def note(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    # mit_b3 stage shapes (N, heads, M): 320x320 crops, batch 2 (the
+    # fusion phase's guide taps and seg pass); 480x480, batch 4 (the seg
+    # phase)
+    for label, b, stages in (
+            ("fusion 2x320x320", 2, ((6400, 1, 100), (1600, 2, 100),
+                                     (400, 5, 100), (100, 8, 100))),
+            ("seg 4x480x480", 4, ((14400, 1, 225), (3600, 2, 225),
+                                  (900, 5, 225), (225, 8, 225)))):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            tol = SR_TOL[dname]
+            worst_ratio = 0.0
+            for n, h, m in stages:
+                q, k, v = kv_halves(randn, b, n, m, h, 64, dtype)
+                ratio, err, diff, ok = held(sr_attention(q, k, v, 0.125),
+                                            sr_attention_ref(q, k, v, 0.125),
+                                            tol)
+                check(ok, f"sr_attention {dname} {label} N={n} M={m} error "
+                          f"{err}")
+                note("sr_attention", err)
+                worst_ratio = max(worst_ratio, ratio)
+            print(f"sr_attention {dname} {label}, 4 stage shapes, M = "
+                  f"{stages[0][2]}: worst error/limit {worst_ratio:.3f}",
+                  flush=True)
+    n, c, b = 320 * 320, 64, 2
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        x1, x2, s = (randn((b, n, c), dtype) for _ in range(3))
+        wp = randn((3, c, 2 * c), torch.float32, c ** -0.5)
+        bp = randn((3, 2 * c), torch.float32, 0.1)
+        mats = randn((b, 4, c, c), torch.float32, 0.125)
+        be = randn((2, c), torch.float32, 0.1)
+        lnp = torch.stack([torch.stack([1 + randn((c,), torch.float32, 0.1),
+                                        randn((c,), torch.float32, 0.1)])
+                           for _ in range(2)])
+        got = crosspath_grams(x1, x2, s, wp, bp)
+        want = crosspath_grams_ref(x1, x2, s, wp, bp)
+        err, rtol = max_err(got, want), GRAM_RTOL[dname][0]
+        scale = want.abs().max().item()
+        print(f"ffm_grams {dname} [{b}, {n}, {c}]: max_abs_err {err:.3e} of "
+              f"max |gram| {scale:.3e} (rtol {rtol:g})", flush=True)
+        check(err <= rtol * scale, f"ffm_grams {dname} {n} error {err}")
+        note("ffm_grams", err)
+        args = (x1, x2, s, wp, bp, mats, be, lnp)
+        tol = APPLY_TOL[dname]
+        ratio, err, diff, ok = held(crosspath_apply_rows(*args),
+                                    crosspath_apply_rows_ref(*args), tol)
+        print(f"ffm_apply {dname} [{b}, {n}, {c}]: "
+              f"{verdict(ratio, err, diff, tol)}", flush=True)
+        check(ok, f"ffm_apply {dname} {n} error {err}")
+        note("ffm_apply", err)
+        x, dconvs, (wb, bb) = drdb_inputs(gen, b, 320, 320, dtype, dev)
+        shape = f"{dname} [{b}, 64, 320, 320]"
+        rs, err, _, _ = compare(f"drdb_growth {shape}",
+                                lambda: drdb_growth(x, dconvs),
+                                lambda: drdb_growth_ref(x, dconvs),
+                                GROWTH_TOL[dname], False)
+        note("drdb_growth", err)
+        _, err, _, _ = compare(f"drdb_tail {shape}",
+                               lambda: drdb_tail(x, rs, wb, bb),
+                               lambda: drdb_tail_ref(x, rs, wb, bb),
+                               TAIL_TOL[dname], False, x)
+        note("drdb_tail", err)
+        compare(f"drdb_block {shape} vs drdb_chain",
+                lambda: drdb_block(x, dconvs, (wb, bb)),
+                lambda: drdb_chain(x, dconvs, (wb, bb)), BLOCK_TOL[dname],
+                False, x)
+        del x1, x2, s, got, want, args, x, dconvs, rs
+        torch.cuda.empty_cache()
+    print(f"seg (b): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def trainer_run(dev, counters, totals):
+    """Phase 9 (c): ``cli.train.main`` at full width, instrumented from
+    outside: every step and inference closure the driver builds is wrapped
+    to read the kernel counters around each call (set to 0 just before,
+    read just after; these calls make every launch of the run), and the
+    trainer's phases are timed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from segmif_tpu_torch.cli import train as cli_train
+    from segmif_tpu_torch.models.network import JointPipeline
+    from segmif_tpu_torch.train import interactive
+
+    float_path = {"ffm_grams": 2, "ffm_apply": 2, "drdb_growth": 4,
+                  "drdb_tail": 4, "drdb_int8_growth": 0, "drdb_int8_tail": 0}
+    seg_only = {k: 0 for k in float_path}
+    expect = {"fusion r1": {"sr_attention": 7, **float_path},
+              "fusion r2": {"sr_attention": 35, **float_path},
+              "seg step": {"sr_attention": 28, **seg_only},
+              "regenerated batch": {"sr_attention": 7, **float_path},
+              "eval batch": {"sr_attention": 28, **seg_only}}
+    seen = {k: 0 for k in expect}
+    wall = {}
+    ctx = {}
+
+    def counted(kind, fn):
+        def call(*args, **kwargs):
+            for c in counters.values():
+                c.launches = 0
+            out = fn(*args, **kwargs)
+            counts = {k: c.launches for k, c in counters.items()}
+            check(counts == expect[kind], f"trainer {kind}: launches "
+                                          f"{counts}, expected "
+                                          f"{expect[kind]}")
+            seen[kind] += 1
+            for k, v in counts.items():
+                totals[k] += v
+            return out
+        return call
+
+    def wrap_maker(name, kind):
+        real = getattr(interactive, name)
+
+        def make(*args, **kwargs):
+            if name == "make_fusion_train_step":
+                k = "fusion r1" if kwargs["round1"] else "fusion r2"
+                return counted(k, real(*args, **kwargs))
+            return counted(kind, real(*args, **kwargs))
+        return real, make
+
+    def timed(name):
+        real = getattr(interactive.InteractiveTrainer, name)
+
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            wall.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return real, run
+
+    def capture_run(real):
+        def run(self, *args, **kwargs):
+            ctx["trainer"] = self
+            ctx["guide"] = self.train_data.guide.copy()
+            return real(self, *args, **kwargs)
+        return run
+
+    def snapshot_save(real):
+        def save(self, role):
+            real(self, role)
+            ctx[role] = {k: v.detach().cpu().clone() for k, v in
+                         getattr(self.model, role).state_dict().items()}
+        return save
+
+    cls = interactive.InteractiveTrainer
+    saved = {}
+    for name, kind in (("make_fusion_train_step", None),
+                       ("make_seg_train_step", "seg step"),
+                       ("make_fuse_fn", "regenerated batch"),
+                       ("make_segment_fn", "eval batch")):
+        saved[name], wrapped = wrap_maker(name, kind)
+        setattr(interactive, name, wrapped)
+    methods = {}
+    for name in ("train_fusion_phase", "regenerate_fused", "train_seg_phase",
+                 "evaluate"):
+        methods[name], wrapped = timed(name)
+        setattr(cls, name, wrapped)
+    methods["run"] = cls.run
+    cls.run = capture_run(cls.run)
+    methods["save_checkpoint"] = cls.save_checkpoint
+    cls.save_checkpoint = snapshot_save(cls.save_checkpoint)
+    ckdir = tempfile.mkdtemp(prefix="segmif_trainer_")
+    t0 = time.perf_counter()
+    try:
+        result = cli_train.main(TRAINER_ARGS + ["--checkpoint_dir", ckdir])
+        total_s = time.perf_counter() - t0
+        t = ctx["trainer"]
+        print(f"trainer (c) cli.train.main {' '.join(TRAINER_ARGS)}: best "
+              f"mIoU {result['best_mIoU']:.4f}, history "
+              f"{[round(h['mIoU'], 4) for h in result['history']]}, val "
+              f"SSIM {[round(v, 4) for _, v in t.ssim_history]}, "
+              f"{total_s:.1f} s in all; phases (s): " + "; ".join(
+                  f"{k} {' '.join(f'{v:.2f}' for v in vs)}"
+                  for k, vs in wall.items()), flush=True)
+        check(0.0 <= result["best_mIoU"] <= 1.0, "trainer best mIoU")
+        want_calls = {"fusion r1": 3, "fusion r2": 3, "seg step": 6,
+                      "regenerated batch": 6, "eval batch": 2}
+        check(seen == want_calls, f"trainer calls {seen}, expected "
+                                  f"{want_calls}")
+        print(f"trainer (c) launches per call: " + "; ".join(
+            f"{k} ({seen[k]} calls) {expect[k]}" for k in expect),
+            flush=True)
+        check(np.array_equal(t.train_data.guide, ctx["guide"]),
+              "the static guide changed")
+        check(t.train_data.fused.dtype == np.uint8 and not np.array_equal(
+            t.train_data.fused, ctx["guide"]), "the fused images did not "
+                                               "change")
+        # the role checkpoints: a fresh port model from the two files
+        fresh = JointPipeline(t.cfg.backbone)
+        for role, name in interactive.ROLE_FILES.items():
+            sd = torch.load(Path(ckdir) / name, map_location="cpu",
+                            weights_only=True)
+            getattr(fresh, role).load_state_dict(sd, strict=True)
+            check(all(torch.equal(sd[k], v) for k, v in ctx[role].items()),
+                  f"{name} is not the weights saved")
+        live = t.model
+        live.seg.load_state_dict(ctx["seg"])    # the best-mIoU weights
+        fresh.to(dev, memory_format=torch.channels_last).eval()
+        live.eval()
+        probe = torch.rand((1, H, W, 3), generator=torch.Generator()
+                           .manual_seed(SEED + 11)).to(dev)
+        with torch.inference_mode():
+            a, b = fresh.seg(probe), live.seg(probe)
+            fa, fb = fresh.fuse(probe[..., :1], probe)[1], \
+                live.fuse(probe[..., :1], probe)[1]
+        err = max(max_err(a, b) / b.abs().max().item(),
+                  max_err(fa, fb) / fb.abs().max().item())
+        print(f"trainer (c) role checkpoints reloaded into a fresh port "
+              f"model: f32 logits and fused Y against the trainer's, "
+              f"max_abs_err {err:.3e} of the largest magnitude (limit 1e-6:"
+              f" the same weights and kernels)", flush=True)
+        check(err <= 1e-6, "the reloaded checkpoints give other outputs")
+    finally:
+        for name, real in saved.items():
+            setattr(interactive, name, real)
+        for name, real in methods.items():
+            setattr(cls, name, real)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ctx.clear()
+        torch.cuda.empty_cache()
+
+
+def seg_step_timing(dev):
+    """Phase 9 (d): the seg step alone at the seg phase's crops."""
+    import warnings
+
+    import torch
+
+    from segmif_tpu_torch.config import OptimizerConfig
+    from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.models.network import (SegmentationNetwork,
+                                                 init_params)
+    from segmif_tpu_torch.train.optimizer import adamw_poly_grouped
+    from segmif_tpu_torch.train.state import SegTrainState
+    from segmif_tpu_torch.train.steps import make_seg_train_step
+
+    t0 = time.perf_counter()
+    model = init_params(SegmentationNetwork("mit_b3"),
+                        torch.Generator().manual_seed(SEED + 12))
+    opt = OptimizerConfig()
+    tx = adamw_poly_grouped([n for n, _ in model.named_parameters()],
+                            opt.learning_rate, opt.warmup_iter,
+                            opt.max_iters, opt.weight_decay)
+    step = make_seg_train_step(model, tx)
+    state = SegTrainState.create(model, tx)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    b, c = SEG_BATCH, SEG_CROP
+    batch = {"image": torch.rand((b, c, c, 3), generator=gen).to(dev),
+             "label": torch.randint(0, 9, (b, c, c), generator=gen).to(dev)}
+    losses = [step(state, batch, SEED)]        # step 1, warm-up
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")        # step 2, warm-up, untimed
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses.append(step(state, batch, SEED))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(3):                         # steps 3-5, timed
+        losses.append(step(state, batch, SEED))
+    ev[1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    real, spans = _build.plain_vjp, []
+
+    def timed_vjp(*a, **k):
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        out = real(*a, **k)
+        e_.record()
+        spans.append((s_, e_))
+        return out
+
+    real_update, updates = tx.update, []
+
+    def timed_update(*a, **k):
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        out = real_update(*a, **k)
+        e_.record()
+        updates.append((s_, e_))
+        return out
+
+    _build.plain_vjp, tx.update = timed_vjp, timed_update
+    try:
+        ev[2].record()
+        t_host = time.perf_counter()
+        losses.append(step(state, batch, SEED))  # step 6
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        ev[3].record()
+        torch.cuda.synchronize()
+    finally:
+        _build.plain_vjp = real
+        del tx.update
+    recompute = sum(a.elapsed_time(e) for a, e in spans)
+    update_ms = sum(a.elapsed_time(e) for a, e in updates)
+    inst = ev[2].elapsed_time(ev[3])
+    vals = [v["loss"].item() for v in losses]
+    print(f"seg (d) mit_b3 batch {b} {c}x{c}, bf16 compute, f32 master "
+          f"weights, 3-group AdamW, drop-path and dropout on: loss "
+          f"{' '.join(f'{v:.5f}' for v in vals)}; ms per step "
+          f"{step_ms:.2f} (steps 3-5 after two warm-up steps, CUDA events, "
+          f"host-paced), {b * 1e3 / step_ms:.3f} seg train pairs/s; peak "
+          f"device memory of steps 3-5 above the model and batch "
+          f"{peak / 2**30:.2f} GiB; step 6 {inst:.2f} ms of which the "
+          f"recompute backward {recompute:.2f} ms ({recompute / inst:.3f} "
+          f"of the step, {len(spans)} recomputes) and the AdamW update "
+          f"{update_ms:.2f} ms ({update_ms / inst:.3f}); the host returned "
+          f"from step 6 after {host_ms:.2f} ms (the step never waits for "
+          f"the device, so a host time near the step's is a host-bound "
+          f"step); synchronizing CUDA calls in step 2 "
+          f"(torch.cuda.set_sync_debug_mode): {len(syncs)}", flush=True)
+    check(all(math.isfinite(v) for v in vals), "seg losses not finite")
+    check(not syncs, f"the seg step waits for the device: "
+                     f"{syncs[0].message if syncs else ''}")
+    check(int(state.step.item()) == state.host_step == 6, "seg step counts")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    print(f"seg (d): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def bf16_summary(got, want) -> str:
     """Cosines and norm ratios of a step's gradients against f32's."""
     from segmif_tpu_torch.train.compare import (leaf_cosines, norm_ratios,
@@ -1377,6 +1847,12 @@ def main() -> int:
 
     # phase 8: fusion-phase training
     train_checks(dev, counters)
+
+    # phase 9: the interactive trainer
+    seg_step_checks(dev)
+    driver_kernel_checks(dev, kres)
+    trainer_run(dev, counters, totals)
+    seg_step_timing(dev)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

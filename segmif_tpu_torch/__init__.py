@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the segmif_tpu serving path, for NVIDIA Hopper.
+"""PyTorch + CUDA port of segmif_tpu (serving and the interactive
+trainer), for NVIDIA Hopper.
 
 Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
 
@@ -20,6 +21,13 @@ Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
    and the JAX calibration amaxes onto the DRDBs.
  - ``serving``: ``make_serving_fn`` / ``precompute_guide_taps`` /
    ``quantize_for_serving``, on the card unless ``device="cpu"``.
+ - ``train``: the fusion and seg steps, AdamW, the train states,
+   checkpoints and ``InteractiveTrainer`` (the rounds of a fusion phase
+   and a seg phase); ``losses``: the fusion losses, CE and DWA.
+ - ``data``: the synthetic dataset, ``Prefetcher``, ``iterate_eval`` and
+   the batched device-side augmentation; ``eval``: the confusion matrix,
+   the scores and the evaluator; ``config``: the config tree;
+   ``cli.train``: ``python -m segmif_tpu_torch.cli.train``.
 
 The package imports torch only; the CUDA kernels are compiled with nvcc at
 first use (``kernels._build``).

@@ -7,6 +7,7 @@ Nothing falls back from the card to the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,13 @@ def place(module: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
     if dev.type == "cuda":
         return module.to(dev, memory_format=torch.channels_last)
     return module.to(dev)
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``dev``. To the card through pinned
+    memory and a non-blocking copy, so that the host does not wait for the
+    work already queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

@@ -1,0 +1,120 @@
+"""CLI: interactive fusion <-> segmentation training on the card
+(counterpart of ``segmif_tpu/cli/train.py``, with the same flags plus
+``--device`` and ``--synthetic_val``).
+
+    python -m segmif_tpu_torch.cli.train --synthetic 8 --rounds 2 \\
+        --fusion_iters 3 --seg_iters 3 --checkpoint_dir /tmp/ck
+
+trains on procedurally generated data (``--synthetic N`` training
+samples, ``--synthetic_val`` validation samples, N // 4 by default). The
+run is on the card unless ``--device cpu`` is given; without a card and
+without ``--device cpu`` it raises. On the CPU the compute dtype defaults
+to float32, on the card to bfloat16. The log goes to stdout and to
+``train.log`` in the checkpoint dir.
+
+Only ``--synthetic`` data is ported: the folder datasets (``--data_root``
+without ``--synthetic``) wait for ROADMAP queue 1 item 4.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", default=None, help="seg-task YAML")
+    p.add_argument("--configf", default=None, help="fusion-task YAML")
+    p.add_argument("--backbone", default=None)
+    p.add_argument("--rounds", type=int, default=None)
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--val_root", default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic samples instead of real data")
+    p.add_argument("--synthetic_val", type=int, default=None,
+                   help="synthetic validation samples (default N // 4, at "
+                        "least 1)")
+    p.add_argument("--synthetic_size", type=int, nargs=2, default=(480, 640))
+    p.add_argument("--fusion_iters", type=int, default=None)
+    p.add_argument("--seg_iters", type=int, default=None)
+    p.add_argument("--crop_size", type=int, default=None,
+                   help="override crop size for BOTH phases (e.g. for small "
+                        "synthetic images)")
+    p.add_argument("--start_round", type=int, default=1,
+                   help="resume from this round (loads checkpoints)")
+    p.add_argument("--remat", action="store_true",
+                   help="not ported (refused)")
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="devices of the data axis; the port takes one")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="devices of the model axis; the port takes one")
+    p.add_argument("--streaming", action="store_true",
+                   help="not ported (refused)")
+    p.add_argument("--fusion_chunk", type=int, default=None,
+                   help="not ported: > 1 is refused")
+    p.add_argument("--compute_dtype", default=None,
+                   choices=("bfloat16", "float32"),
+                   help="activation dtype; default bfloat16 on the card, "
+                        "float32 on the CPU")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    args = p.parse_args(argv)
+
+    from ..config import TrainConfig, load_yaml
+    from ..data.datasets import SyntheticFusionDataset
+    from ..train.interactive import InteractiveTrainer
+    from ..utils.logging import setup_logger
+
+    cfg = load_yaml(args.config, args.configf) if args.config else \
+        TrainConfig()
+    if args.backbone:
+        cfg.backbone = args.backbone
+    if args.rounds:
+        cfg.rounds = args.rounds
+    if args.data_root:
+        cfg.data.root_dir = args.data_root
+    if args.val_root:
+        cfg.data.val_root_dir = args.val_root
+    if args.checkpoint_dir:
+        cfg.checkpoint_dir = args.checkpoint_dir
+    if args.fusion_iters:
+        cfg.fusion.iters_round1 = cfg.fusion.iters_later = args.fusion_iters
+    if args.seg_iters:
+        cfg.seg.iters = args.seg_iters
+    if args.crop_size:
+        cfg.fusion.crop_size = args.crop_size
+        cfg.data.crop_size = args.crop_size
+    if args.fusion_chunk:
+        cfg.fusion.train_chunk = args.fusion_chunk
+    if args.remat:
+        cfg.remat = True
+    if args.streaming:
+        cfg.streaming = True
+    if args.compute_dtype:
+        cfg.compute_dtype = args.compute_dtype
+    elif args.device == "cpu" and cfg.compute_dtype == "bfloat16":
+        cfg.compute_dtype = "float32"
+    cfg.mesh_data = args.mesh_data
+    cfg.mesh_model = args.mesh_model
+
+    if not args.synthetic:
+        raise ValueError("only --synthetic data is ported: the folder "
+                         "datasets are ROADMAP queue 1 item 4")
+    Path(cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
+    logger = setup_logger(str(Path(cfg.checkpoint_dir) / "train.log"))
+    size = tuple(args.synthetic_size)
+    n_val = args.synthetic_val or max(args.synthetic // 4, 1)
+    train_ds = SyntheticFusionDataset(args.synthetic, size,
+                                      cfg.data.num_classes, seed=0)
+    val_ds = SyntheticFusionDataset(n_val, size, cfg.data.num_classes,
+                                    seed=1)
+    trainer = InteractiveTrainer(cfg, train_ds, val_ds, logger=logger,
+                                 device=args.device)
+    result = trainer.run(start_round=args.start_round)
+    logger.info("training complete: best mIoU %.4f", result["best_mIoU"])
+    return result
+
+
+if __name__ == "__main__":
+    main()

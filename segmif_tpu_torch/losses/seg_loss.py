@@ -15,10 +15,12 @@ import torch
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = 255) -> torch.Tensor:
     """logits: [B, H, W, C] (any leading dims); labels: [B, H, W] int.
-    Mean CE over the pixels whose label != ignore_index, in f32."""
+    Mean CE over the pixels whose label != ignore_index, in f32 (f64 for
+    f64 logits)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp_min(1)

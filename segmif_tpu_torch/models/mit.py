@@ -5,7 +5,12 @@ Feature maps are NHWC and tokens [B, N, C] at the public surface, as in the
 JAX package; convs run on NCHW views of the same bytes (channels_last).
 Module names follow the reference state dict (``patch_embed1.proj``,
 ``block1.0.attn.q``, ``block1.0.mlp.dwconv.dwconv``, ``norm1``, ...).
-Inference only: stochastic depth is the identity.
+
+Stochastic depth (``drop_path``) runs only when ``forward`` is called
+with ``train=True``; its masks come from the ``torch.Generator`` the
+caller passes, never from the global RNG. Block i of the whole encoder
+drops with rate ``drop_path_rate * i / (total_depth - 1)``. Called as
+before (``train=False``), every block is deterministic.
 
  - GELU is exact (erf).
  - LayerNorm eps: 1e-6 for block and stage norms, 1e-5 for the
@@ -17,7 +22,7 @@ Inference only: stochastic depth is the identity.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +40,7 @@ class MiTConfig:
     sr_ratios: Tuple[int, ...] = (8, 4, 2, 1)
     mlp_ratios: Tuple[int, ...] = (4, 4, 4, 4)
     qkv_bias: bool = True
+    drop_path_rate: float = 0.1
     patch_sizes: Tuple[int, ...] = (7, 3, 3, 3)
     strides: Tuple[int, ...] = (4, 2, 2, 2)
 
@@ -47,6 +53,30 @@ MIT_VARIANTS = {
     "mit_b4": MiTConfig(depths=(3, 8, 27, 3)),
     "mit_b5": MiTConfig(depths=(3, 6, 40, 3)),
 }
+
+
+def drop_path_rates(config: MiTConfig) -> List[float]:
+    """The linear stochastic-depth schedule over all blocks, in order."""
+    total = sum(config.depths)
+    return [config.drop_path_rate * i / max(total - 1, 1)
+            for i in range(total)]
+
+
+def drop_path_mask(x: torch.Tensor, rate: float,
+                   gen: torch.Generator) -> torch.Tensor:
+    """One keep (1) / drop (0) draw per sample, shaped to broadcast over
+    ``x``, in x's dtype: uniform < 1 - rate, from ``gen`` on x's
+    device."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    u = torch.rand(shape, generator=gen, device=x.device)
+    return (u < 1.0 - rate).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float, mask: torch.Tensor
+              ) -> torch.Tensor:
+    """Stochastic depth with a drawn mask: kept samples scaled by
+    1 / (1 - rate)."""
+    return x * mask / (1.0 - rate)
 
 
 def _tokens_to_nchw(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -133,16 +163,28 @@ class MixFFN(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, sr_ratio: int,
-                 mlp_ratio: int, qkv_bias: bool):
+                 mlp_ratio: int, qkv_bias: bool, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = EfficientSelfAttention(dim, num_heads, sr_ratio, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MixFFN(dim, dim * mlp_ratio)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), h, w)
-        return x + self.mlp(self.norm2(x), h, w)
+    def forward(self, x: torch.Tensor, h: int, w: int, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.drop_path_rate if train else 0.0
+        if rate > 0.0 and gen is None:
+            raise ValueError("drop-path in train mode needs a generator")
+        y = self.attn(self.norm1(x), h, w)
+        if rate > 0.0:   # two masks per block, drawn in this order
+            m1, m2 = (drop_path_mask(x, rate, gen) for _ in range(2))
+            y = drop_path(y, rate, m1)
+        x = x + y
+        y = self.mlp(self.norm2(x), h, w)
+        if rate > 0.0:
+            y = drop_path(y, rate, m2)
+        return x + y
 
 
 class MixVisionTransformer(nn.Module):
@@ -150,27 +192,30 @@ class MixVisionTransformer(nn.Module):
         super().__init__()
         self.config = config
         cin = in_chans
+        rates = iter(drop_path_rates(config))
         for i in range(4):
             e = config.embed_dims[i]
             setattr(self, f"patch_embed{i + 1}", OverlapPatchEmbed(
                 cin, e, config.patch_sizes[i], config.strides[i]))
             setattr(self, f"block{i + 1}", nn.ModuleList(
                 Block(e, config.num_heads[i], config.sr_ratios[i],
-                      config.mlp_ratios[i], config.qkv_bias)
+                      config.mlp_ratios[i], config.qkv_bias, next(rates))
                 for _ in range(config.depths[i])))
             setattr(self, f"norm{i + 1}", nn.LayerNorm(e, eps=1e-6))
             cin = e
 
-    def forward(self, x: torch.Tensor, stages: int = 4) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, stages: int = 4, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """x: NHWC image. Returns the first ``stages`` stage feature maps
         (NHWC, at 1/4, 1/8, 1/16, 1/32 resolution). Stopping early skips
-        the later stages' work entirely."""
+        the later stages' work entirely. ``train=True`` turns drop-path on,
+        with masks from ``gen``."""
         outs = []
         b = x.shape[0]
         for i in range(stages):
             x, h, w = getattr(self, f"patch_embed{i + 1}")(x)
             for blk in getattr(self, f"block{i + 1}"):
-                x = blk(x, h, w)
+                x = blk(x, h, w, train, gen)
             x = getattr(self, f"norm{i + 1}")(x)
             x = x.reshape(b, h, w, x.shape[-1])
             outs.append(x)

@@ -37,9 +37,12 @@ class SegModel(nn.Module):
         self.classifier = nn.Conv2d(cfg.embed_dims[3], num_classes, 1,
                                     bias=False)
 
-    def forward(self, x: torch.Tensor, return_cam: bool = False):
-        feats = self.encoder(x)
-        logits = self.decoder(feats)
+    def forward(self, x: torch.Tensor, return_cam: bool = False,
+                train: bool = False, gen: Optional[torch.Generator] = None):
+        """``train=True``: drop-path, dropout and batch statistics, with
+        masks drawn from ``gen``; otherwise deterministic."""
+        feats = self.encoder(x, train=train, gen=gen)
+        logits = self.decoder(feats, train, gen)
         if return_cam:
             return logits, nhwc(self.classifier(nchw(feats[-1])))
         return logits
@@ -62,8 +65,13 @@ class SegmentationNetwork(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.denoise_net.classifier.weight.dtype
 
-    def forward(self, rgb01: torch.Tensor) -> torch.Tensor:
-        return self.denoise_net(normalize_imagenet(rgb01).to(self.dtype))
+    def forward(self, rgb01: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train=True`` runs the train-mode model (``SegModel``); the
+        default is deterministic, as serving and the frozen seg network of
+        the fusion step run it."""
+        return self.denoise_net(normalize_imagenet(rgb01).to(self.dtype),
+                                train=train, gen=gen)
 
     def encode_taps_raw(self, rgb01: torch.Tensor):
         """Taps of the RAW [0,1] guide: no x255 / ImageNet normalisation,

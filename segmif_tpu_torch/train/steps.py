@@ -1,5 +1,9 @@
-"""The fusion-phase training step (counterpart of
-``segmif_tpu/train/steps.py::make_fusion_train_step``).
+"""The training steps of the two phases and the inference closures of the
+interactive driver (counterpart of ``segmif_tpu/train/steps.py``):
+``make_fusion_train_step``, ``make_seg_train_step``, ``make_fuse_fn`` and
+``make_segment_fn``.
+
+The fusion step:
 
 One step: IR + VIS + guide + label -> the fusion forward with the frozen
 seg network's taps of the guide -> round 1: L1 + Sobel; rounds >= 2:
@@ -30,12 +34,25 @@ tensors, the DWA buffer and the optimizer's count live on the device.
 ``make_fusion_train_chunk`` (K steps as one ``lax.scan``, a dispatch
 saving on the TPU) is not ported: the port runs the per-step loop, which
 ``tests/test_chunked_train.py`` pins as the same maths.
+
+The seg step: the fused image -> the train-mode segmentation network
+(drop-path, dropout, BatchNorm batch statistics folded into the running
+buffers) -> f32 logits resized to the label size -> cross-entropy with
+the ignore label -> one 3-group AdamW update. Precision as in the fusion
+step (bf16 compute on f32 master weights through ``functional_call``;
+f64 throughout for an f64 compute dtype). The draws of step s come from a
+generator on the device seeded from (base seed, s) (``fold_seed``), the
+counterpart of the JAX step's ``fold_in(rng, state.step)``, so a resumed
+phase draws what the uninterrupted one drew. On the card the forward
+launches the sr-attention kernel in every MiT block; its backward
+recomputes the plain version. Nothing waits for the device.
 """
 from __future__ import annotations
 
 import copy
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -46,7 +63,14 @@ from ..losses.fusion_losses import fusion_loss_l1_grad, fusion_loss_mse_ssim
 from ..losses.seg_loss import cross_entropy
 from ..ops.color import rgb_to_ycrcb, ycrcb_to_rgb
 from ..ops.image import resize_bilinear
-from .state import FusionTrainState
+from .state import FusionTrainState, SegTrainState
+
+
+def fold_seed(*ints: int) -> int:
+    """A 63-bit generator seed from a tuple of non-negative ints (numpy's
+    ``SeedSequence``): the port's counterpart of folding into a JAX key."""
+    a, b = np.random.SeedSequence(list(ints)).generate_state(2, np.uint32)
+    return (int(a) << 31) ^ int(b)
 
 
 def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
@@ -146,4 +170,96 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
         return {"loss": total, "loss_fusion": loss1, "loss_seg": loss2,
                 "weights": w}
 
+    step.seg = seg      # the frozen copy this step reads
     return step
+
+
+def make_seg_train_step(model, tx, ignore_index: int = 255,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        device=None) -> Callable:
+    """model: ``SegmentationNetwork``; tx: ``optimizer.AdamW`` (the
+    3-group ``adamw_poly_grouped`` in the driver). Returns
+    ``step(state, batch, seed) -> metrics``.
+
+    The model moves to the device in f32 (f64 for an f64 compute dtype)
+    and is trained in place, its BatchNorm buffers included; build the
+    state after this call (``SegTrainState.create(model, tx)``).
+
+    batch: {'image': [B,H,W,3] in [0,1], 'label': [B,H,W] int}. seed: the
+    phase's base seed; step s draws its drop-path and dropout masks from
+    ``fold_seed(seed, s)``. metrics: {'loss'}, a device tensor.
+
+    A parameter that takes no gradient (the aux ``classifier``, which the
+    loss does not reach) gets a zero one, so the optimizer still decays it,
+    as optax's AdamW does in the JAX step.
+
+    ``device=None`` means ``cuda`` (raises when there is none);
+    ``device="cpu"`` trains through the kernels' plain versions."""
+    dev = resolve(device)
+    acc = _build.acc_dtype(compute_dtype)
+    seg = place(model, dev).to(acc)
+    gen = torch.Generator(device=dev)
+
+    def step(state: SegTrainState, batch: Dict[str, torch.Tensor],
+             seed: int) -> Dict[str, torch.Tensor]:
+        if state.step.device.type != dev.type:
+            raise ValueError(f"the state is on {state.step.device}, the step "
+                             f"on {dev}: create the state after "
+                             "make_seg_train_step")
+        gen.manual_seed(fold_seed(seed, state.host_step))
+        image, label = batch["image"].to(dev), batch["label"].to(dev)
+        weights = {n: p.to(compute_dtype) for n, p in state.params.items()}
+        logits = functional_call(seg, weights, (image,),
+                                 {"train": True, "gen": gen})
+        logits = resize_bilinear(logits.to(acc), label.shape[1:3])
+        loss = cross_entropy(logits, label, ignore_index)
+        params = list(state.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(state.params.items(), grads)}
+        state.opt_state = tx.update(grads, state.opt_state, state.params)
+        state.step = state.step + 1
+        state.host_step += 1
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def make_fuse_fn(model, compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None) -> Callable:
+    """``fuse(ir [B,H,W,1], vis [B,H,W,3], guide [B,H,W,3]) -> (fused_rgb
+    clipped to [0,1], fused_y)``, all in [0,1]: the regeneration pass of
+    the driver, with the guide's taps and the VIS frame's R plane (the
+    reference's inference behaviour). It runs a copy of ``model`` (a
+    ``JointPipeline``) made now, in ``compute_dtype`` and eval mode, under
+    ``inference_mode``: the weights of this call, as the JAX ``fuse_fn``
+    takes the variables of its call."""
+    dev = resolve(device)
+    acc = _build.acc_dtype(compute_dtype)   # the inputs' dtype
+    infer = place(copy.deepcopy(model), dev).to(compute_dtype).eval()
+
+    def fuse(ir, vis, guide):
+        with torch.inference_mode():
+            return infer.fuse(ir.to(dev, acc), vis.to(dev, acc),
+                              guide_rgb=guide.to(dev, acc))
+
+    return fuse
+
+
+def make_segment_fn(model, compute_dtype: torch.dtype = torch.bfloat16,
+                    device=None) -> Callable:
+    """``segment(rgb01 [B,H,W,3]) -> [B,H,W] int32``: the argmax of the
+    f32 logits resized to the image size, through a copy of ``model`` (a
+    ``SegmentationNetwork``) made now, in ``compute_dtype`` and eval
+    mode."""
+    dev = resolve(device)
+    acc = _build.acc_dtype(compute_dtype)
+    infer = place(copy.deepcopy(model), dev).to(compute_dtype).eval()
+
+    def segment(rgb01):
+        with torch.inference_mode():
+            logits = infer(rgb01.to(dev, acc)).to(acc)
+            logits = resize_bilinear(logits, rgb01.shape[1:3])
+            return logits.argmax(dim=-1).to(torch.int32)
+
+    return segment

@@ -59,6 +59,13 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    (test_train_step_card_matches_cpu): the losses within 1e-4 relative,
    every gradient leaf within TRAIN_LEAF_RTOL of its largest magnitude;
    a DRDB Function that returns a zero bottleneck-bias gradient fails it.
+ - a seg-phase train step on the card in f32 against the CPU, drop-path
+   and dropout at 0 (test_seg_step_card_matches_cpu): the loss within
+   1e-4 relative, every gradient leaf and BatchNorm buffer within
+   TRAIN_LEAF_RTOL of its largest magnitude (the five leaves whose exact
+   gradient is zero, within 1e-6 of the largest gradient), and the
+   running variance folded as flax folds it (``compare.bn_fold_ratio``
+   below 1/4); the unbiased variance folded instead fails the last.
 """
 import numpy as np
 import pytest
@@ -926,3 +933,42 @@ def test_train_step_card_matches_cpu(cuda, monkeypatch, fault):
     worst = max(errs.values())
     assert (worst <= TRAIN_LEAF_RTOL) == (fault is None), \
         sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+
+
+@pytest.mark.parametrize("fault", [None, "unbiased_running_var"])
+def test_seg_step_card_matches_cpu(cuda, monkeypatch, fault):
+    """One seg-phase step (mit_b3, batch 2, 120x160, f32, regularisers at
+    0) on the card, through the sr-attention kernel and its Function,
+    against the same step on the CPU."""
+    from segmif_tpu_torch.models import segformer_head
+    from segmif_tpu_torch.models.network import (SegmentationNetwork,
+                                                 init_params)
+    from segmif_tpu_torch.train.compare import (exact_zero_grad,
+                                                leaf_errors, seg_step_grads,
+                                                without_regularisers)
+
+    model = without_regularisers(init_params(
+        SegmentationNetwork("mit_b3"), torch.Generator().manual_seed(33)))
+    g = torch.Generator().manual_seed(34)
+    b, h, w = 2, 120, 160
+    data = {"image": torch.rand((b, h, w, 3), generator=g),
+            "label": torch.randint(0, 9, (b, h, w), generator=g)}
+    want_m, want, want_s, _ = seg_step_grads(model, data, torch.float32,
+                                             "cpu")
+    if fault:
+        real = segformer_head.update_running_stats
+        monkeypatch.setattr(
+            segformer_head, "update_running_stats",
+            lambda bn, mean, var, n: real(bn, mean, var * n / (n - 1), n))
+    got_m, got, got_s, ratio = seg_step_grads(
+        model, {k: v.to(cuda) for k, v in data.items()}, torch.float32, cuda)
+    assert abs(got_m["loss"].item() - want_m["loss"].item()) <= \
+        1e-4 * abs(want_m["loss"].item())
+    top = max(v.abs().max().item() for v in want.values())
+    for k in [k for k in want if exact_zero_grad(k)]:
+        assert got[k].abs().max().item() <= 1e-6 * top, k
+        del got[k], want[k]
+    errs = leaf_errors({**got, **got_s}, {**want, **want_s})
+    assert max(errs.values()) <= TRAIN_LEAF_RTOL, \
+        sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    assert (ratio < 0.25) == (fault is None), ratio
