@@ -93,13 +93,40 @@ line):
     alone at 4x480x480 bf16 (drop-path and dropout on): ms per step over
     steps 3-5 after two warm-ups, seg train pairs/s, the share in the
     recompute backward, peak memory, and no synchronizing CUDA call in a
-    step of its own.
+    step of its own;
+10. disk to disk (``segmif_tpu_torch.disk_check``): (a) a train folder of
+    16 and a val folder of 8 synthetic pairs written as uint8 PNGs at
+    480x640 (Infrared / Visible / Mask2 / Label, ``frame<i>.png``; the val
+    labels RGB with the id in R); ``FusionFolderDataset`` gives the
+    written arrays in natural order, and every decoder the machine has
+    (PIL; the native decoder and ``NativeLoader`` when their library
+    builds) the written bytes, with decode rates on 4 threads; (b)
+    ``cli.train.main`` on the folders with ``--streaming
+    --dump_fused_images``, one round of 3 + 3 iterations, mit_b3 bf16
+    (``--no_native_loader`` when the native library did not build), with
+    the launches of every call as phase 9 (c); the val memmap and the
+    dumped PNGs hold the regenerated arrays, and a fresh regeneration
+    from the written fusion checkpoint gives them bit for bit (cuDNN
+    deterministic for (b)-(d)); (c) ``cli.test_fusion.main`` over the val
+    folder at batch 8, default mode and ``--static_guide`` with the
+    reference quantisation: the PNGs equal ``fused_to_uint8`` of
+    ``generate_fused`` in memory, the writer handed only real images,
+    launches per batch counted, the two modes' PNGs differ; (d)
+    ``cli.test_segmentation.main`` on (c)'s PNGs equals
+    ``segmentation_eval`` on the decoded arrays; planted faults (a label
+    read from the wrong channel, ``sorted`` for the natural order, a last
+    batch's padding handed to the stretch) must fail those checks; (e)
+    ``cli.test_fusion`` disk to disk over 64 pairs at batch 8 bf16, twice:
+    pairs/s and the device's busy share (CUDA events around the fuse
+    calls over the wall time), beside the fuse-only pairs/s on the same
+    arrays already on the card.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -236,6 +263,15 @@ TRAINER_ARGS = ["--synthetic", "8", "--synthetic_val", "4", "--rounds", "2",
                 "--fusion_iters", "3", "--seg_iters", "3",
                 "--backbone", "mit_b3", "--compute_dtype", "bfloat16"]
 SEG_BATCH, SEG_CROP = 4, 480
+# Phase 10, disk to disk: the folders' sizes, the CLIs' batch, the decode
+# threads. A fresh regeneration from the trainer's fusion checkpoint must
+# give the trainer's uint8 val images bit for bit (share of differing
+# pixels 0): the same kernels (no atomics) and cuDNN in deterministic mode
+# on one card, on the same inputs in the same batches.
+D2D_TRAIN, D2D_VAL, D2D_TIMED, D2D_BATCH, D2D_THREADS = 16, 8, 64, 8, 4
+D2D_FRESH_SHARE = 0.0
+D2D_BACKBONE = "mit_b3"
+D2D_TRAIN_ARGS = ["--fusion_iters", "3", "--seg_iters", "3"]
 # Peaks of one H100 SXM (NVIDIA's datasheet, dense, 700 W) for the bounds
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -248,6 +284,66 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeFailure(msg)
+
+
+def counted(kind, fn, counters, totals, expect, seen):
+    """``fn`` with its kernel launches checked per call: every counter set
+    to 0 just before the call and read just after, held to
+    ``expect[kind]``, added to ``totals``; ``seen[kind]`` counts the
+    calls."""
+    def call(*args, **kwargs):
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*args, **kwargs)
+        counts = {k: c.launches for k, c in counters.items()}
+        check(counts == expect[kind], f"{kind}: launches {counts}, "
+                                      f"expected {expect[kind]}")
+        seen[kind] = seen.get(kind, 0) + 1
+        for k, v in counts.items():
+            totals[k] += v
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def counting_factories(module, kinds, counters, totals, expect, seen):
+    """Each ``module.<name>`` of ``kinds`` (name -> kind, or a function of
+    the factory's keyword arguments giving the kind) replaced for the
+    block by a factory whose closures are ``counted``."""
+    saved = {}
+
+    def wrap(real, kind):
+        def make(*args, **kwargs):
+            k = kind(kwargs) if callable(kind) else kind
+            return counted(k, real(*args, **kwargs), counters, totals,
+                           expect, seen)
+        return make
+
+    for name, kind in kinds.items():
+        saved[name] = getattr(module, name)
+        setattr(module, name, wrap(saved[name], kind))
+    try:
+        yield seen
+    finally:
+        for name, real in saved.items():
+            setattr(module, name, real)
+
+
+FLOAT_PATH = {"ffm_grams": 2, "ffm_apply": 2, "drdb_growth": 4,
+              "drdb_tail": 4, "drdb_int8_growth": 0, "drdb_int8_tail": 0}
+SEG_ONLY = {k: 0 for k in FLOAT_PATH}
+# launches per call of each closure the trainer and the CLIs build
+TRAINER_EXPECT = {"fusion r1": {"sr_attention": 7, **FLOAT_PATH},
+                  "fusion r2": {"sr_attention": 35, **FLOAT_PATH},
+                  "seg step": {"sr_attention": 28, **SEG_ONLY},
+                  "regenerated batch": {"sr_attention": 7, **FLOAT_PATH},
+                  "eval batch": {"sr_attention": 28, **SEG_ONLY}}
+TRAINER_MAKERS = {
+    "make_fusion_train_step":
+        lambda kw: "fusion r1" if kw["round1"] else "fusion r2",
+    "make_seg_train_step": "seg step",
+    "make_fuse_fn": "regenerated batch",
+    "make_segment_fn": "eval batch"}
 
 
 def _events_ms(fn, iters: int, hold: bool = True) -> float:
@@ -1370,42 +1466,10 @@ def trainer_run(dev, counters, totals):
     from segmif_tpu_torch.models.network import JointPipeline
     from segmif_tpu_torch.train import interactive
 
-    float_path = {"ffm_grams": 2, "ffm_apply": 2, "drdb_growth": 4,
-                  "drdb_tail": 4, "drdb_int8_growth": 0, "drdb_int8_tail": 0}
-    seg_only = {k: 0 for k in float_path}
-    expect = {"fusion r1": {"sr_attention": 7, **float_path},
-              "fusion r2": {"sr_attention": 35, **float_path},
-              "seg step": {"sr_attention": 28, **seg_only},
-              "regenerated batch": {"sr_attention": 7, **float_path},
-              "eval batch": {"sr_attention": 28, **seg_only}}
+    expect = TRAINER_EXPECT
     seen = {k: 0 for k in expect}
     wall = {}
     ctx = {}
-
-    def counted(kind, fn):
-        def call(*args, **kwargs):
-            for c in counters.values():
-                c.launches = 0
-            out = fn(*args, **kwargs)
-            counts = {k: c.launches for k, c in counters.items()}
-            check(counts == expect[kind], f"trainer {kind}: launches "
-                                          f"{counts}, expected "
-                                          f"{expect[kind]}")
-            seen[kind] += 1
-            for k, v in counts.items():
-                totals[k] += v
-            return out
-        return call
-
-    def wrap_maker(name, kind):
-        real = getattr(interactive, name)
-
-        def make(*args, **kwargs):
-            if name == "make_fusion_train_step":
-                k = "fusion r1" if kwargs["round1"] else "fusion r2"
-                return counted(k, real(*args, **kwargs))
-            return counted(kind, real(*args, **kwargs))
-        return real, make
 
     def timed(name):
         real = getattr(interactive.InteractiveTrainer, name)
@@ -1434,13 +1498,9 @@ def trainer_run(dev, counters, totals):
         return save
 
     cls = interactive.InteractiveTrainer
-    saved = {}
-    for name, kind in (("make_fusion_train_step", None),
-                       ("make_seg_train_step", "seg step"),
-                       ("make_fuse_fn", "regenerated batch"),
-                       ("make_segment_fn", "eval batch")):
-        saved[name], wrapped = wrap_maker(name, kind)
-        setattr(interactive, name, wrapped)
+    makers = counting_factories(interactive, TRAINER_MAKERS, counters,
+                                totals, expect, seen)
+    makers.__enter__()
     methods = {}
     for name in ("train_fusion_phase", "regenerate_fused", "train_seg_phase",
                  "evaluate"):
@@ -1502,8 +1562,7 @@ def trainer_run(dev, counters, totals):
               f" the same weights and kernels)", flush=True)
         check(err <= 1e-6, "the reloaded checkpoints give other outputs")
     finally:
-        for name, real in saved.items():
-            setattr(interactive, name, real)
+        makers.__exit__(None, None, None)
         for name, real in methods.items():
             setattr(cls, name, real)
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -1650,6 +1709,242 @@ def bf16_faults(got, want, kind: str) -> list:
     return out
 
 
+def cpu_model() -> str:
+    """The host's CPU model and core count, for host-paced numbers."""
+    import os
+
+    try:
+        names = {ln.split(":", 1)[1].strip() for ln in
+                 Path("/proc/cpuinfo").read_text().splitlines()
+                 if ln.startswith("model name")}
+    except OSError:
+        names = set()
+    return f"{', '.join(sorted(names)) or 'CPU model unknown'}, " \
+        f"{os.cpu_count()} cores"
+
+
+def first_error(log: str) -> str:
+    """The first line of a compiler's output that names an error."""
+    lines = log.splitlines()
+    return next((ln for ln in lines if "error" in ln), lines[-1])[:200]
+
+
+def disk_to_disk(dev, counters, totals, card: str):
+    """Phase 10: the disk-to-disk path at mit_b3 480x640 (see the module
+    docstring and ``segmif_tpu_torch.disk_check``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from segmif_tpu_torch import disk_check as dc
+    from segmif_tpu_torch.cli import test_fusion
+    from segmif_tpu_torch.data.datasets import FusionFolderDataset
+    from segmif_tpu_torch.train import interactive, steps
+
+    expect = {**TRAINER_EXPECT,
+              "test_fusion batch": {"sr_attention": 7, **FLOAT_PATH},
+              "static guide taps": {"sr_attention": 7, **SEG_ONLY},
+              "static guide batch": {"sr_attention": 0, **FLOAT_PATH},
+              "test_segmentation batch": {"sr_attention": 28, **SEG_ONLY}}
+    seen = {}
+    host = cpu_model()
+
+    def count_cli():
+        stack = contextlib.ExitStack()
+        stack.enter_context(counting_factories(
+            steps, {"make_fuse_fn": "test_fusion batch",
+                    "make_segment_fn": "test_segmentation batch"},
+            counters, totals, expect, seen))
+        real = test_fusion.make_static_guide_fuse_fn
+
+        def static(*args, **kwargs):
+            fuse = counted("static guide taps", real, counters, totals,
+                           expect, seen)(*args, **kwargs)
+            return counted("static guide batch", fuse, counters, totals,
+                           expect, seen)
+
+        stack.enter_context(dc.patched(test_fusion,
+                                       "make_static_guide_fuse_fn", static))
+        return stack
+
+    tmp = Path(tempfile.mkdtemp(prefix="segmif_d2d_"))
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        t0 = time.perf_counter()
+        train = dc.write_folder(tmp / "train", D2D_TRAIN, (H, W), 0)
+        val = dc.write_folder(tmp / "val", D2D_VAL, (H, W), 1,
+                              rgb_labels=True)
+        print(f"d2d folders: {D2D_TRAIN} train pairs (gray labels) and "
+              f"{D2D_VAL} val pairs (RGB labels, the id in R), uint8 PNGs "
+              f"at {H}x{W} named frame<i>.png, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (a) the decoders
+        for w in (train, val):
+            pr = dc.folder_problems(FusionFolderDataset(w["root"]), w)
+            check(not pr, f"d2d (a) FusionFolderDataset {w['root'].name}: "
+                          f"{pr[:4]}")
+        dec = dc.decoder_checks([train, val], threads=D2D_THREADS)
+        check(not dec["problems"], f"d2d (a) decoders: "
+                                   f"{dec['problems'][:4]}")
+        native_ok = dec["native_error"] is None
+        rates = "; ".join(f"{k} {v:.1f}" if v else f"{k} unavailable"
+                          for k, v in dec["rates"].items())
+        print(f"d2d (a) every decoder returns the written bytes, and "
+              f"FusionFolderDataset the written arrays in natural order; "
+              f"decode images/s on {D2D_THREADS} threads ({host}): "
+              f"{rates}", flush=True)
+        if not native_ok:
+            print(f"d2d (a) the native decoder did not build, so PIL "
+                  f"decodes every file and the trainer reads through "
+                  f"Python threads (--no_native_loader): "
+                  f"{first_error(dec['native_error'])}",
+                  flush=True)
+
+        # (b) the trainer on the folders
+        torch.backends.cudnn.deterministic = True
+        ck = tmp / "ck"
+        args = D2D_TRAIN_ARGS + (
+            [] if native_ok else ["--no_native_loader"])
+        t0 = time.perf_counter()
+        with counting_factories(interactive, TRAINER_MAKERS, counters,
+                                totals, expect, seen):
+            tr = dc.trainer_check(train, val, ck, D2D_BACKBONE, "bfloat16",
+                                  dev, args)
+        check(not tr["problems"], f"d2d (b) {tr['problems']}")
+        calls = {k: seen.get(k, 0) for k in TRAINER_EXPECT}
+        iters = {k: int(args[args.index(f"--{k}_iters") + 1])
+                 for k in ("fusion", "seg")}
+        want = {"fusion r1": iters["fusion"], "fusion r2": 0,
+                "seg step": iters["seg"],   # regeneration batch 4
+                "regenerated batch": -(-D2D_TRAIN // 4) - (-D2D_VAL // 4),
+                "eval batch": -(-D2D_VAL // 4)}
+        check(calls == want, f"d2d (b) trainer calls {calls}, expected "
+                             f"{want}")
+        fresh = tr["fresh"]
+        print(f"d2d (b) cli.train.main --data_root --val_root --streaming "
+              f"--dump_fused_images (a flag of the port's cli.train) "
+              f"--rounds 1 {' '.join(args)} {D2D_BACKBONE} bf16: best mIoU "
+              f"{tr['result']['best_mIoU']:.4f}, "
+              f"{time.perf_counter() - t0:.1f} s; launches per call as "
+              f"phase 9 (c), calls {calls}; the val memmap is _to_uint8 of "
+              f"the regenerated arrays and the dumped PNGs fused_to_uint8 "
+              f"of them, bit for bit; a fresh generate_fused from "
+              f"fusion_params.pth differs on a share {fresh['share']:.3g} "
+              f"of the val bytes, by at most {fresh['max']} (limit "
+              f"{D2D_FRESH_SHARE}: deterministic kernels and cuDNN)",
+              flush=True)
+        check(fresh["share"] <= D2D_FRESH_SHARE,
+              "d2d (b) a fresh regeneration differs from the trainer's")
+
+        # (c) test_fusion, default and static-guide modes; (d)
+        # test_segmentation on the default mode's folder
+        guide = val["root"] / "Mask2" / "frame0.png"
+        with count_cli():
+            fd = dc.fusion_cli_check(val, tmp / "fused", ck, D2D_BACKBONE,
+                                     D2D_BATCH, "bfloat16", dev)
+            fs = dc.fusion_cli_check(val, tmp / "fused_static", ck,
+                                     D2D_BACKBONE, D2D_BATCH, "bfloat16",
+                                     dev, static_guide=guide,
+                                     reference_quantization=True)
+            sg = dc.segmentation_cli_check(tmp / "fused", val, ck,
+                                           D2D_BACKBONE, D2D_BATCH,
+                                           "bfloat16", dev,
+                                           tmp / "val_seg.txt")
+        for name, r in (("default", fd), ("static guide", fs),
+                        ("test_segmentation", sg)):
+            check(not r["problems"], f"d2d {name}: {r['problems']}")
+        differ = float((fd["pngs"] != fs["pngs"]).mean())
+        check(differ > 0, "d2d (c) the static-guide PNGs equal the default "
+                          "mode's")
+        print(f"d2d (c) cli.test_fusion.main over {D2D_VAL} val pairs, "
+              f"batch {D2D_BATCH}, bf16: default mode (single rounding) "
+              f"and --static_guide {guide.name} --reference_quantization: "
+              f"the PNGs are fused_to_uint8 of generate_fused in memory, "
+              f"bit for bit, the writer handed only real images; launches "
+              f"per batch {expect['test_fusion batch']} (default), "
+              f"{expect['static guide batch']} (static guide, after "
+              f"{expect['static guide taps']} once for the taps); the two "
+              f"modes' bytes differ on a share {differ:.4f}", flush=True)
+        res = sg["result"]
+        print(f"d2d (d) cli.test_segmentation.main on the default mode's "
+              f"PNGs: mIoU {res['mIoU']:.4f} pixel_acc "
+              f"{res['pixel_acc']:.4f}, per-class IoU and confusion equal "
+              f"to segmentation_eval on the decoded arrays in memory; "
+              f"launches per batch {expect['test_segmentation batch']}",
+              flush=True)
+
+        # the planted faults, which must fail the unchanged checks
+        for fault, pr in dc.planted_faults(train, val, tmp / "planted", ck,
+                                           D2D_BACKBONE, "bfloat16",
+                                           dev).items():
+            check(bool(pr), f"planted fault, d2d {fault}: the checks "
+                            f"passed")
+            print(f"planted fault, d2d {fault}: {pr[0][:160]} (the check "
+                  f"fails, as it must)", flush=True)
+        torch.backends.cudnn.deterministic = deterministic
+
+        # (e) timing, informational
+        timed = dc.write_folder(tmp / "timed", D2D_TIMED, (H, W), 2)
+        events = []
+
+        def timing_make(*args, **kwargs):
+            fuse = counting_make(*args, **kwargs)
+
+            def call(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fuse(*a)
+                end.record()
+                events.append((start, end))
+                return out
+            return call
+
+        runs = []
+        with count_cli(), dc.patched(steps, "make_fuse_fn",
+                                     timing_make) as counting_make:
+            for r in range(2):
+                events.clear()
+                out = dc.fusion_cli_check(timed, tmp / f"fused_timed{r}", ck,
+                                          D2D_BACKBONE, D2D_BATCH,
+                                          "bfloat16", dev)
+                check(not out["problems"], f"d2d (e) {out['problems']}")
+                torch.cuda.synchronize()
+                busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+                runs.append((D2D_TIMED / out["seconds"],
+                             busy / out["seconds"], out["seconds"],
+                             out["read_wait"], out["write"]))
+        model = test_fusion.build_model(D2D_BACKBONE, 9, str(ck))
+        fuse = steps.make_fuse_fn(model, torch.bfloat16, dev)
+        batches = [tuple(torch.from_numpy(a[s:s + D2D_BATCH]).to(dev)
+                         .float() / 255.0 for a in
+                         (timed["ir"][..., None], timed["vis"],
+                          timed["guide"]))
+                   for s in range(0, D2D_TIMED, D2D_BATCH)]
+        cycle = itertools.cycle(batches)
+        ms = time_fn(lambda: fuse(*next(cycle)), 2 * len(batches),
+                     hold=False)
+        print(f"d2d (e) cli.test_fusion disk to disk, {D2D_TIMED} pairs at "
+              f"{H}x{W}, batch {D2D_BATCH}, bf16, {D2D_BACKBONE} ({card}; host "
+              f"{host}): " + "; ".join(
+                  f"run {i + 1}: {p:.3f} pairs/s ({t:.3f} s: waiting for "
+                  f"the prefetch threads' reads {r:.3f}, quantise + encode "
+                  f"+ write {wr:.3f}, upload + fuse + fetch and the rest "
+                  f"{t - r - wr:.3f}), device busy share {b:.4f}"
+                  for i, (p, b, t, r, wr) in enumerate(runs))
+              + f"; fuse only on the same arrays already on the card: "
+              f"{D2D_BATCH * 1e3 / ms:.3f} pairs/s ({ms:.2f} ms per batch, "
+              f"CUDA events, host-paced)", flush=True)
+        print(f"d2d: launches of phase 10 by call: {seen}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1683,7 +1978,8 @@ def main() -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip(), flush=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
 
     # phase 3: build
     _build.library()
@@ -1853,6 +2149,9 @@ def main() -> int:
     driver_kernel_checks(dev, kres)
     trainer_run(dev, counters, totals)
     seg_step_timing(dev)
+
+    # phase 10: disk to disk
+    disk_to_disk(dev, counters, totals, card)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

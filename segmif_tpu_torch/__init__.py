@@ -24,10 +24,16 @@ Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
  - ``train``: the fusion and seg steps, AdamW, the train states,
    checkpoints and ``InteractiveTrainer`` (the rounds of a fusion phase
    and a seg phase); ``losses``: the fusion losses, CE and DWA.
- - ``data``: the synthetic dataset, ``Prefetcher``, ``iterate_eval`` and
-   the batched device-side augmentation; ``eval``: the confusion matrix,
-   the scores and the evaluator; ``config``: the config tree;
-   ``cli.train``: ``python -m segmif_tpu_torch.cli.train``.
+ - ``data``: the folder, MFNet, VOC and synthetic datasets, the ctypes
+   binding of ``runtime/dataloader.cpp`` (``data.native``),
+   ``Prefetcher``, ``iterate_eval`` and the batched device-side
+   augmentation; ``train.streaming``: the disk-backed splits; ``eval``:
+   the confusion matrix, the scores, the evaluator, the fused-PNG writer
+   and the colormaps; ``config``: the config tree; ``cli``: ``train``,
+   ``test_fusion``, ``test_segmentation`` and ``convert_checkpoint``
+   (``python -m segmif_tpu_torch.cli.<name>``); ``disk_check``: the
+   checks of the disk-to-disk path that ``chip_smoke.py`` and the tests
+   share.
 
 The package imports torch only; the CUDA kernels are compiled with nvcc at
 first use (``kernels._build``).

@@ -1,19 +1,24 @@
 """CLI: interactive fusion <-> segmentation training on the card
 (counterpart of ``segmif_tpu/cli/train.py``, with the same flags plus
-``--device`` and ``--synthetic_val``).
+``--device``, ``--synthetic_val``, ``--dump_fused_images`` and
+``--no_native_loader``).
 
-    python -m segmif_tpu_torch.cli.train --synthetic 8 --rounds 2 \\
-        --fusion_iters 3 --seg_iters 3 --checkpoint_dir /tmp/ck
+    python -m segmif_tpu_torch.cli.train --data_root ./data/train_all \\
+        --val_root ./data/test_all --checkpoint_dir ./checkpoint
 
-trains on procedurally generated data (``--synthetic N`` training
-samples, ``--synthetic_val`` validation samples, N // 4 by default). The
-run is on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it raises. On the CPU the compute dtype defaults
-to float32, on the card to bfloat16. The log goes to stdout and to
-``train.log`` in the checkpoint dir.
+trains on two folders in the Infrared / Visible / Mask2 / Label layout
+(``data.datasets.FusionFolderDataset``; the directory names from the
+config's ``data.*_dir``); ``--streaming`` keeps them on disk
+(``train.streaming``), reading per batch through the native C++ loader
+unless ``--no_native_loader`` is given (without its library, which needs
+the libpng and libjpeg headers, the run raises). ``--synthetic N`` trains
+on procedurally generated data instead (N training samples,
+``--synthetic_val`` validation samples, N // 4 by default).
 
-Only ``--synthetic`` data is ported: the folder datasets (``--data_root``
-without ``--synthetic``) wait for ROADMAP queue 1 item 4.
+The run is on the card unless ``--device cpu`` is given; without a card
+and without ``--device cpu`` it raises. On the CPU the compute dtype
+defaults to float32, on the card to bfloat16. The log goes to stdout and
+to ``train.log`` in the checkpoint dir.
 """
 from __future__ import annotations
 
@@ -50,7 +55,14 @@ def main(argv=None):
     p.add_argument("--mesh_model", type=int, default=1,
                    help="devices of the model axis; the port takes one")
     p.add_argument("--streaming", action="store_true",
-                   help="not ported (refused)")
+                   help="keep the splits on disk (decode per batch; fused "
+                        "images in a disk memmap)")
+    p.add_argument("--no_native_loader", action="store_true",
+                   help="streaming: read through Python threads, not the "
+                        "native C++ loader")
+    p.add_argument("--dump_fused_images", action="store_true",
+                   help="write each round's regenerated fused images as "
+                        "PNGs under the checkpoint dir")
     p.add_argument("--fusion_chunk", type=int, default=None,
                    help="not ported: > 1 is refused")
     p.add_argument("--compute_dtype", default=None,
@@ -62,7 +74,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from ..config import TrainConfig, load_yaml
-    from ..data.datasets import SyntheticFusionDataset
+    from ..data.datasets import FusionFolderDataset, SyntheticFusionDataset
     from ..train.interactive import InteractiveTrainer
     from ..utils.logging import setup_logger
 
@@ -91,6 +103,10 @@ def main(argv=None):
         cfg.remat = True
     if args.streaming:
         cfg.streaming = True
+    if args.no_native_loader:
+        cfg.native_loader = False
+    if args.dump_fused_images:
+        cfg.dump_fused_images = True
     if args.compute_dtype:
         cfg.compute_dtype = args.compute_dtype
     elif args.device == "cpu" and cfg.compute_dtype == "bfloat16":
@@ -98,17 +114,23 @@ def main(argv=None):
     cfg.mesh_data = args.mesh_data
     cfg.mesh_model = args.mesh_model
 
-    if not args.synthetic:
-        raise ValueError("only --synthetic data is ported: the folder "
-                         "datasets are ROADMAP queue 1 item 4")
     Path(cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
     logger = setup_logger(str(Path(cfg.checkpoint_dir) / "train.log"))
-    size = tuple(args.synthetic_size)
-    n_val = args.synthetic_val or max(args.synthetic // 4, 1)
-    train_ds = SyntheticFusionDataset(args.synthetic, size,
-                                      cfg.data.num_classes, seed=0)
-    val_ds = SyntheticFusionDataset(n_val, size, cfg.data.num_classes,
-                                    seed=1)
+    if args.synthetic:
+        size = tuple(args.synthetic_size)
+        n_val = args.synthetic_val or max(args.synthetic // 4, 1)
+        train_ds = SyntheticFusionDataset(args.synthetic, size,
+                                          cfg.data.num_classes, seed=0)
+        val_ds = SyntheticFusionDataset(n_val, size, cfg.data.num_classes,
+                                        seed=1)
+    else:
+        d = cfg.data
+        train_ds, val_ds = (FusionFolderDataset(
+            root, ir_dir=d.ir_dir, vis_dir=d.vis_dir, guide_dir=d.guide_dir,
+            label_dir=d.label_dir) for root in (d.root_dir, d.val_root_dir))
+        logger.info("folder data: %d training pairs in %s, %d validation "
+                    "pairs in %s", len(train_ds), d.root_dir, len(val_ds),
+                    d.val_root_dir)
     trainer = InteractiveTrainer(cfg, train_ds, val_ds, logger=logger,
                                  device=args.device)
     result = trainer.run(start_round=args.start_round)

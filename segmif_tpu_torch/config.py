@@ -8,11 +8,12 @@ checkpoint paths. YAML files with the reference's section layout
 imports PyYAML only when it is called.
 
 Differences from the JAX package's tree: ``compute_dtype`` also takes
-"float64" (the parity tests' dtype), and the fields of options the port
-does not run yet (``streaming``, ``remat``, ``remat_seg``,
-``dump_fused_images``, ``fusion.train_chunk`` > 1, a mesh of more than
-one device) stay for the YAML layout's sake; ``InteractiveTrainer``
-refuses them.
+"float64" (the parity tests' dtype); ``native_loader`` chooses the
+streaming fusion phase's reader (the JAX package falls back from the
+native loader silently, the port does not); and the fields of options the
+port does not run (``remat``, ``remat_seg``, ``fusion.train_chunk`` > 1,
+a mesh of more than one device) stay for the YAML layout's sake;
+``InteractiveTrainer`` refuses them.
 """
 from __future__ import annotations
 
@@ -110,8 +111,10 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoint"
     pretrained_dir: str = "./pretrained"
     dump_fused_images: bool = False    # optional PNG dump for inspection
-    streaming: bool = False  # the JAX package's disk-backed splits
-                             # (train/streaming.py); not ported yet
+    streaming: bool = False  # disk-backed splits (train/streaming.py)
+    native_loader: bool = True  # streaming fusion phase: read through the
+                                # native C++ loader (raises if it did not
+                                # build); False: Python reader threads
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"    # "bfloat16" | "float32" | "float64"
     remat: bool = False   # the JAX package's rematerialisation switches;

@@ -1,5 +1,6 @@
-"""Data for the interactive trainer (counterpart of ``segmif_tpu/data``):
-the synthetic dataset, the threaded ``Prefetcher`` and ``iterate_eval``
-(numpy on the host) and the batched augmentation (torch, on the device).
-The folder datasets, the MFNet and VOC datasets and the native loader are
-not ported yet."""
+"""Data for the interactive trainer and the CLIs (counterpart of
+``segmif_tpu/data``): the folder, MFNet, VOC and synthetic datasets
+(``datasets``), the ctypes binding of the native C++ decoder and batch
+loader (``native``), the ``Prefetcher`` and ``iterate_eval`` (numpy on
+the host) and the batched augmentation (``augment``, torch, on the
+device)."""

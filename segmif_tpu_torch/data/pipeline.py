@@ -1,13 +1,23 @@
 """Host input pipeline (counterpart of ``segmif_tpu/data/pipeline.py``):
-a threaded prefetcher of shuffled batches and the eval iterator, numpy on
-the host. Augmentation happens on the device afterwards
-(``data.augment``), so the host only reads and stacks.
+a prefetcher of shuffled batches and the eval iterator, numpy on the host.
+Augmentation happens on the device afterwards (``data.augment``), so the
+host only reads and stacks.
 
-Not ported: the native C++ loader path and the per-process sharding (the
-port trains in one process).
+The ``Prefetcher`` reads through one of two readers, and says which in
+one log line:
+ - the native C++ loader (``data.native.NativeLoader``) when the dataset
+   offers ``sample_paths()`` and ``use_native`` is set: decode on native
+   threads, the shuffle order the C++ runtime's;
+ - Python threads calling ``dataset[i]`` otherwise, in the epoch order
+   ``np.random.default_rng([seed, e]).permutation``.
+Unlike the JAX package, a native loader that was asked for and cannot run
+raises; it never falls back to the Python readers.
+
+Not ported: the per-process sharding (the port trains in one process).
 """
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -22,29 +32,77 @@ class Prefetcher:
     Yields dicts of stacked numpy arrays, in the dataset's dtypes:
       {'ir': [B,H,W,3], 'vis': [B,H,W,3], 'guide': [B,H,W,3],
        'label': [B,H,W] int32}.
-    Samples must share one shape. The epoch-e order is
-    ``np.random.default_rng([seed, e]).permutation``, the JAX package's,
-    and the last partial batch of an epoch is dropped.
+    Samples must share one shape. On the Python readers the epoch-e order
+    is ``np.random.default_rng([seed, e]).permutation``, the JAX
+    package's, and the last partial batch of an epoch is dropped. The
+    native loader's batches are uint8 images (its float32 output holds
+    integers in [0, 255]) and an int32 label from the label file's first
+    channel.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  num_threads: int = 4, prefetch_depth: int = 4,
-                 loop: bool = True, start_batch: int = 0):
+                 loop: bool = True, use_native: bool = True,
+                 start_batch: int = 0):
         """start_batch fast-forwards the deterministic batch sequence: batch
         k of a Prefetcher(seed=s, start_batch=k) is batch k of
         Prefetcher(seed=s, start_batch=0), which is how a resumed phase
-        replays the uninterrupted data order."""
+        replays the uninterrupted data order. It takes the Python readers
+        (the native loader's order lives in C++ and cannot be replayed).
+
+        use_native: read through the native loader when the dataset offers
+        ``sample_paths()`` (and ``loop``); raises ``RuntimeError`` if the
+        native library did not build or the loader cannot be created."""
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.start_batch = start_batch
         self.loop = loop
         self.indices = np.arange(len(dataset))
+        self._native = None
+        paths = self._sample_paths() if (use_native and loop
+                                         and not start_batch) else None
+        log = logging.getLogger("segmif_tpu_torch")
+        if paths is not None:
+            self._native = self._open_native(paths, num_threads,
+                                             prefetch_depth, seed)
+            log.info("Prefetcher: native C++ loader, %d threads, %d samples"
+                     " in batches of %d (C++ shuffle, seed %d)", num_threads,
+                     len(paths), batch_size, seed + 1)
+            return
+        log.info("Prefetcher: Python reader threads (%d), %d samples in "
+                 "batches of %d (seed %d, from batch %d)", num_threads,
+                 len(self.indices), batch_size, seed, start_batch)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         self._stop = threading.Event()
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
+
+    def _sample_paths(self):
+        """The dataset's per-sample (ir, vis, guide, label) paths, or None
+        if it offers none."""
+        fn = getattr(self.ds, "sample_paths", None)
+        try:
+            paths = fn() if fn is not None else None
+        except AttributeError:   # a wrapper over a dataset without paths
+            return None
+        return paths if paths and len(paths[0]) == 4 else None
+
+    def _open_native(self, paths, num_threads, prefetch_depth, seed):
+        from . import native
+
+        try:
+            h, w, _ = native.probe_image(paths[0][0])
+            return native.NativeLoader(
+                paths, self.batch_size, (h, w), channels=3,
+                num_threads=num_threads, queue_depth=prefetch_depth,
+                seed=seed + 1, resize=False)
+        except (native.NativeUnavailable, IOError) as e:
+            raise RuntimeError(
+                f"Prefetcher: the native loader was asked for "
+                f"(use_native=True) and cannot run: {e}; pass "
+                f"use_native=False to read through Python threads") from e
 
     def _load_batch(self, batch_idx) -> dict:
         samples = list(self._pool.map(self.ds.__getitem__, batch_idx))
@@ -54,6 +112,14 @@ class Prefetcher:
                 "label": np.stack(labels).astype(np.int32)}
 
     def _producer(self):
+        """Read batches into the queue; an error in a read is queued too,
+        and the consumer raises it."""
+        try:
+            self._produce()
+        except Exception as e:   # noqa: BLE001 (handed to the consumer)
+            self._put(e)
+
+    def _produce(self):
         nb_per_epoch = max(len(self.indices) // self.batch_size, 1)
         epoch = self.start_batch // nb_per_epoch
         skip = self.start_batch % nb_per_epoch
@@ -80,14 +146,28 @@ class Prefetcher:
                 continue
 
     def __iter__(self) -> Iterator[dict]:
+        if self._native is not None:
+            for arr in self._native:   # [B, 4, H, W, 3] f32 in [0, 255]
+                u8 = arr[:, :3].astype(np.uint8)
+                yield {"ir": np.ascontiguousarray(u8[:, 0]),
+                       "vis": np.ascontiguousarray(u8[:, 1]),
+                       "guide": np.ascontiguousarray(u8[:, 2]),
+                       "label": arr[:, 3, :, :, 0].astype(np.int32)}
+            return
         while True:
             item = self._q.get()
+            if isinstance(item, Exception):
+                raise RuntimeError("Prefetcher: a reader thread "
+                                   "failed") from item
             if item is None:
                 return
             yield item
 
     def close(self):
-        """Stop the reader thread and wait for it."""
+        """Stop the reader threads and wait for them."""
+        if self._native is not None:
+            self._native.close()
+            return
         self._stop.set()
         try:
             while True:

@@ -4,14 +4,14 @@
    matrix on the device (no host read per batch), derive per-class
    precision / IoU and the mIoU (mean IoU) on the host at the end;
  - ``generate_fused``: fuse every (ir, vis) pair with the taps of its
-   guide, handed over in memory (or batch by batch to a ``sink``);
+   guide, handed over in memory (or batch by batch to a ``sink``), and
+   optionally written as PNGs (``out_dir``, ``eval.image_io``);
  - ``fusion_quality_eval``: SSIM and MSE of the fused Y against the
    guide's Y.
 
 Images cross to the device as uint8 and are cast there. Each function
 runs on the card unless given ``device="cpu"``; ``dtype`` is the float
 type of the images handed to the model (f32; f64 for an f64 model).
-Writing the fused images as PNGs (``out_dir``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .._device import resolve, upload
 from ..data.pipeline import iterate_eval
 from ..ops.color import rgb_to_ycrcb
 from ..ops.ssim import ssim
+from .image_io import write_fused_batch
 from .metrics import compute_results, confusion_matrix, scores
 
 
@@ -73,6 +74,7 @@ def _append_eval_log(path: str, tag: str, result: Dict) -> None:
 
 def generate_fused(fuse_fn: Callable, dataset, batch_size: int = 4,
                    out_dir: Optional[str | Path] = None,
+                   quantize_like_reference: bool = False,
                    sink: Optional[Callable] = None, device=None,
                    dtype: torch.dtype = torch.float32):
     """Fuse a whole dataset of (name, ir, vis, guide, label) 5-tuples.
@@ -80,14 +82,13 @@ def generate_fused(fuse_fn: Callable, dataset, batch_size: int = 4,
     [0,1] (``train.steps.make_fuse_fn``).
 
     Returns (names, fused_rgb01 [N,H,W,3] float32 numpy, labels [N,H,W]
-    int32). With ``sink``, ``sink(start, fused_np, guide_np)`` (both
-    [b,H,W,3] float32 in [0,1], ``start`` the dataset index of the batch's
-    first sample) is called per batch instead of accumulating, and the
-    returned fused array is None."""
-    if out_dir is not None:
-        raise NotImplementedError(
-            "generate_fused(out_dir=...): the fused-PNG writer "
-            "(eval/image_io.py) is not ported yet (ROADMAP queue 1 item 5)")
+    int32). With ``out_dir``, each batch's real images (not the repeats
+    that pad the last batch) are also written as ``<out_dir>/<name>``,
+    quantised together (``image_io.write_fused_batch``). With ``sink``,
+    ``sink(start, fused_np, guide_np)`` (both [b,H,W,3] float32 in [0,1],
+    ``start`` the dataset index of the batch's first sample) is called
+    per batch instead of accumulating, and the returned fused array is
+    None."""
     dev = resolve(device)
     all_names, all_fused, all_labels = [], [], []
     start = 0
@@ -97,6 +98,9 @@ def generate_fused(fuse_fn: Callable, dataset, batch_size: int = 4,
                                 for a in (ir[..., 0:1], vis, guide))
         fused_rgb, _ = fuse_fn(ir_y, vis01, guide01)
         fused_np = fused_rgb[:count].float().cpu().numpy()
+        if out_dir is not None:
+            write_fused_batch(out_dir, names, fused_np,
+                              quantize_like_reference)
         all_names.extend(names)
         if sink is not None:
             sink(start, fused_np, guide01[:count].float().cpu().numpy())

@@ -71,3 +71,9 @@ def compute_results(conf_total: np.ndarray):
         if denom != 0:
             iou[cid] = tp / denom
     return precision, recall, iou
+
+
+MFNET_CLASS_NAMES = (
+    "unlabeled", "car", "person", "bike", "curve", "car_stop", "guardrail",
+    "color_cone", "bump",
+)

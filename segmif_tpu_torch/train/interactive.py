@@ -33,9 +33,18 @@ iteration consumes A batches, so a resumed fusion phase restarts its
 ``Prefetcher`` at batch ``start_iter * A`` (the JAX driver restarts at
 ``start_iter`` and replays batches).
 
-Options the port does not run yet raise ``ValueError`` naming their
-ROADMAP item (``streaming``, ``dump_fused_images``, a mesh of more than
-one device, ``remat``, ``fusion.train_chunk`` > 1).
+With ``streaming`` the splits stay on disk (``train.streaming``): the
+fusion phase's ``Prefetcher`` reads the folders per batch (through the
+native C++ loader unless ``native_loader`` is off, and then in the C++
+runtime's shuffle order), and the regenerated fused images go to a uint8
+memmap under the checkpoint dir, batch by batch, with the val SSIM
+averaged over the batches weighted by their sizes. With
+``dump_fused_images`` each regeneration also writes its fused images as
+PNGs to ``fused_{train,val}_r<round>/`` in the checkpoint dir.
+
+Options the port does not run raise ``ValueError`` naming their ROADMAP
+item (a mesh of more than one device, ``remat``, ``fusion.train_chunk``
+> 1).
 """
 from __future__ import annotations
 
@@ -133,13 +142,9 @@ def refuse_unported(cfg: TrainConfig) -> None:
     """ValueError for each option of the JAX driver the port does not run
     yet, naming its ROADMAP item."""
     refusals = (
-        (cfg.streaming, "streaming: the disk-backed splits "
-         "(train/streaming.py) are not ported yet (ROADMAP queue 1 item 4)"),
         (cfg.fusion.train_chunk > 1, "fusion.train_chunk > 1: the lax.scan "
          "chunking of train steps is on ROADMAP queue 1's 'Do not port' "
          "list; the port runs one step per iteration"),
-        (cfg.dump_fused_images, "dump_fused_images: the fused-PNG writer "
-         "(eval/image_io.py) is not ported yet (ROADMAP queue 1 item 5)"),
         (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1,
          "mesh_data / mesh_model: the port trains on one device; data and "
          "tensor parallelism are ROADMAP queue 1 item 7"),
@@ -178,8 +183,16 @@ class InteractiveTrainer:
             ckpt.load_pretrained_encoder(self.model.seg.denoise_net.encoder,
                                          pretrained)
         place(self.model, self.dev).to(self.acc)
-        self.train_data = _stack_dataset(train_dataset)
-        self.val_data = _stack_dataset(val_dataset)
+        if cfg.streaming:
+            from .streaming import StreamingFusionData
+
+            self.train_data = StreamingFusionData(
+                train_dataset, cfg.checkpoint_dir, "train")
+            self.val_data = StreamingFusionData(
+                val_dataset, cfg.checkpoint_dir, "val")
+        else:
+            self.train_data = _stack_dataset(train_dataset)
+            self.val_data = _stack_dataset(val_dataset)
         self.best_miou = -1.0
         self.history = []
         # sampled at the log points, which read the device anyway:
@@ -191,8 +204,9 @@ class InteractiveTrainer:
     # ------------------------------------------------------------ phases ----
 
     def _augment(self, gen, raw, aug, seed):
-        """One raw uint8 batch on the device, augmented with draws from
-        ``gen`` seeded ``seed``."""
+        """One raw batch (uint8, or float32 integers in [0, 255] from a
+        streamed folder) on the device, augmented with draws from ``gen``
+        seeded ``seed``."""
         gen.manual_seed(seed)
         b = {k: upload(raw[k], self.dev)
              for k in ("ir", "vis", "guide", "label")}
@@ -230,6 +244,7 @@ class InteractiveTrainer:
         # an iteration takes `accum` batches: resume at start_iter * accum
         pf = Prefetcher(self.train_data, fp.batch_size,
                         seed=cfg.seed + round_idx,
+                        use_native=cfg.native_loader,
                         start_batch=start_iter * accum)
         it = iter(pf)
         base = cfg.seed * 7 + round_idx
@@ -266,21 +281,52 @@ class InteractiveTrainer:
         """Fuse the train and val sets with the current fusion weights,
         taps and fusion target from the STATIC guide; only ``fused`` is
         replaced."""
+        cfg = self.cfg
         fuse_fn = make_fuse_fn(self.model, self.dtype, self.dev)
         ssim_val = None
-        for data in (self.train_data, self.val_data):
-            _, fused, _ = generate_fused(fuse_fn, data, batch_size=4,
-                                         device=self.dev, dtype=self.acc)
-            if data is self.val_data:
-                ssim_val = fusion_quality_eval(
+        for data, tag in ((self.train_data, "train"),
+                          (self.val_data, "val")):
+            out = (Path(cfg.checkpoint_dir) / f"fused_{tag}_r{round_idx}"
+                   if cfg.dump_fused_images else None)
+            val = data is self.val_data
+            if cfg.streaming:
+                ssim = self._regenerate_streaming(fuse_fn, data, out, val)
+            else:
+                _, fused, _ = generate_fused(
+                    fuse_fn, data, batch_size=4, out_dir=out,
+                    device=self.dev, dtype=self.acc)
+                data.fused = _to_uint8(fused)
+                ssim = fusion_quality_eval(
                     fused, data.guide.astype(np.float32) / 255.0,
-                    device=self.dev)["ssim"]
-            data.fused = _to_uint8(fused)
+                    device=self.dev)["ssim"] if val else None
+            if val:
+                ssim_val = ssim
         self.ssim_history.append((round_idx, ssim_val))
         self.log.info(
             "[round %d] regenerated %d train + %d val fused images "
             "(val SSIM vs static guide: %.4f)", round_idx,
             len(self.train_data), len(self.val_data), ssim_val)
+
+    def _regenerate_streaming(self, fuse_fn, data, out_dir, want_ssim):
+        """Each fused batch straight into the split's uint8 memmap; the
+        val SSIM against the static guide averaged over the batches,
+        weighted by their sizes (the images share one size, so this is
+        the SSIM of the whole set up to summation order)."""
+        _, ir0, *_ = data[0]
+        fused_mm = data.ensure_fused(ir0.shape[0], ir0.shape[1])
+        stats = {"ssim_sum": 0.0, "n": 0}
+
+        def sink(start, fused_np, guide_np):
+            fused_mm[start:start + len(fused_np)] = _to_uint8(fused_np)
+            if want_ssim:
+                q = fusion_quality_eval(fused_np, guide_np, device=self.dev)
+                stats["ssim_sum"] += q["ssim"] * len(fused_np)
+                stats["n"] += len(fused_np)
+
+        generate_fused(fuse_fn, data, batch_size=4, out_dir=out_dir,
+                       sink=sink, device=self.dev, dtype=self.acc)
+        fused_mm.flush()
+        return stats["ssim_sum"] / stats["n"] if stats["n"] else None
 
     def train_seg_phase(self, round_idx: int):
         cfg = self.cfg

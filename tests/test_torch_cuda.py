@@ -66,6 +66,11 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    gradient is zero, within 1e-6 of the largest gradient), and the
    running variance folded as flax folds it (``compare.bn_fold_ratio``
    below 1/4); the unbiased variance folded instead fails the last.
+ - the disk-to-disk path at 64x96 (test_disk_to_disk_checks): exact.
+   Every decoder returns the written bytes, and the CLIs' PNGs and mIoU
+   table equal in-memory runs of the same arrays through the same kernels
+   (deterministic: no atomics, cuDNN in deterministic mode); each planted
+   fault of ``disk_check.planted_faults`` fails a check.
 """
 import numpy as np
 import pytest
@@ -972,3 +977,46 @@ def test_seg_step_card_matches_cpu(cuda, monkeypatch, fault):
     assert max(errs.values()) <= TRAIN_LEAF_RTOL, \
         sorted(errs.items(), key=lambda kv: -kv[1])[:4]
     assert (ratio < 0.25) == (fault is None), ratio
+
+
+def test_disk_to_disk_checks(cuda, tmp_path, monkeypatch):
+    """chip_smoke.py's phase 10 (a), (c) and (d) at 64x96 on the card,
+    mit_b3 bf16, through ``segmif_tpu_torch.disk_check``: the folders
+    decode to the written bytes by every decoder the machine has;
+    ``cli.test_fusion``'s PNGs (default mode, and the static guide with the
+    reference quantisation) are ``fused_to_uint8`` of ``generate_fused``
+    in memory bit for bit (cuDNN deterministic: the same algorithms
+    twice); ``cli.test_segmentation`` equals ``segmentation_eval`` on the
+    decoded arrays; the planted faults fail those checks. The weights are
+    seeded role checkpoints (the trainer's part, (b), is chip_smoke's)."""
+    from segmif_tpu_torch import disk_check as dc
+    from segmif_tpu_torch.data.datasets import FusionFolderDataset
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+    from segmif_tpu_torch.train import checkpoint as ckpt
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    train = dc.write_folder(tmp_path / "train", 12, (64, 96), 0)
+    val = dc.write_folder(tmp_path / "val", 5, (64, 96), 1, rgb_labels=True)
+    for w in (train, val):
+        assert dc.folder_problems(FusionFolderDataset(w["root"]), w) == []
+    dec = dc.decoder_checks([train, val], threads=4, repeats=1)
+    assert dec["problems"] == [] and dec["rates"]["PIL"] > 0
+    model = init_params(JointPipeline("mit_b3"),
+                        torch.Generator().manual_seed(5))
+    ck = tmp_path / "ck"
+    ckpt.save_role(ck / "fusion_params.pth", model.fusion)
+    ckpt.save_role(ck / "seg_params.pth", model.seg)
+    fd = dc.fusion_cli_check(val, tmp_path / "fused", ck, "mit_b3", 2,
+                             "bfloat16", cuda)
+    fs = dc.fusion_cli_check(val, tmp_path / "static", ck, "mit_b3", 2,
+                             "bfloat16", cuda,
+                             static_guide=val["root"] / "Mask2" / "frame0.png",
+                             reference_quantization=True)
+    assert fd["problems"] == fs["problems"] == []
+    assert not np.array_equal(fd["pngs"], fs["pngs"])
+    sg = dc.segmentation_cli_check(tmp_path / "fused", val, ck, "mit_b3", 2,
+                                   "bfloat16", cuda, tmp_path / "seg.txt")
+    assert sg["problems"] == []
+    faults = dc.planted_faults(train, val, tmp_path / "planted", ck,
+                               "mit_b3", "bfloat16", cuda)
+    assert len(faults) == 3 and all(faults.values()), faults

@@ -23,6 +23,7 @@ from segmif_tpu.train.steps import make_segment_fn as jax_make_segment_fn
 from segmif_tpu_torch.convert import state_dict_from_jax
 from segmif_tpu_torch.data.datasets import SyntheticFusionDataset
 from segmif_tpu_torch.eval import evaluator
+from segmif_tpu_torch.eval.image_io import fused_to_uint8, load_fused_dir
 from segmif_tpu_torch.eval.metrics import (compute_results, confusion_matrix,
                                            scores)
 from segmif_tpu_torch.models.network import JointPipeline
@@ -75,7 +76,7 @@ def models():
     return jmodel, variables, port.eval()
 
 
-def test_generate_fused_and_quality_equal_jax(models):
+def test_generate_fused_and_quality_equal_jax(models, tmp_path):
     jmodel, variables, port = models
     ds = SyntheticFusionDataset(n=3, size=(32, 32))
     jn, jf, jl = jax_eval.generate_fused(jax.jit(jax_make_fuse_fn(jmodel)),
@@ -102,9 +103,24 @@ def test_generate_fused_and_quality_equal_jax(models):
     for k in ("ssim", "mse"):
         np.testing.assert_allclose(q[k], qj[k], rtol=1e-6, atol=1e-7,
                                    err_msg=k)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # out_dir: each batch's real images as PNGs, quantised together, as
+    # the JAX package writes them; the two sides' fused arrays differ by
+    # up to 1e-5, so a value within that of a level boundary may land one
+    # level apart (none did here)
+    for reference in (True, False):
+        mine, ref = tmp_path / f"port{reference}", tmp_path / f"jax{reference}"
         evaluator.generate_fused(make_fuse_fn(port, torch.float32, "cpu"),
-                                 ds, out_dir="fused", device="cpu")
+                                 ds, batch_size=2, out_dir=mine,
+                                 quantize_like_reference=reference,
+                                 device="cpu")
+        jax_eval.generate_fused(jax.jit(jax_make_fuse_fn(jmodel)), variables,
+                                ds, batch_size=2, out_dir=ref,
+                                quantize_like_reference=reference)
+        got, want = (load_fused_dir(d) * 255 for d in (mine, ref))
+        np.testing.assert_array_equal(got, np.concatenate([
+            fused_to_uint8(fused[s:s + 2], reference) for s in (0, 2)]))
+        assert np.abs(got - want).max() <= 1
+        assert (got != want).mean() <= 1e-3
 
 
 def test_segmentation_eval_equals_jax(models, tmp_path):
