@@ -119,7 +119,29 @@ line):
     ``cli.test_fusion`` disk to disk over 64 pairs at batch 8 bf16, twice:
     pairs/s and the device's busy share (CUDA events around the fuse
     calls over the wall time), beside the fuse-only pairs/s on the same
-    arrays already on the card.
+    arrays already on the card;
+11. the fusion variants and the accuracy artifact: (a) each interaction
+    of moam, soam, concat, add, average and none as a mit_b3
+    ``JointPipeline(interaction=v)``, bf16, batch 8 at 480x640, served by
+    ``make_serving_fn`` in default mode, every request's launches counted
+    (sr-attention 35, FFM 0 and 0, DRDB growth and tail 4 each, int8 0;
+    'average' also after ``quantize_for_serving``: int8 growth and tail 4
+    each, bf16 DRDB 0), the outputs finite, fused_rgb in [0, 1] and pred
+    in [0, 9), each variant's peak device memory; (b) each variant's
+    batch-1 f32 pipeline, the short tail and ``SimpleFusionNetwork`` on
+    the card against the CPU under phase 6's limits (PIPE_RTOL); (c)
+    'both' with ``return_attention`` (the modular path: no FFM launch)
+    against the folded FFM kernels on the same weights and taps, under
+    the same limits, with its two [1, 8, 8, 8] context maps; (d) planted
+    faults that must fail (b): moam's context softmax over the wrong
+    axis, 'average' with att1 and att2 swapped, a short tail that runs
+    conv22; (e) ``segmif_tpu_torch.accuracy``'s overfit at seed 1 under
+    tests/test_learning.py's stable criteria (the round-1 fusion loss's
+    minimum below a fifth of its head and its tail below a third, best
+    mIoU above the class prior + 0.10, the seg loss falling within round
+    1; the round-2 SSIM and mIoU printed, not gated), then its drift
+    section with int8 under ``drift``'s limits, each section's seconds;
+    (f) each variant's pairs/s, timed as phase 7.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -472,7 +494,8 @@ def kernel_checks(dev):
            for k in ("sr_attention", "ffm_grams", "ffm_apply")}
     # sr-attention at the four mit_b3 stage shapes: (N, heads), M=300, D=64
     sdpa = {}
-    ops = moved = 0
+    ops = moved = f32_moved = 0
+    f32_ms = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol = SR_TOL[dname]
@@ -507,9 +530,16 @@ def kernel_checks(dev):
                 r["plain_ms"] += pms
                 ops += 4 * BATCH * n * m * h * d     # two products
                 moved += nbytes(q, k, v, got)
+            else:
+                f32_ms += ms
+                f32_moved += nbytes(q, k, v, got)
             del q, k, v, got, want
     res["sr_attention"].update(library_ms=sdpa["bfloat16"],
                                **bound(ops, "bf16", moved))
+    f32 = bound(ops, "f32", f32_moved)
+    print(f"sr_attention float32, 4 stage shapes summed: kernel "
+          f"{f32_ms:.4f} ms; f32 bound {f32['bound_ms']:.4f} ms "
+          f"({f32['bound_by']}, at the f32 peak)", flush=True)
     print(f"sr_attention, 4 stage shapes summed: kernel "
           f"{res['sr_attention']['ms']:.4f} ms bf16; scaled_dot_product_"
           f"attention {sdpa['float32']:.4f} ms f32, {sdpa['bfloat16']:.4f} "
@@ -579,12 +609,14 @@ def kernel_checks(dev):
                                         f"kernel run with the {name}")
         res["ffm_grams"]["max_abs_err"] = max(res["ffm_grams"]["max_abs_err"],
                                               err)
+        # three 64-wide relu projections and three 64x64 grams
+        bnd = bound(3 * 4 * BATCH * n * c * c, "f32" if dtype ==
+                    torch.float32 else "bf16", nbytes(x1, x2, s, wp, bp, got))
         if dtype == torch.bfloat16:
-            # three 64-wide relu projections and three 64x64 grams
-            res["ffm_grams"].update(
-                ms=ms, plain_ms=pms,
-                **bound(3 * 4 * BATCH * n * c * c, "bf16",
-                        nbytes(x1, x2, s, wp, bp, got)))
+            res["ffm_grams"].update(ms=ms, plain_ms=pms, **bnd)
+        else:
+            print(f"ffm_grams float32: f32 bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}, at the f32 peak)", flush=True)
 
         args = (x1, x2, s, wp, bp, mats, be, lnp)
         got = crosspath_apply_rows(*args)
@@ -608,12 +640,14 @@ def kernel_checks(dev):
                             want, tol)
         res["ffm_apply"]["max_abs_err"] = max(res["ffm_apply"]["max_abs_err"],
                                               err)
+        # three 64-wide projections and four [64, 64] context products
+        bnd = bound(7 * 2 * BATCH * n * c * c, "f32" if dtype ==
+                    torch.float32 else "bf16", nbytes(*args, *got))
         if dtype == torch.bfloat16:
-            # three 64-wide projections and four [64, 64] context products
-            res["ffm_apply"].update(
-                ms=ms, plain_ms=pms,
-                **bound(7 * 2 * BATCH * n * c * c, "bf16",
-                        nbytes(*args, *got)))
+            res["ffm_apply"].update(ms=ms, plain_ms=pms, **bnd)
+        else:
+            print(f"ffm_apply float32: f32 bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}, at the f32 peak)", flush=True)
         del x1, x2, s, got, want, args
         torch.cuda.empty_cache()
     # bf16 grams with fewer tokens than one 16-token tile per warp
@@ -778,12 +812,25 @@ def drdb_checks(dev):
             check(out.is_contiguous(memory_format=torch.channels_last),
                   "drdb_tail output is not channels_last")
             npix = b * h * w
-            growth_bound = bound(2 * npix * 9 * 32 * (64 + 96 + 128 + 160
-                                                      + 192), "bf16",
+            kind = "f32" if dtype == torch.float32 else "bf16"
+            growth_ops = 2 * npix * 9 * 32 * (64 + 96 + 128 + 160 + 192)
+            growth_bound = bound(growth_ops, kind,
                                  nbytes(x, *rs, *(t for c in dconvs
                                                   for t in c)))
-            tail_bound = bound(2 * npix * 224 * 64, "bf16",
+            tail_bound = bound(2 * npix * 224 * 64, kind,
                                nbytes(x, *rs, wb, bb, out))
+            if timed and dtype == torch.float32:
+                blk = bound(growth_ops + 2 * npix * 224 * 64, kind,
+                            nbytes(x, out))
+                print(f"drdb {shape}: f32 bounds (at the f32 peak) growth "
+                      f"{growth_bound['bound_ms']:.4f} ms "
+                      f"({growth_bound['bound_by']}), tail "
+                      f"{tail_bound['bound_ms']:.4f} ms "
+                      f"({tail_bound['bound_by']}), block "
+                      f"{blk['bound_ms']:.4f} ms ({blk['bound_by']}); "
+                      f"cuDNN's five convs in f32 on prebuilt "
+                      f"concatenations {cudnn_growth_ms(x, rs, dconvs):.4f}"
+                      f" ms", flush=True)
             for name, err, ms, pms, bnd in (
                     ("drdb_growth", gerr, gms, gpms, growth_bound),
                     ("drdb_tail", terr, tms, tpms, tail_bound)):
@@ -854,8 +901,8 @@ def drdb_checks(dev):
 
 
 def cudnn_growth_ms(x, rs, dconvs) -> float:
-    """The growth's library yardstick: cuDNN's five dilated convs, bf16 and
-    channels_last, on concatenated inputs built beforehand (so without the
+    """The growth's library yardstick: cuDNN's five dilated convs in x's
+    dtype and channels_last, on concatenated inputs built beforehand (so without the
     relu and the concat the chain also needs). Timed here only; the port
     never calls it on the card path."""
     import torch
@@ -950,6 +997,20 @@ def drdb_int8_checks(dev):
             check(out.is_contiguous(memory_format=torch.channels_last),
                   "drdb_int8_tail output is not channels_last")
             npix = b * h * w
+            if timed and dtype == torch.float32:
+                ops = 2 * npix * 9 * 32 * (64 + 96 + 128 + 160 + 192)
+                g32 = bound(ops, "int8", nbytes(x, feat, q.wpk, q.svk,
+                                                 q.bias, q.s_in, q.invs))
+                t32 = bound(2 * npix * 224 * 64, "int8",
+                            nbytes(x, feat, q.kbq, q.svb, q.bb, out))
+                b32 = bound(ops + 2 * npix * 224 * 64, "int8",
+                            nbytes(x, out))
+                print(f"drdb_int8 {shape}: bounds with f32 x (int8 "
+                      f"operations at the int8 peak, f32 bytes) growth "
+                      f"{g32['bound_ms']:.4f} ms ({g32['bound_by']}), tail "
+                      f"{t32['bound_ms']:.4f} ms ({t32['bound_by']}), block "
+                      f"{b32['bound_ms']:.4f} ms ({b32['bound_by']})",
+                      flush=True)
             if timed and dtype == torch.bfloat16:
                 ops = 2 * npix * 9 * 32 * (64 + 96 + 128 + 160 + 192)
                 res["drdb_int8_growth"].update(
@@ -1945,6 +2006,328 @@ def disk_to_disk(dev, counters, totals, card: str):
         torch.cuda.empty_cache()
 
 
+# Phase 11: the fusion variants and the accuracy artifact. Each variant
+# serves with the sr-attention, DRDB growth and DRDB tail kernels; only
+# 'both' runs the FFM kernels, and 'both' with return_attention leaves
+# them for the modular path, whose maps can be read out.
+VARIANTS = ("moam", "soam", "concat", "add", "average", "none")
+VARIANT_EXPECT = {"sr_attention": 35, "ffm_grams": 0, "ffm_apply": 0,
+                  "drdb_growth": 4, "drdb_tail": 4, "drdb_int8_growth": 0,
+                  "drdb_int8_tail": 0}
+VARIANT_INT8 = "average"    # also served after quantize_for_serving
+
+
+def _pairs(gen, n, b, hw, dev):
+    import torch
+
+    return [(torch.rand((b, *hw, 1), generator=gen).to(dev),
+             torch.rand((b, *hw, 3), generator=gen).to(dev))
+            for _ in range(n)]
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def serve_checked(label, serve, reqs, counters, totals, expect):
+    """Serve ``reqs`` one by one, each request's launches held to
+    ``expect`` (when given) and added to ``totals``; outputs finite,
+    fused_rgb in [0, 1], predictions in [0, 9)."""
+    import torch
+
+    for i, (ir, vis) in enumerate(reqs):
+        _reset(counters)
+        rgb, pred = serve(ir, vis)
+        if ir.is_cuda:
+            torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        if expect is not None:
+            check(counts == expect, f"{label} request {i}: launches "
+                                    f"{counts}, expected {expect}")
+            for k, v in counts.items():
+                totals[k] += v
+        check(rgb.shape == (*ir.shape[:3], 3) and pred.shape == ir.shape[:3],
+              f"{label} output shapes")
+        check(bool(torch.isfinite(rgb).all()), f"{label} rgb not finite")
+        check(rgb.min().item() >= 0.0 and rgb.max().item() <= 1.0,
+              f"{label} fused_rgb outside [0,1]")
+        check(pred.min().item() >= 0 and pred.max().item() < 9,
+              f"{label} pred outside [0,9)")
+    return counts
+
+
+def variant_serving(dev, counters, totals, backbone="mit_b3", batch=BATCH,
+                    hw=(H, W), n_req=REQUESTS):
+    """Phase 11 (a) and (f): each variant served by ``make_serving_fn`` in
+    default mode, bf16, with its launches per request, peak memory and
+    pairs/s; then ``VARIANT_INT8`` once more after
+    ``quantize_for_serving``."""
+    import torch
+
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+    from segmif_tpu_torch.serving import make_serving_fn, quantize_for_serving
+
+    cuda = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 11)
+    reqs = _pairs(gen, n_req, batch, hw, dev)
+    int8_expect = {**VARIANT_EXPECT, "drdb_growth": 0, "drdb_tail": 0,
+                   "drdb_int8_growth": 4, "drdb_int8_tail": 4}
+    for v in VARIANTS + ("int8 " + VARIANT_INT8,):
+        name = v.split()[-1]
+        model = init_params(JointPipeline(backbone, interaction=name),
+                            torch.Generator().manual_seed(SEED + 12)
+                            ).eval().to(torch.bfloat16)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        if v.startswith("int8"):
+            serve = make_serving_fn(model, int8_calibration=reqs[0],
+                                    device=dev)
+        else:
+            serve = make_serving_fn(model, device=dev)
+        counts = serve_checked(f"variant {v}", serve, reqs, counters, totals,
+                               (int8_expect if v.startswith("int8")
+                                else VARIANT_EXPECT) if cuda else None)
+        rate = ""
+        if cuda:
+            batches = itertools.cycle(reqs)
+            ms = time_fn(lambda: serve(*next(batches)), 2 * n_req,
+                         hold=False)
+            rate = (f"; {batch * 1e3 / ms:.3f} pairs/s ({ms:.2f} ms per "
+                    f"batch, CUDA events after warm-up, host-paced); peak "
+                    f"device memory "
+                    f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        print(f"variant {v} ({backbone}, batch {batch}, {hw[0]}x{hw[1]}, "
+              f"bf16, default mode): {n_req} requests, launches per request "
+              f"{counts}; outputs finite, fused_rgb in [0,1], pred in [0,9)"
+              f"{rate}", flush=True)
+        del serve, model
+    del reqs
+
+
+def pipe_error(got, want):
+    """(largest |got - ref|, largest |ref|)."""
+    return max_err(got.cpu(), want), want.abs().max().item()
+
+
+def held_pipe(label, pairs) -> bool:
+    """Each (name, got, ref) within PIPE_RTOL[name] of the reference's
+    largest magnitude; prints the errors. Returns whether all are held."""
+    import torch
+
+    ok = True
+    for name, got, want in pairs:
+        err, scale = pipe_error(got, want)
+        ok &= bool(torch.isfinite(got).all()) and \
+            err <= PIPE_RTOL[name] * scale
+        print(f"{label} {name} {tuple(got.shape)}: max_abs_err {err:.3e} of "
+              f"max |ref| {scale:.3e} (rtol {PIPE_RTOL[name]:g})", flush=True)
+    return ok
+
+
+def _wrong_axis_softmax(ctx, num_heads):
+    """A planted fault: the per-head context softmax over the value
+    feature (axis -1) instead of the key feature."""
+    import torch
+
+    c = ctx.shape[-1]
+    blk = torch.arange(c, device=ctx.device) // (c // num_heads)
+    mask = blk[:, None] == blk[None, :]
+    return torch.softmax(ctx.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def variant_card_vs_cpu(dev, backbone="mit_b3", hw=(H, W)):
+    """Phase 11 (b) and (d): each variant's batch-1 f32 pipeline, the short
+    tail and ``SimpleFusionNetwork`` on the card against the same weights
+    on the CPU, under PIPE_RTOL; then the planted faults, which must fail
+    the same check."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.kernels import attention
+    from segmif_tpu_torch.models.fusion import (FusionNetwork,
+                                                SimpleFusionNetwork)
+    from segmif_tpu_torch.models.mit import MIT_VARIANTS
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+
+    cl = torch.channels_last
+    gen = torch.Generator().manual_seed(SEED + 13)
+    (ir, vis), = _pairs(gen, 1, 1, hw, "cpu")
+    dims = MIT_VARIANTS[backbone].embed_dims
+    taps = (torch.randn((1, hw[0] // 4, hw[1] // 4, dims[0]), generator=gen),
+            torch.randn((1, hw[0] // 8, hw[1] // 8, dims[1]), generator=gen))
+    t0 = time.perf_counter()
+    faults = {}
+    for v in VARIANTS:
+        model = init_params(JointPipeline(backbone, interaction=v),
+                            torch.Generator().manual_seed(SEED + 14)).eval()
+        with torch.inference_mode():
+            _, y_cpu, l_cpu = model(ir, vis)
+        model.to(dev, memory_format=cl)
+        with torch.inference_mode():
+            _, y, logits = model(ir.to(dev), vis.to(dev))
+        check(held_pipe(f"variant {v} b1 f32 card vs CPU",
+                        (("fused_y", y, y_cpu), ("logits", logits, l_cpu))),
+              f"variant {v}: card and CPU differ")
+        if v in ("moam", "average"):
+            faults[v] = (model, y_cpu)
+        else:
+            del model
+    # SimpleFusionNetwork at the reference modules' scale: it clips to
+    # [0, 1] before its stretch, so its largest magnitude is 1 whatever it
+    # clipped, and at the JAX initialisers' scale (values of order 10-100
+    # before the clip) the limit would hold their f32 sums to 1e-4
+    # absolute
+    fusion_only = {
+        "short tail": init_params(FusionNetwork(tap_channels=dims[:2],
+                                                tail="short"),
+                                  torch.Generator().manual_seed(SEED + 15)),
+        "SimpleFusionNetwork": drift.init_reference_scale(
+            SimpleFusionNetwork(), torch.Generator().manual_seed(SEED + 16))}
+    refs = {}
+    for name, net in fusion_only.items():
+        args = (ir, vis[..., :1]) + (taps if name == "short tail" else ())
+        with torch.inference_mode():
+            refs[name] = net.eval()(*args)
+        net.to(dev, memory_format=cl)
+        with torch.inference_mode():
+            y = net(*(a.to(dev) for a in args))
+        check(held_pipe(f"{name} b1 f32 card vs CPU",
+                        (("fused_y", y, refs[name]),)),
+              f"{name}: card and CPU differ")
+    print(f"phase 11 (b): card vs CPU, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (d) planted faults, each against the CPU reference of (b)
+    def fails(label, run, want):
+        with torch.inference_mode():
+            got = run()
+        ok = held_pipe(f"planted fault, {label}:", (("fused_y", got, want),))
+        check(not ok, f"the card-vs-CPU check passes {label}")
+        print(f"planted fault, {label}: the check fails, as it must",
+              flush=True)
+
+    model, y_cpu = faults["moam"]
+    real = attention._blockdiag_softmax
+    attention._blockdiag_softmax = _wrong_axis_softmax
+    try:
+        fails("moam with the context softmax over the wrong axis",
+              lambda: model.fuse(ir.to(dev), vis.to(dev))[1], y_cpu)
+    finally:
+        attention._blockdiag_softmax = real
+    model, y_cpu = faults["average"]
+    f = model.fusion
+    sd = {k: v.clone() for k, v in f.state_dict().items()}
+    swapped = {k.replace("att1.", "att@.").replace("att2.", "att1.")
+               .replace("att@.", "att2."): v for k, v in sd.items()}
+    f.load_state_dict(swapped)
+    fails("'average' with att1 and att2 swapped",
+          lambda: model.fuse(ir.to(dev), vis.to(dev))[1], y_cpu)
+    f.load_state_dict(sd)
+    net = fusion_only["short tail"]
+    net.conv22 = init_params(torch.nn.Conv2d(1, 1, 3, padding=1),
+                             torch.Generator().manual_seed(SEED + 17)
+                             ).to(dev, memory_format=cl)
+    fails("a short tail that runs conv22",
+          lambda: net(ir.to(dev), vis[..., :1].to(dev),
+                      *(t.to(dev) for t in taps)), refs["short tail"])
+    del faults, fusion_only, model, net
+
+
+def attention_maps(dev, counters, totals, backbone="mit_b3", hw=(H, W)):
+    """Phase 11 (c): 'both' with ``return_attention`` (the modular path,
+    no FFM launch) against the folded FFM-kernel path on the same weights
+    and taps, f32 batch 1 on the card, under PIPE_RTOL; two [B, 8, 8, 8]
+    context maps, each head's a softmax over the key feature."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.fusion import FusionNetwork
+    from segmif_tpu_torch.models.mit import MIT_VARIANTS
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    cuda = dev.type == "cuda"
+    cl = torch.channels_last
+    model = drift.init_reference_scale(
+        JointPipeline(backbone), torch.Generator().manual_seed(SEED + 18))
+    maps_net = FusionNetwork(tap_channels=MIT_VARIANTS[backbone]
+                             .embed_dims[:2], return_attention=True)
+    maps_net.load_state_dict(model.fusion.state_dict())
+    model.eval().to(dev, memory_format=cl)
+    maps_net.eval().to(dev, memory_format=cl)
+    (ir, vis), = _pairs(torch.Generator().manual_seed(SEED + 19), 1, 1, hw,
+                        dev)
+    seen = {}
+    with torch.inference_mode():
+        taps = model.guide_taps_raw(vis)
+        for label, net in (("folded", model.fusion), ("modular", maps_net)):
+            _reset(counters)
+            seen[label] = net(ir, vis[..., :1], *taps)
+            if cuda:
+                torch.cuda.synchronize()
+            counts = {k: c.launches for k, c in counters.items()}
+            ffm = {k: counts[k] for k in ("ffm_grams", "ffm_apply")}
+            want = 2 if label == "folded" else 0
+            if cuda:
+                check(ffm == {"ffm_grams": want, "ffm_apply": want},
+                      f"'both' {label}: FFM launches {ffm}, expected {want}")
+                for k, v in counts.items():
+                    totals[k] += v
+            print(f"'both' {label} fusion net: launches {counts}",
+                  flush=True)
+    y_mod, maps = seen["modular"]
+    check(held_pipe("'both' return_attention (modular) vs folded FFM "
+                    "kernels, b1 f32", (("fused_y", y_mod,
+                                         seen["folded"].cpu()),)),
+          "'both' with return_attention differs from the folded path")
+    check(len(maps) == 2, f"{len(maps)} attention maps, expected 2")
+    for i, m in enumerate(maps, start=1):
+        check(m.shape == (1, 8, 8, 8), f"map {i} shape {tuple(m.shape)}")
+        col = (m.sum(-2) - 1).abs().max().item()
+        check(bool(torch.isfinite(m).all()) and col < 1e-5,
+              f"map {i}: columns sum to 1 within {col:.2e}")
+        print(f"attention map round {i}: {tuple(m.shape)}, values in "
+              f"[{m.min().item():.4f}, {m.max().item():.4f}], each "
+              f"column's sum within {col:.2e} of 1", flush=True)
+
+
+def accuracy_checks(dev):
+    """Phase 11 (e): ``segmif_tpu_torch.accuracy``'s overfit at one seed
+    under tests/test_learning.py's stable criteria, the chaotic fields
+    printed only; then the drift section with int8, under drift's
+    limits."""
+    from segmif_tpu_torch import accuracy
+
+    t0 = time.perf_counter()
+    trainer, train_ds = accuracy.overfit_run(1, dev)
+    f = accuracy.overfit_fields(trainer, train_ds)
+    overfit_s = time.perf_counter() - t0
+    s1 = [loss for rnd, _, loss in trainer.seg_loss_history if rnd == 1]
+    print(f"accuracy overfit, seed 1 ({overfit_s:.1f} s): "
+          f"{json.dumps(accuracy.rounded(f))}; seg loss round 1 "
+          f"{sum(s1[:3]) / 3:.4f} -> {sum(s1[-3:]) / 3:.4f}; not gated "
+          f"(chaotic across seeds): ssim_vs_guide_round2 "
+          f"{f['ssim_vs_guide_round2']:.4f}, mIoU_round2 "
+          f"{f['mIoU_round2']:.4f}", flush=True)
+    head = f["fusion_r1_head"]
+    check(f["fusion_r1_min"] < head / 5, "overfit: the round-1 fusion loss "
+          "never reached a fifth of its head")
+    check(f["fusion_r1_tail"] < head / 3, "overfit: the round-1 fusion "
+          "loss did not stay below a third of its head")
+    check(f["best_mIoU"] > f["class_prior_mIoU"] + 0.10,
+          "overfit: best mIoU not 0.10 above the class prior")
+    check(sum(s1[-3:]) < sum(s1[:3]), "overfit: the seg loss did not fall "
+          "within round 1")
+    t0 = time.perf_counter()
+    d = accuracy.run_drift(True, dev)
+    print(f"accuracy drift (mit_b1, batch 2, 480x640, reference-scale "
+          f"weights; {time.perf_counter() - t0:.1f} s): {json.dumps(d)}",
+          flush=True)
+    for pair, vals in d.items():
+        check(vals["within_limits"], f"drift {pair} outside drift's limits")
+
+
 def main() -> int:
     import torch
 
@@ -2152,6 +2535,14 @@ def main() -> int:
 
     # phase 10: disk to disk
     disk_to_disk(dev, counters, totals, card)
+
+    # phase 11: the fusion variants and the accuracy artifact
+    t0 = time.perf_counter()
+    variant_serving(dev, counters, totals)
+    variant_card_vs_cpu(dev)
+    attention_maps(dev, counters, totals)
+    accuracy_checks(dev)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

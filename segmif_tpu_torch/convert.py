@@ -96,29 +96,62 @@ def seg_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
 
 def fusion_state_dict_from_jax(params: Mapping,
                                prefix: str = "") -> StateDict:
-    """FusionNetwork params (interaction 'both', deep tail) -> the
-    Fusion_Network3_ac keys (under ``prefix``)."""
+    """FusionNetwork params of any variant (every interaction, either
+    tail) -> the port's keys (under ``prefix``): the Fusion_Network3_ac
+    keys, ``att{i}.conv.{0,2}`` for the AttentionModules' ``conv_a`` /
+    ``conv_b``, and ``cat_proj{1,2}_r{1,2}`` as the JAX package names the
+    'concat' projections. Raises on a parameter it has no rule for."""
     out: StateDict = {}
-    out[prefix + "relu.weight"] = _t(np.reshape(params["prelu_alpha"], (1,)))
+    rest = dict(params)
+    out[prefix + "relu.weight"] = _t(np.reshape(rest.pop("prelu_alpha"),
+                                                (1,)))
     names = {"seg_proj1": "conv3", "seg_proj2": "conv4"}
     for name in ("conv1_ir", "conv1_vis", "conv2", "conv21", "conv22",
-                 "seg_proj1", "seg_proj2"):
-        _conv(params[name], prefix + names.get(name, name) + ".", out)
+                 "seg_proj1", "seg_proj2", "cat_proj1_r1", "cat_proj2_r1",
+                 "cat_proj1_r2", "cat_proj2_r2"):
+        if name in rest:
+            _conv(rest.pop(name), prefix + names.get(name, name) + ".", out)
     for n in (1, 2, 3, 4):
+        drdb = rest.pop(f"drdb{n}")
+        for i in range(1, 6):
+            _conv(drdb[f"dconv{i}"], f"{prefix}DRDB{n}.Dcov{i}.", out)
+        _conv(drdb["bottleneck"], f"{prefix}DRDB{n}.conv.", out)
+    for i in range(1, 9):
+        if f"att{i}" in rest:
+            att = rest.pop(f"att{i}")
+            _conv(att["conv_a"], f"{prefix}att{i}.conv.0.", out)
+            _conv(att["conv_b"], f"{prefix}att{i}.conv.2.", out)
+    if "ffm" in rest:
+        cross = rest.pop("ffm")["cross"]
+        c = prefix + "ffm.cross."
+        for i in (1, 2, 3):
+            _dense(cross[f"channel_proj{i}"], f"{c}channel_proj{i}.", out)
+        for i in (1, 2):
+            _dense(cross[f"end_proj{i}"], f"{c}end_proj{i}.", out)
+            _norm(cross[f"norm{i}"], f"{c}norm{i}.", out)
+        if "cross_attn" in cross:
+            _dense(cross["cross_attn"]["kv_seg"], c + "cross_attn.kv3.", out)
+        if "cross_attn2" in cross:
+            for kv in ("kv1", "kv2"):
+                _dense(cross["cross_attn2"][kv], f"{c}cross_attn2.{kv}.", out)
+    if rest:
+        raise KeyError(f"unexpected fusion params {sorted(rest)}")
+    return out
+
+
+def simple_fusion_state_dict_from_jax(params: Mapping,
+                                      prefix: str = "") -> StateDict:
+    """SimpleFusionNetwork params -> the port's keys (``conv1``,
+    ``DRDB1``, ``DRDB2``, ``conv2``, ``relu.weight``)."""
+    out: StateDict = {prefix + "relu.weight": _t(
+        np.reshape(params["prelu_alpha"], (1,)))}
+    for name in ("conv1", "conv2"):
+        _conv(params[name], f"{prefix}{name}.", out)
+    for n in (1, 2):
         drdb = params[f"drdb{n}"]
         for i in range(1, 6):
             _conv(drdb[f"dconv{i}"], f"{prefix}DRDB{n}.Dcov{i}.", out)
         _conv(drdb["bottleneck"], f"{prefix}DRDB{n}.conv.", out)
-    cross = params["ffm"]["cross"]
-    c = prefix + "ffm.cross."
-    for i in (1, 2, 3):
-        _dense(cross[f"channel_proj{i}"], f"{c}channel_proj{i}.", out)
-    for i in (1, 2):
-        _dense(cross[f"end_proj{i}"], f"{c}end_proj{i}.", out)
-        _norm(cross[f"norm{i}"], f"{c}norm{i}.", out)
-    _dense(cross["cross_attn"]["kv_seg"], c + "cross_attn.kv3.", out)
-    _dense(cross["cross_attn2"]["kv1"], c + "cross_attn2.kv1.", out)
-    _dense(cross["cross_attn2"]["kv2"], c + "cross_attn2.kv2.", out)
     return out
 
 

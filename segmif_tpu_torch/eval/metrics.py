@@ -77,3 +77,17 @@ MFNET_CLASS_NAMES = (
     "unlabeled", "car", "person", "bike", "curve", "car_stop", "guardrail",
     "color_cone", "bump",
 )
+
+# 9-class MFNet palette (RGB), the reference's util/util.py:8-19
+MFNET_PALETTE = np.array(
+    [(0, 0, 0), (64, 0, 128), (64, 64, 0), (0, 128, 192), (0, 0, 192),
+     (128, 128, 0), (64, 64, 128), (192, 128, 128), (192, 64, 0)],
+    dtype=np.uint8)
+
+
+def colorize_labels(label: np.ndarray,
+                    palette: np.ndarray = MFNET_PALETTE) -> np.ndarray:
+    """Int label map [H, W] -> RGB uint8 [H, W, 3] by palette lookup, the
+    labels clipped into the palette."""
+    label = np.clip(np.asarray(label, dtype=np.int64), 0, len(palette) - 1)
+    return palette[label]

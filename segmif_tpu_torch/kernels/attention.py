@@ -12,6 +12,10 @@
  - ``linear_ctx_blockdiag_from_gram``: the block-diagonal per-head
    softmax context of the folded CrossPath, from a [C, C] gram. Tiny
    matrices, plain torch on every device.
+ - ``linear_cross_attention`` / ``linear_ctx_blockdiag``: the modular
+   CrossPath's head-folded linear cross-attention over [B, N, C] tokens
+   (``linear_cross_attention_flat`` of the JAX package, which computes it
+   in XLA: no TPU kernel, and plain torch here on every device).
 """
 from __future__ import annotations
 
@@ -131,7 +135,54 @@ def linear_ctx_blockdiag_from_gram(gram: torch.Tensor, wkv: torch.Tensor,
     wk = wkv[:, :c].to(acc)
     wv = wkv[:, c:].to(acc)
     ctx = torch.einsum("ce,bcd,df->bef", wk, gram.to(acc), wv) * scale
-    blk = torch.arange(c, device=gram.device) // (c // num_heads)
+    return _blockdiag_softmax(ctx, num_heads)
+
+
+def _blockdiag_softmax(ctx: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Per-head softmax over the key-feature axis (-2) of a [B, C, C]
+    context: each head's [D, D] diagonal block on its own, zeros outside
+    the blocks."""
+    c = ctx.shape[-1]
+    blk = torch.arange(c, device=ctx.device) // (c // num_heads)
     mask = blk[:, None] == blk[None, :]
-    ctx = ctx.masked_fill(~mask, float("-inf"))
-    return torch.softmax(ctx, dim=-2)
+    return torch.softmax(ctx.masked_fill(~mask, float("-inf")), dim=-2)
+
+
+def linear_ctx_blockdiag(k: torch.Tensor, v: torch.Tensor, scale: float,
+                         num_heads: int) -> torch.Tensor:
+    """Block-diagonal [B, C, C] context of flat linear attention from
+    k, v [B, N, C]: the per-head contexts k_h^T v_h are the diagonal blocks
+    of k^T v, each softmaxed over k's feature (axis -2). f32 (f64 for f64
+    inputs) whatever the inputs' dtype, as JAX's
+    ``preferred_element_type=float32``."""
+    acc = _build.acc_dtype(k.dtype)
+    ctx = torch.bmm(k.to(acc).transpose(1, 2), v.to(acc)) * scale
+    return _blockdiag_softmax(ctx, num_heads)
+
+
+def linear_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float, num_heads: int,
+                           return_ctx: bool = False):
+    """Head-folded linear cross-attention on flat [B, N, C] tensors (the
+    reference's "context vector" attention, ``model_fusion.py:263-288``):
+    per head ctx_h = softmax((k_h^T v_h) * scale, over k's feature) and
+    out_h = q_h ctx_h, computed as one [B, N, C] x [B, C, C] product
+    against the block-diagonal context. q's length may differ from k's.
+    Returns [B, N, C] in q's dtype, and with ``return_ctx`` also the
+    [B, H, D, D] context blocks (f32; the reference's *_showAttention
+    maps)."""
+    bd = linear_ctx_blockdiag(k, v, scale, num_heads)
+    out = torch.bmm(q, bd.to(q.dtype))
+    if return_ctx:
+        return out, ctx_blocks(bd, num_heads)
+    return out
+
+
+def ctx_blocks(bd: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The [B, H, D, D] diagonal blocks of a block-diagonal [B, C, C]
+    context."""
+    b, c = bd.shape[0], bd.shape[-1]
+    d = c // num_heads
+    heads = torch.arange(num_heads, device=bd.device)
+    blocks = bd.view(b, num_heads, d, num_heads, d)[:, heads, :, heads, :]
+    return blocks.transpose(0, 1)      # [H, B, D, D] -> [B, H, D, D]

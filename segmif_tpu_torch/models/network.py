@@ -84,14 +84,18 @@ class JointPipeline(nn.Module):
     checkpoint's weights, ``fusion`` the Fusion_Network3_ac checkpoint's.
     ``quant`` is the fusion DRDBs' precision mode ("none" | "calibrate";
     "int8" through ``set_quant`` after calibrating, as
-    ``serving.quantize_for_serving`` does)."""
+    ``serving.quantize_for_serving`` does). ``interaction`` picks the
+    fusion net's variant (``FusionNetwork``; the deep tail, as the JAX
+    pipeline builds it)."""
 
     def __init__(self, backbone: str = "mit_b3", num_classes: int = 9,
-                 embedding_dim: int = 256, quant: str = "none"):
+                 embedding_dim: int = 256, quant: str = "none",
+                 interaction: str = "both"):
         super().__init__()
         self.seg = SegmentationNetwork(backbone, num_classes, embedding_dim)
         self.fusion = FusionNetwork(
-            tap_channels=MIT_VARIANTS[backbone].embed_dims[:2], quant=quant)
+            tap_channels=MIT_VARIANTS[backbone].embed_dims[:2], quant=quant,
+            interaction=interaction)
 
     def set_quant(self, mode: str) -> None:
         """The fusion DRDBs' mode: "none" | "calibrate" | "int8"."""

@@ -39,3 +39,21 @@ def recombine_fused(fused_y: torch.Tensor,
     ycrcb = torch.cat([fused_y.to(vis_ycrcb.dtype), vis_ycrcb[..., 1:]],
                       dim=-1)
     return ycrcb_to_rgb(ycrcb).clamp(0.0, 1.0)
+
+
+def minmax_stretch(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Min-max renormalisation to [0, 1] over the WHOLE tensor (every
+    image of a batch together), as the reference's ``Mean`` and
+    ``Fusion_Network`` stretch (``model_fusion.py:207-209``)."""
+    lo, hi = x.min(), x.max()
+    return (x - lo) / (hi - lo + eps)
+
+
+def mean_recombine(mask_y: torch.Tensor, vis_rgb: torch.Tensor) -> torch.Tensor:
+    """The reference's ``Mean`` module (``model_fusion.py:184-214``): the
+    visible image's Y replaced by ``mask_y`` ([..., H, W, 1]), back to RGB,
+    clipped, then ``minmax_stretch``ed. vis_rgb: [..., H, W, 3]."""
+    vis_ycrcb = rgb_to_ycrcb(vis_rgb)
+    rgb = ycrcb_to_rgb(torch.cat([mask_y.to(vis_ycrcb.dtype),
+                                  vis_ycrcb[..., 1:]], dim=-1))
+    return minmax_stretch(rgb.clamp(0.0, 1.0))

@@ -1,6 +1,8 @@
 """Fixed-filter convolutions on channel-last (NHWC) tensors (counterpart of
-``segmif_tpu/ops/filters.py``): the Sobel magnitude and the normalised
-1-D Gaussian window.
+``segmif_tpu/ops/filters.py``): the Sobel magnitude, the normalised 1-D
+Gaussian window, and the reference's ``smoothing`` Gaussian blur and
+its same-resolution band-pass ("Laplacian") pyramid
+(``lap_loss.py:39-80``).
 
 Written as depthwise ``F.conv2d`` with zero padding. The JAX package's
 banded-Toeplitz matmul form is a TPU workaround (a one-channel depthwise
@@ -39,3 +41,31 @@ def gaussian_kernel_1d(size: int, sigma: float) -> Tuple[float, ...]:
           for i in range(size)]
     s = sum(xs)
     return tuple(v / s for v in xs)
+
+
+def gaussian_kernel_2d_grid(size: int, sigma: float,
+                            dtype: torch.dtype = torch.float32,
+                            device=None) -> torch.Tensor:
+    """Normalised [size, size] Gaussian on the integer grid centred at
+    (size - 1) / 2, computed in ``dtype``: the ``smoothing`` kernel of the
+    reference's ``lap_loss.py:39-63``."""
+    coords = torch.arange(size, dtype=dtype, device=device)
+    d2 = (coords - (size - 1) / 2.0) ** 2
+    g = torch.exp(-(d2[:, None] + d2[None, :]) / (2.0 * sigma ** 2))
+    return g / g.sum()
+
+
+def gaussian_blur(x: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
+    """Gaussian blur of NHWC x with ``gaussian_kernel_2d_grid`` as a
+    depthwise conv, zero padding size // 2."""
+    c = x.shape[-1]
+    k = gaussian_kernel_2d_grid(size, sigma, x.dtype, x.device)
+    return nhwc(F.conv2d(nchw(x), k.expand(c, 1, size, size),
+                         padding=size // 2, groups=c))
+
+
+def unsharp_pyramid(x: torch.Tensor, sizes=(3, 5, 7), sigma: float = 2.0):
+    """The reference's ``laplacian_pyramid`` (``lap_loss.py:74-80``): the
+    band-pass levels x - gaussian_blur(x), one per kernel size, all at
+    x's resolution."""
+    return [x - gaussian_blur(x, s, sigma) for s in sizes]

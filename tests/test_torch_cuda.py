@@ -66,6 +66,15 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    gradient is zero, within 1e-6 of the largest gradient), and the
    running variance folded as flax folds it (``compare.bn_fold_ratio``
    below 1/4); the unbiased variance folded instead fails the last.
+ - the fusion variants at 64x96, f32 (test_variant_on_card_matches_cpu):
+   each interaction's mit_b0 pipeline, the short tail and
+   SimpleFusionNetwork on the card against the CPU, fused Y within 1e-4
+   and logits within 1e-3 of their largest magnitude (chip_smoke.py's
+   PIPE_RTOL), with the launches (no FFM kernel but for 'both');
+   test_return_attention_matches_folded_on_card: 'both' with
+   return_attention (the modular path, no FFM launch) against the folded
+   FFM kernels, fused Y within 1e-4 of its largest magnitude, two [B, 8, 8,
+   8] maps whose columns sum to 1.
  - the disk-to-disk path at 64x96 (test_disk_to_disk_checks): exact.
    Every decoder returns the written bytes, and the CLIs' PNGs and mIoU
    table equal in-memory runs of the same arrays through the same kernels
@@ -1020,3 +1029,91 @@ def test_disk_to_disk_checks(cuda, tmp_path, monkeypatch):
     faults = dc.planted_faults(train, val, tmp_path / "planted", ck,
                                "mit_b3", "bfloat16", cuda)
     assert len(faults) == 3 and all(faults.values()), faults
+
+
+VARIANT_HW = (64, 96)
+
+
+@pytest.mark.parametrize("interaction", ["both", "moam", "soam", "concat",
+                                         "add", "average", "none"])
+def test_variant_on_card_matches_cpu(cuda, interaction):
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+
+    model = init_params(JointPipeline("mit_b0", interaction=interaction),
+                        torch.Generator().manual_seed(8)).eval()
+    g = torch.Generator().manual_seed(9)
+    ir = torch.rand((2, *VARIANT_HW, 1), generator=g)
+    vis = torch.rand((2, *VARIANT_HW, 3), generator=g)
+    with torch.inference_mode():
+        _, want_y, want_logits = model(ir, vis)
+    model.to(cuda, memory_format=torch.channels_last)
+    counters = (sr_attention, crosspath_grams, crosspath_apply_rows,
+                drdb_growth, drdb_tail)
+    for fn in counters:
+        fn.launches = 0
+    with torch.inference_mode():
+        _, y, logits = model(ir.to(cuda), vis.to(cuda))
+    torch.cuda.synchronize()
+    ffm = 2 if interaction == "both" else 0
+    assert [fn.launches for fn in counters] == [12, ffm, ffm, 4, 4]
+    assert _max_err(y.cpu(), want_y) <= 1e-4 * want_y.abs().max().item()
+    assert _max_err(logits.cpu(), want_logits) <= \
+        1e-3 * want_logits.abs().max().item()
+
+
+@pytest.mark.parametrize("net", ["short_tail", "simple"])
+def test_fusion_net_on_card_matches_cpu(cuda, net):
+    from segmif_tpu_torch.models.fusion import (FusionNetwork,
+                                                SimpleFusionNetwork)
+    from segmif_tpu_torch.models.network import init_params
+
+    g = torch.Generator().manual_seed(10)
+    ir = torch.rand((2, *VARIANT_HW, 1), generator=g)
+    vis_y = torch.rand((2, *VARIANT_HW, 1), generator=g)
+    h, w = VARIANT_HW
+    taps = (torch.randn((2, h // 4, w // 4, 32), generator=g),
+            torch.randn((2, h // 8, w // 8, 64), generator=g))
+    if net == "short_tail":
+        model = FusionNetwork(tap_channels=(32, 64), tail="short")
+        args = (ir, vis_y, *taps)
+    else:
+        model = SimpleFusionNetwork()
+        args = (ir, vis_y)
+    init_params(model, torch.Generator().manual_seed(11)).eval()
+    with torch.inference_mode():
+        want = model(*args)
+    model.to(cuda, memory_format=torch.channels_last)
+    drdb_growth.launches = 0
+    with torch.inference_mode():
+        got = model(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert drdb_growth.launches == (4 if net == "short_tail" else 2)
+    assert _max_err(got.cpu(), want) <= 1e-4 * want.abs().max().item()
+
+
+def test_return_attention_matches_folded_on_card(cuda):
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.fusion import FusionNetwork
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    model = drift.init_reference_scale(JointPipeline("mit_b0"),
+                                       torch.Generator().manual_seed(12))
+    maps_net = FusionNetwork(tap_channels=(32, 64), return_attention=True)
+    maps_net.load_state_dict(model.fusion.state_dict())
+    for m in (model, maps_net):
+        m.eval().to(cuda, memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(13)
+    ir = torch.rand((2, *VARIANT_HW, 1), generator=g).to(cuda)
+    vis = torch.rand((2, *VARIANT_HW, 3), generator=g).to(cuda)
+    with torch.inference_mode():
+        taps = model.guide_taps_raw(vis)
+        want = model.fusion(ir, vis[..., :1], *taps)
+        crosspath_grams.launches = crosspath_apply_rows.launches = 0
+        got, maps = maps_net(ir, vis[..., :1], *taps)
+    torch.cuda.synchronize()
+    assert crosspath_grams.launches == crosspath_apply_rows.launches == 0
+    assert _max_err(got, want) <= 1e-4 * want.abs().max().item()
+    assert len(maps) == 2
+    for m in maps:
+        assert m.shape == (2, 8, 8, 8)
+        assert _max_err(m.sum(-2), torch.ones_like(m.sum(-2))) < 1e-5

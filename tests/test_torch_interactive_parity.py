@@ -83,12 +83,13 @@ from train_parity import jax_in_f64
 SEED, ITERS = 0, 2
 
 
-def _cfg(mod, ckpt, dtype, streaming=False):
+def _cfg(mod, ckpt, dtype, streaming=False, rounds=1):
     return mod.TrainConfig(
-        backbone="mit_b0", rounds=1, log_iters=1, seed=SEED,
+        backbone="mit_b0", rounds=rounds, log_iters=1, seed=SEED,
         checkpoint_dir=str(ckpt), compute_dtype=dtype, streaming=streaming,
         data=mod.DataConfig(num_classes=9, crop_size=32),
-        fusion=mod.FusionPhaseConfig(iters_round1=ITERS, batch_size=2,
+        fusion=mod.FusionPhaseConfig(iters_round1=ITERS, iters_later=ITERS,
+                                     batch_size=2,
                                      crop_size=32, checkpoint_every=100,
                                      dwa_warmup_steps=1),
         seg=mod.SegPhaseConfig(iters=ITERS, batch_size=2, eval_every=1),
@@ -164,16 +165,19 @@ def test_one_round_matches_jax_f64(tmp_path, monkeypatch):
     run_round(tmp_path, monkeypatch, _data(), _data())
 
 
-def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
-    """One f64 round of each trainer (see the module docstring), the JAX
-    trainer on ``jax_data``, the port's on ``port_data`` ((train, val)
-    pairs of the same samples); with ``streaming``, both keep the splits
-    on disk (``train/streaming.py``)."""
+def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False,
+              rounds=1):
+    """``rounds`` f64 rounds of each trainer (see the module docstring),
+    the JAX trainer on ``jax_data``, the port's on ``port_data`` ((train,
+    val) pairs of the same samples); with ``streaming``, both keep the
+    splits on disk (``train/streaming.py``). Returns the two trainers
+    (JAX, port) after their runs."""
     seg_parity.no_regularisers(monkeypatch)
     _jit_init(monkeypatch)
     _sgd(monkeypatch)
     keys = [jax.random.fold_in(jax.random.PRNGKey(base), n)
-            for base in (SEED * 7 + 1, SEED * 13 + 1) for n in range(ITERS)]
+            for r in range(1, rounds + 1)
+            for base in (SEED * 7 + r, SEED * 13 + r) for n in range(ITERS)]
     calls = []
 
     def jax_draw(gen, batch, cfg, dtype=torch.float32):
@@ -183,7 +187,7 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
 
     with jax_in_f64():
         ref = JaxTrainer(_cfg(jax_config, tmp_path / "jax", "float32",
-                              streaming), *jax_data)
+                              streaming, rounds), *jax_data)
         ref.params = dict(ref.params, fusion=torch_default_init(
             jax.tree.map(np.asarray, ref.params["fusion"]),
             np.random.default_rng(SEED)))
@@ -193,6 +197,15 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
         params0 = jax.tree.map(np.asarray, ref.params)
         init = state_dict_from_jax(params0, jax.tree.map(np.asarray,
                                                          ref.batch_stats))
+        jax_fused = {}     # round -> split -> the JAX regeneration's arrays
+        jax_regen = ref.regenerate_fused
+
+        def record(round_idx):
+            jax_regen(round_idx)
+            jax_fused[round_idx] = {split: np.array(getattr(ref, split).fused)
+                                    for split in ("train_data", "val_data")}
+
+        ref.regenerate_fused = record
         ref.run()
     # the changes over the run, taken in f64 before they cross convert
     params = jax.tree.map(lambda a, b: np.asarray(a) - b, ref.params,
@@ -201,7 +214,8 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
 
     monkeypatch.setattr(augment, "draw", jax_draw)
     mine = InteractiveTrainer(_cfg(config, tmp_path / "port", "float64",
-                                   streaming), *port_data, device="cpu")
+                                   streaming, rounds), *port_data,
+                              device="cpu")
     mine.model.load_state_dict(init)   # the JAX trainer's initial weights
     regenerated = {}
     real_regen = mine.regenerate_fused
@@ -209,7 +223,7 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
     def regen(round_idx):
         real_regen(round_idx)
         for split in ("train_data", "val_data"):
-            data, want = getattr(mine, split), getattr(ref, split).fused
+            data, want = getattr(mine, split), jax_fused[round_idx][split]
             regenerated[split] = np.array(data.fused)
             if streaming:   # the memmap the seg phase reads
                 data.fused[:] = want
@@ -218,7 +232,7 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
 
     mine.regenerate_fused = regen
     mine.run()
-    assert calls == [torch.float64] * (2 * ITERS)
+    assert calls == [torch.float64] * (2 * ITERS * rounds)
 
     want = state_dict_from_jax(params, stats)
     got = mine.model.state_dict()
@@ -240,7 +254,7 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
         np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=k)
     assert [h["mIoU"] for h in mine.history] == \
         [h["mIoU"] for h in ref.history]
-    assert len(mine.history) == ITERS
+    assert len(mine.history) == ITERS * rounds
     np.testing.assert_allclose([s for _, s in mine.ssim_history],
                                [s for _, s in ref.ssim_history], rtol=1e-6)
     for split in ("train_data", "val_data"):
@@ -253,3 +267,4 @@ def run_round(tmp_path, monkeypatch, jax_data, port_data, streaming=False):
         if not streaming:
             np.testing.assert_array_equal(getattr(mine, split).guide,
                                           getattr(ref, split).guide)
+    return ref, mine

@@ -36,10 +36,11 @@ B, H, W, CLASSES = 2, 32, 32, 5
 FUSION_SCALE = 0.4
 
 
-def jax_variables(seed=0):
+def jax_variables(seed=0, interaction="both"):
     """JAX variables (numpy), fusion weights redrawn at the reference
     modules' scale (``port_weights``)."""
-    model = JaxJointPipeline("mit_b0", num_classes=CLASSES, dtype=jnp.float32)
+    model = JaxJointPipeline("mit_b0", num_classes=CLASSES, dtype=jnp.float32,
+                             interaction=interaction)
     variables = jax.tree.map(np.asarray, jax.jit(model.init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, H, W, 1)),
         jnp.zeros((1, H, W, 3))))
@@ -80,8 +81,9 @@ def run_jax(model, variables, data, round1, grad_accum):
             jax.tree.map(np.asarray, new.dwa))
 
 
-def port_model(variables):
-    model = JointPipeline("mit_b0", num_classes=CLASSES)
+def port_model(variables, interaction="both"):
+    model = JointPipeline("mit_b0", num_classes=CLASSES,
+                          interaction=interaction)
     model.load_state_dict(state_dict_from_jax(variables["params"],
                                               variables["batch_stats"]))
     return model
@@ -178,22 +180,23 @@ def _f64(tree):
                         if a.dtype == np.float32 else a, tree)
 
 
-def assert_step_matches_jax_f64(round1, seed):
+def assert_step_matches_jax_f64(round1, seed, interaction="both"):
     """The port's step against JAX's with both in f64 (the JAX step under
     ``jax_in_f64``, the port's with ``compute_dtype=torch.float64``) on
-    data seed ``seed``: losses within rtol 1e-6, every gradient leaf
-    within 1e-5 of that leaf's largest magnitude, the DWA state (an f32
-    buffer in the port) within 1e-6. The JAX gradients cross ``convert``
-    in f32 (6e-8 of each element)."""
-    model, variables = jax_variables()
+    data seed ``seed``, for the fusion net's ``interaction``: losses
+    within rtol 1e-6, every gradient leaf within 1e-5 of that leaf's
+    largest magnitude, the DWA state (an f32 buffer in the port) within
+    1e-6. The JAX gradients cross ``convert`` in f32 (6e-8 of each
+    element)."""
+    model, variables = jax_variables(interaction=interaction)
     data = batch(seed)
     with jax_in_f64():
         m64 = JaxJointPipeline("mit_b0", num_classes=CLASSES,
-                               dtype=jnp.float64)
+                               dtype=jnp.float64, interaction=interaction)
         want_m, want_g, want_dwa = run_jax(m64, _f64(variables),
                                            _f64(data), round1, 1)
-    got_m, got_g, got_dwa, _ = run_port(port_model(variables), _f64(data),
-                                        round1, 1, torch.float64)
+    got_m, got_g, got_dwa, _ = run_port(port_model(variables, interaction),
+                                        _f64(data), round1, 1, torch.float64)
     for k in ("loss", "loss_fusion", "loss_seg"):
         np.testing.assert_allclose(got_m[k].numpy(), want_m[k], rtol=1e-6,
                                    err_msg=k)
