@@ -29,7 +29,9 @@ Sections (each skippable):
    the reference repository. Random weights, not a trained model.
 
 The run is on the card unless ``--device cpu`` is given; without a card
-and without it, it raises. The LAST stdout line is the JSON artifact; it
+and without it, it raises. On the card it runs in PyTorch's deterministic
+mode (``utils.determinism``), so the same seed gives the same fields
+from one run to the next (the CPU's are repeatable as they are). The LAST stdout line is the JSON artifact; it
 names the device (and on the card the ``nvidia-smi`` name and power
 limit) and the seconds of each section.
 """
@@ -54,6 +56,7 @@ from .data.datasets import SyntheticFusionDataset
 from .models.network import JointPipeline
 from .serving import quantize_for_serving
 from .train.interactive import InteractiveTrainer
+from .utils import determinism
 
 OVERFIT_SIZE = 64
 DRIFT_BACKBONE = "mit_b1"
@@ -198,10 +201,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = p.parse_args(argv)
     dev = resolve(args.device)
     if dev.type == "cuda":    # the overfit and the f32 reference are f32
+        determinism.enable()  # before the first cuBLAS call
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     device = describe_device(dev)
-    result: Dict = {"platform": device["platform"], "device": device}
+    result: Dict = {"platform": device["platform"], "device": device,
+                    "deterministic": dev.type == "cuda"}
     if not args.skip_overfit:
         per_seed, seconds = {}, {}
         for seed in args.seeds:

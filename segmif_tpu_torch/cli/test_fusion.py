@@ -140,8 +140,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.spatial > 0:
         raise ValueError("--spatial: the row-sharded fusion trunk "
-                         "(parallel/spatial.py) is not ported; multi-device "
-                         "parallelism is ROADMAP queue 1 item 7")
+                         "(parallel/spatial.py) is not ported; it is "
+                         "ROADMAP queue 1's \"Spatial row sharding\" item")
 
     import torch
 

@@ -27,6 +27,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ..utils.determinism import integer_exact
+
 # the photometric coins of ``draw``, in the order of their columns
 COINS = ("brightness", "contrast", "saturation", "hue", "contrast_first")
 
@@ -146,7 +148,8 @@ def _pick_crop_offsets(draws, lab, cfg: AugConfig, num_classes: int):
     idx = idx.clamp_min(0).reshape(b * tries, -1)
     cnt = torch.zeros((b * tries, num_classes + 1), dtype=torch.int64,
                       device=lab.device)
-    cnt.scatter_add_(1, idx, torch.ones_like(idx))
+    with integer_exact():   # exact in any order
+        cnt.scatter_add_(1, idx, torch.ones_like(idx))
     cnt = cnt[:, :num_classes].reshape(b, tries, num_classes)
     total = cnt.sum(-1).clamp_min(1)
     ratio = cnt.max(-1).values.to(scale.dtype) / total.to(scale.dtype)

@@ -14,6 +14,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils.determinism import integer_exact
+
 
 def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
                      num_classes: int) -> torch.Tensor:
@@ -28,7 +30,8 @@ def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
     idx = torch.where(valid, t * c + p.clamp(0, c - 1),
                       torch.full_like(t, c * c))
     hist = torch.zeros(c * c + 1, dtype=torch.int64, device=t.device)
-    hist.index_add_(0, idx, torch.ones_like(idx))
+    with integer_exact():   # exact in any order
+        hist.index_add_(0, idx, torch.ones_like(idx))
     return hist[:-1].reshape(c, c)
 
 

@@ -1,10 +1,11 @@
 """Attention compute for the port (counterpart of
 ``segmif_tpu/kernels/attention.py``).
 
- - ``sr_attention``: MiT spatially-reduced softmax attention. On a CUDA
-   tensor it launches the hand-written kernel ``csrc/sr_attention.cu``
-   (replacing the TPU kernel ``pallas_attention._sr_attention_fwd_impl``);
-   on a CPU tensor it runs the plain version ``sr_attention_ref``. Under
+ - ``sr_attention``: MiT spatially-reduced softmax attention, through
+   the operator ``segmif::sr_attention``. On a CUDA tensor it launches
+   the hand-written kernel ``csrc/sr_attention.cu`` (replacing the TPU
+   kernel ``pallas_attention._sr_attention_fwd_impl``); on a CPU tensor
+   it runs the plain version ``sr_attention_ref``. Under
    autograd the kernel sits in an ``autograd.Function`` whose backward is
    the VJP of ``sr_attention_ref`` with respect to q, k and v, recomputed
    in plain PyTorch (the JAX ``custom_vjp`` of ``pallas_attention.py``:
@@ -64,23 +65,30 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """q: [B, N, H, D]; k, v: [B, M, H, D] -> [B, N, H, D].
 
-    CPU tensors take ``sr_attention_ref``; CUDA tensors launch the kernel,
-    which reads q/k/v through their strides (the last dim contiguous) and
-    raises on a shape or dtype it does not take. Both stream K/V through
+    The operator ``segmif::sr_attention`` (``sr_attention_op``): CUDA
+    tensors launch the kernel, which reads q/k/v through their strides
+    (the last dim contiguous) and raises on a shape or dtype it does not
+    take; CPU tensors take ``sr_attention_ref``, and so does a CPU call
+    that needs a gradient, through autograd. Both stream K/V through
     shared memory, so any M is taken: bf16 on tensor cores (its rows must
     start on 16 bytes), f32 on the CUDA cores. When a gradient is needed
-    the kernel runs inside ``_SrAttentionFn``."""
-    if q.device.type == "cpu":
-        return sr_attention_ref(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"sr_attention: unsupported device {q.device}")
+    on the card the kernel runs inside ``_SrAttentionFn``."""
     if _build.needs_grad(q, k, v):
+        if q.device.type == "cpu":
+            return sr_attention_ref(q, k, v, scale)
         return _sr_attention_grad(q, k, v, scale)
     return _sr_attention_kernel(q, k, v, scale)
 
 
 def _sr_attention_kernel(q, k, v, scale: float) -> torch.Tensor:
-    """One launch of ``segmif_sr_attention`` (forward only)."""
+    """The operator, after the kernel's argument checks on a CUDA tensor
+    (forward only)."""
+    if q.is_cuda:
+        _check_sr(q, k, v)
+    return torch.ops.segmif.sr_attention(q, k, v, float(scale))
+
+
+def _check_sr(q, k, v) -> None:
     b, n, h, d = q.shape
     m = k.shape[1]
     if k.shape != (b, m, h, d) or v.shape != k.shape:
@@ -98,11 +106,26 @@ def _sr_attention_kernel(q, k, v, scale: float) -> torch.Tensor:
         raise ValueError(
             f"sr_attention: head dim {d} (the kernel takes 32 or 64)")
     if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st, sz in zip(
-                t.stride()[:3], t.shape[:3]) if sz > 1)
-            for t in (q, k, v)):
-        raise ValueError("sr_attention: bf16 rows must start on 16 bytes "
-                         "(pointers and strides)")
+            any(st % 8 for st, sz in zip(t.stride()[:3], t.shape[:3])
+                if sz > 1) for t in (q, k, v)):
+        raise ValueError(_BF16_ROWS)
+
+
+_BF16_ROWS = ("sr_attention: bf16 rows must start on 16 bytes (pointers "
+              "and strides)")
+
+
+@torch.library.custom_op("segmif::sr_attention", mutates_args=(),
+                         device_types="cuda")
+def sr_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """One launch of ``segmif_sr_attention`` on the current stream; the
+    output is allocated here."""
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(_BF16_ROWS)
+    b, n, h, d = q.shape
+    m = k.shape[1]
     lib = _build.library()
     with torch.cuda.device(q.device):
         out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
@@ -117,6 +140,16 @@ def _sr_attention_kernel(q, k, v, scale: float) -> torch.Tensor:
     _build.check(err, "sr_attention")
     sr_attention.launches += 1
     return out
+
+
+@sr_attention_op.register_kernel("cpu")
+def _sr_attention_cpu(q, k, v, scale):
+    return sr_attention_ref(q, k, v, scale).contiguous()
+
+
+@sr_attention_op.register_fake
+def _sr_attention_fake(q, k, v, scale):
+    return q.new_empty(q.shape)
 
 
 sr_attention.launches = 0

@@ -11,13 +11,15 @@ channels_last memory (the fusion trunk's layout); weights are the
  - ``drdb_growth_ref`` / ``drdb_tail_ref``: the plain growth chain
    (r1..r5, counterpart of ``_growth_rs(..., dil=2)``) and the plain tail
    (``_tail_xla``).
- - ``drdb_growth`` / ``drdb_tail``: CUDA kernels in ``csrc/drdb.cu`` on
-   CUDA tensors (replacing the TPU kernels ``_drdb_pallas_impl`` and
+ - ``drdb_growth`` / ``drdb_tail``: the operators ``segmif::drdb_growth``
+   and ``segmif::drdb_tail``: CUDA kernels in ``csrc/drdb.cu`` on CUDA
+   tensors (replacing the TPU kernels ``_drdb_pallas_impl`` and
    ``_tail_impl``), the plain versions on CPU tensors. The growth kernel
    writes r1..r5 into one [B, H, W, 160] buffer; the tail reads x and
    the buffer's slices through their strides, so no concat exists.
  - ``pack_growth`` / ``pack_tail``: the weights as the kernels read them;
-   ``DRDB`` packs once and passes them as ``wpk``.
+   ``DRDB`` packs once and passes them as ``wpk``. ``unpack_growth`` /
+   ``unpack_tail`` invert them for the operators' CPU versions.
  - ``drdb_block``: growth then tail; what ``DRDB.forward`` runs. Under
    autograd the two kernels sit in one ``autograd.Function`` that saves
    only its inputs and whose backward is the VJP of ``drdb_chain`` with
@@ -29,7 +31,7 @@ channels_last memory (the fusion trunk's layout); weights are the
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,10 +78,13 @@ def drdb_tail_ref(x: torch.Tensor, rs: Sequence[torch.Tensor],
     return x + torch.relu(y + bb.to(x.dtype)[:, None, None])
 
 
-def _pixel_stride(t: torch.Tensor, channels: int, what: str) -> int:
+def _pixel_stride(t: torch.Tensor, channels: int, what: str,
+                  address: bool = True) -> int:
     """The element stride between pixels of an NCHW view whose channels
     are contiguous and whose pixels are evenly spaced (channels_last
-    memory, or a channel slice of it). Raises on any other layout."""
+    memory, or a channel slice of it). Raises on any other layout, and
+    with ``address`` on an address off 16 bytes (read where the kernel
+    launches: a traced call has no address)."""
     if t.dim() != 4 or t.shape[1] != channels:
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
                          f"[B, {channels}, H, W]")
@@ -90,7 +95,8 @@ def _pixel_stride(t: torch.Tensor, channels: int, what: str) -> int:
         raise ValueError(
             f"{what}: strides {t.stride()}; the kernel reads channels_last "
             f"memory with contiguous channels, expected {want}")
-    if ps < channels or (ps * t.element_size()) % 16 or t.data_ptr() % 16:
+    if ps < channels or (ps * t.element_size()) % 16 or (
+            address and t.data_ptr() % 16):
         raise ValueError(f"{what}: pixel stride {ps} or address not "
                          "16-byte aligned")
     return ps
@@ -133,28 +139,57 @@ def pack_tail_weights(wb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (w if dtype == torch.bfloat16 else w.t()).contiguous()
 
 
-Packed = Tuple[torch.Tensor, torch.Tensor]   # (packed weights, f32 bias)
+Packed = Tuple[torch.Tensor, torch.Tensor]   # (packed weights, bias)
 
 
 def pack_growth(dconvs: Sequence[Conv], dtype: torch.dtype) -> Packed:
     """What the growth kernel reads: ``pack_growth_weights`` and the five
-    biases as one f32 [160]."""
+    biases as one [160] in the arithmetic type (f32; f64 for f64)."""
     return (pack_growth_weights(dconvs, dtype),
-            torch.cat([b for _, b in dconvs]).float().contiguous())
+            torch.cat([b for _, b in dconvs]).to(_build.acc_dtype(dtype))
+            .contiguous())
 
 
 def pack_tail(wb: torch.Tensor, bb: torch.Tensor,
               dtype: torch.dtype) -> Packed:
-    """What the tail kernel reads: ``pack_tail_weights`` and the f32 bias."""
-    return pack_tail_weights(wb, dtype), bb.float().contiguous()
+    """What the tail kernel reads: ``pack_tail_weights`` and the bias in
+    the arithmetic type (f32; f64 for f64)."""
+    return (pack_tail_weights(wb, dtype),
+            bb.to(_build.acc_dtype(dtype)).contiguous())
+
+
+def unpack_growth(wpk: Packed, dtype: torch.dtype) -> list:
+    """Inverse of ``pack_growth`` for activations of ``dtype``: the five
+    (OIHW weight, bias), weights in ``dtype`` and biases as packed."""
+    w, b = wpk
+    order = (1, 4, 2, 0, 3) if dtype == torch.bfloat16 else (1, 4, 2, 3, 0)
+    inverse = tuple(order.index(i) for i in range(5))
+    dconvs, at = [], 0
+    for t in range(NCONV):
+        cin = C + G * t
+        shape = (G, cin // KC, KC // 8, 8, 9)
+        part = w[at:at + G * cin * 9].reshape([shape[i] for i in order])
+        at += G * cin * 9
+        dconvs.append((part.permute(*inverse).reshape(G, cin, 3, 3),
+                       b[G * t:G * (t + 1)]))
+    return dconvs
+
+
+def unpack_tail(wpk: Packed, dtype: torch.dtype) -> Conv:
+    """Inverse of ``pack_tail``: (the [64, 224, 1, 1] bottleneck in
+    ``dtype``, the bias as packed)."""
+    w, b = wpk
+    w = w.reshape(C, C + G * NCONV) if dtype == torch.bfloat16 else \
+        w.reshape(C + G * NCONV, C).t()
+    return w.reshape(C, C + G * NCONV, 1, 1).contiguous(), b
 
 
 def _check_packed(wpk: Packed, numel: int, nbias: int, x: torch.Tensor,
-                  what: str) -> None:
+                  what: str, address: bool = True) -> None:
     w, b = wpk
     if (w.numel() != numel or w.dtype != x.dtype or b.shape != (nbias,)
             or b.dtype != torch.float32 or not w.is_contiguous()
-            or w.data_ptr() % 16 or w.device != x.device
+            or (address and w.data_ptr() % 16) or w.device != x.device
             or b.device != x.device):
         raise ValueError(f"{what}: wpk is not this DRDB's packing for "
                          f"{x.dtype} on {x.device}")
@@ -162,44 +197,73 @@ def _check_packed(wpk: Packed, numel: int, nbias: int, x: torch.Tensor,
 
 def drdb_growth(x: torch.Tensor, dconvs: Sequence[Conv],
                 wpk: Optional[Packed] = None) -> Tuple[torch.Tensor, ...]:
-    """x: [B, 64, H, W] -> (r1..r5), each [B, 32, H, W].
+    """x: [B, 64, H, W] -> (r1..r5), each [B, 32, H, W], through the
+    operator ``segmif::drdb_growth`` (``drdb_growth_op``).
 
-    CPU tensors take ``drdb_growth_ref``. CUDA tensors launch the growth
-    kernel five times (one wrapper call, one count); the r_t are channel
-    slices of one channels_last [B, H, W, 160] buffer. ``wpk``: the
-    weights as ``pack_growth`` packs them for x's dtype (a caller that
-    keeps them packs once); without it they are packed here."""
-    if x.device.type == "cpu":
-        return drdb_growth_ref(x, dconvs)
-    if x.device.type != "cuda":
-        raise ValueError(f"drdb_growth: unsupported device {x.device}")
+    CPU tensors take ``drdb_growth_ref`` (through autograd when a gradient
+    is needed). CUDA tensors launch the growth kernel five times (one
+    wrapper call, one count). The operator's r_t are channel slices of one
+    channels_last [B, H, W, 160] buffer. ``wpk``: the weights as
+    ``pack_growth`` packs them for x's dtype (a caller that keeps them
+    packs once); without it they are packed here."""
     ws = [t for wb in dconvs for t in wb]
-    _build.refuse_grad(x, *ws, instead="drdb_block")
+    if x.device.type == "cpu" and _build.needs_grad(x, *ws):
+        return drdb_growth_ref(x, dconvs)
     if len(dconvs) != NCONV:
         raise ValueError(f"drdb_growth: {len(dconvs)} convs, expected 5")
-    for t, (w, b) in enumerate(dconvs):
-        if w.shape != (G, C + G * t, 3, 3) or b.shape != (G,):
-            raise ValueError(f"drdb_growth: conv {t + 1} weight "
-                             f"{tuple(w.shape)} bias {tuple(b.shape)}")
-    _check_dtype_device(x, ws, "drdb_growth")
+    if x.is_cuda:
+        _build.refuse_grad(x, *ws, instead="drdb_block")
+        for t, (w, b) in enumerate(dconvs):
+            if w.shape != (G, C + G * t, 3, 3) or b.shape != (G,):
+                raise ValueError(f"drdb_growth: conv {t + 1} weight "
+                                 f"{tuple(w.shape)} bias {tuple(b.shape)}")
+        _check_dtype_device(x, ws, "drdb_growth")
+        _pixel_stride(x, C, "drdb_growth x", address=False)
+    if wpk is None:
+        wpk = pack_growth(dconvs, x.dtype)
+    if x.is_cuda:
+        _check_packed(wpk, 20 * 9 * KC * G, G * NCONV, x, "drdb_growth",
+                      address=False)
+    buf = torch.ops.segmif.drdb_growth(x, *wpk)
+    view = buf.permute(0, 3, 1, 2)
+    return tuple(view[:, G * t:G * (t + 1)] for t in range(NCONV))
+
+
+@torch.library.custom_op("segmif::drdb_growth", mutates_args=(),
+                         device_types="cuda")
+def drdb_growth_op(x: torch.Tensor, wpk: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Five launches of the growth kernel (``segmif_drdb_growth``) on the
+    current stream, into the [B, H, W, 160] buffer allocated here."""
     x_ps = _pixel_stride(x, C, "drdb_growth x")
+    _check_packed((wpk, bias), 20 * 9 * KC * G, G * NCONV, x, "drdb_growth")
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
-        if wpk is None:
-            wpk = pack_growth(dconvs, x.dtype)
-        _check_packed(wpk, 20 * 9 * KC * G, G * NCONV, x, "drdb_growth")
         buf = torch.empty((bsz, h, w_, G * NCONV), dtype=x.dtype,
                           device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_growth(
-            x.data_ptr(), x_ps, buf.data_ptr(), wpk[0].data_ptr(),
-            wpk[1].data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype],
+            x.data_ptr(), x_ps, buf.data_ptr(), wpk.data_ptr(),
+            bias.data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype],
             stream)
     _build.check(err, "drdb_growth")
     drdb_growth.launches += 1
-    view = buf.permute(0, 3, 1, 2)
-    return tuple(view[:, G * t:G * (t + 1)] for t in range(NCONV))
+    return buf
+
+
+@drdb_growth_op.register_kernel("cpu")
+def _drdb_growth_cpu(x, wpk, bias):
+    dconvs = [(w, b.to(x.dtype)) for w, b in unpack_growth((wpk, bias),
+                                                           x.dtype)]
+    rs = drdb_growth_ref(x, dconvs)
+    return torch.cat(rs, dim=1).permute(0, 2, 3, 1).contiguous()
+
+
+@drdb_growth_op.register_fake
+def _drdb_growth_fake(x, wpk, bias):
+    bsz, _, h, w_ = x.shape
+    return x.new_empty((bsz, h, w_, G * NCONV))
 
 
 drdb_growth.launches = 0
@@ -209,45 +273,79 @@ def drdb_tail(x: torch.Tensor, rs: Sequence[torch.Tensor], wb: torch.Tensor,
               bb: torch.Tensor,
               wpk: Optional[Packed] = None) -> torch.Tensor:
     """x: [B, 64, H, W]; rs: five [B, 32, H, W]; wb: [64, 224, 1, 1];
-    bb: [64] -> x + relu(bottleneck([x, r1..r5]) + bb), [B, 64, H, W].
+    bb: [64] -> x + relu(bottleneck([x, r1..r5]) + bb), [B, 64, H, W]
+    channels_last, through the operator ``segmif::drdb_tail``
+    (``drdb_tail_op``).
 
-    CPU tensors take ``drdb_tail_ref``. CUDA tensors launch the tail
-    kernel, which reads x and each r_i through its strides (channels_last
-    memory, the r_i sharing one pixel stride) and writes a channels_last
-    output. ``wpk``: (wb, bb) as ``pack_tail`` packs them, or None."""
-    if x.device.type == "cpu":
+    CPU tensors take ``drdb_tail_ref`` (through autograd when a gradient
+    is needed). CUDA tensors launch the tail kernel, which reads x and
+    each r_i through its strides (channels_last memory, the r_i sharing
+    one pixel stride) and writes a channels_last output. ``wpk``: (wb, bb)
+    as ``pack_tail`` packs them, or None."""
+    if x.device.type == "cpu" and _build.needs_grad(x, *rs, wb, bb):
         return drdb_tail_ref(x, rs, wb, bb)
-    if x.device.type != "cuda":
-        raise ValueError(f"drdb_tail: unsupported device {x.device}")
-    _build.refuse_grad(x, *rs, wb, bb, instead="drdb_block")
     if len(rs) != NCONV:
         raise ValueError(f"drdb_tail: {len(rs)} growth tensors, expected 5")
-    if wb.shape != (C, C + G * NCONV, 1, 1) or bb.shape != (C,):
-        raise ValueError(f"drdb_tail: bottleneck {tuple(wb.shape)} bias "
-                         f"{tuple(bb.shape)}")
-    _check_dtype_device(x, [*rs, wb, bb], "drdb_tail")
-    x_ps = _pixel_stride(x, C, "drdb_tail x")
-    r_ps = {_pixel_stride(r, G, f"drdb_tail r{i + 1}")
+    if x.is_cuda:
+        _build.refuse_grad(x, *rs, wb, bb, instead="drdb_block")
+        if wb.shape != (C, C + G * NCONV, 1, 1) or bb.shape != (C,):
+            raise ValueError(f"drdb_tail: bottleneck {tuple(wb.shape)} "
+                             f"bias {tuple(bb.shape)}")
+        _check_dtype_device(x, [*rs, wb, bb], "drdb_tail")
+        _tail_strides(x, rs, address=False)
+    if wpk is None:
+        wpk = pack_tail(wb, bb, x.dtype)
+    if x.is_cuda:
+        _check_packed(wpk, C * (C + G * NCONV), C, x, "drdb_tail",
+                      address=False)
+    return torch.ops.segmif.drdb_tail(x, list(rs), *wpk)
+
+
+def _tail_strides(x, rs, address: bool = True) -> Tuple[int, int]:
+    """(x's pixel stride, the r_i's shared pixel stride); raises on a
+    layout the tail kernel does not read."""
+    x_ps = _pixel_stride(x, C, "drdb_tail x", address)
+    r_ps = {_pixel_stride(r, G, f"drdb_tail r{i + 1}", address)
             for i, r in enumerate(rs)}
     if len(r_ps) != 1 or any(r.shape[0:1] + r.shape[2:] !=
                              x.shape[0:1] + x.shape[2:] for r in rs):
         raise ValueError("drdb_tail: r1..r5 must match x's B, H, W and "
                          "share one pixel stride")
+    return x_ps, r_ps.pop()
+
+
+@torch.library.custom_op("segmif::drdb_tail", mutates_args=(),
+                         device_types="cuda")
+def drdb_tail_op(x: torch.Tensor, rs: List[torch.Tensor], wpk: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """One launch of the tail kernel (``segmif_drdb_tail``) on the current
+    stream; the channels_last output is allocated here."""
+    x_ps, r_ps = _tail_strides(x, rs)
+    _check_packed((wpk, bias), C * (C + G * NCONV), C, x, "drdb_tail")
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
-        if wpk is None:
-            wpk = pack_tail(wb, bb, x.dtype)
-        _check_packed(wpk, C * (C + G * NCONV), C, x, "drdb_tail")
         out = torch.empty_like(x, memory_format=torch.channels_last)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_tail(
-            x.data_ptr(), x_ps, *(r.data_ptr() for r in rs), r_ps.pop(),
-            wpk[0].data_ptr(), wpk[1].data_ptr(), out.data_ptr(),
+            x.data_ptr(), x_ps, *(r.data_ptr() for r in rs), r_ps,
+            wpk.data_ptr(), bias.data_ptr(), out.data_ptr(),
             bsz * h * w_, _build.DTYPE_CODES[x.dtype], stream)
     _build.check(err, "drdb_tail")
     drdb_tail.launches += 1
     return out
+
+
+@drdb_tail_op.register_kernel("cpu")
+def _drdb_tail_cpu(x, rs, wpk, bias):
+    wb, bb = unpack_tail((wpk, bias), x.dtype)
+    return drdb_tail_ref(x, rs, wb, bb).contiguous(
+        memory_format=torch.channels_last)
+
+
+@drdb_tail_op.register_fake
+def _drdb_tail_fake(x, rs, wpk, bias):
+    return torch.empty_like(x, memory_format=torch.channels_last)
 
 
 drdb_tail.launches = 0

@@ -8,7 +8,8 @@ wp1..3 [C, 2C], bp1..3 [2C], wkv1..3 [C, 2C], we1..2 [2C, C], be1..2 [C],
 ln1/2_scale and _bias [C].
 
  - ``crosspath_folded_ref``: the plain folded maths (``crosspath_folded_xla``).
- - ``crosspath_grams`` / ``crosspath_apply_rows``: pass A and pass B, CUDA
+ - ``crosspath_grams`` / ``crosspath_apply_rows``: pass A and pass B,
+   the operators ``segmif::ffm_grams`` and ``segmif::ffm_apply``: CUDA
    kernels in ``csrc/ffm.cu`` on CUDA tensors (replacing ``_grams_pallas``
    and ``_apply_pallas``), their plain versions on CPU tensors.
  - ``crosspath_fused``: grams -> per-head contexts and end-projection fold
@@ -128,15 +129,20 @@ _APPLY_PICKS = ((2, 0), (0, 1), (1, 1))   # y3, u1, u2
 
 # ------------------------------------------------------------------ pass A
 
-def crosspath_grams_ref(x1, x2, s, wp, bp) -> torch.Tensor:
-    """Plain pass A. x_i [B, N, C]; wp [3, C, 2C]; bp [3, 2C] ->
-    [B, 3, C, C] f32: y1^T y1, y2^T y2, u3^T u3."""
-    w, b = _halves(wp, bp, x1.dtype, _GRAM_PICKS)
+def _grams_plain(x1, x2, s, w, b) -> torch.Tensor:
+    """Plain pass A on the kernel's operands: w [3, C, C] and b [3, C],
+    the picked halves (``_halves``)."""
     out = []
     for i, x in enumerate((x1, x2, s)):
         r = _relu_proj(x, w[i], b[i])
         out.append(r.transpose(1, 2) @ r)
     return torch.stack(out, 1)
+
+
+def crosspath_grams_ref(x1, x2, s, wp, bp) -> torch.Tensor:
+    """Plain pass A. x_i [B, N, C]; wp [3, C, 2C]; bp [3, 2C] ->
+    [B, 3, C, C] f32: y1^T y1, y2^T y2, u3^T u3."""
+    return _grams_plain(x1, x2, s, *_halves(wp, bp, x1.dtype, _GRAM_PICKS))
 
 
 def _check_tokens(name: str, *ts: torch.Tensor) -> None:
@@ -151,9 +157,18 @@ def _check_tokens(name: str, *ts: torch.Tensor) -> None:
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name}: inputs differ in shape, dtype or "
                              "device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous and "
-                             "16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError(_aligned(name))
+
+
+def _check_aligned(name: str, *ts: torch.Tensor) -> None:
+    """The tokens' addresses, read where the kernel launches."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(_aligned(name))
+
+
+def _aligned(name: str) -> str:
+    return f"{name}: inputs must be contiguous and 16-byte aligned"
 
 
 def _sm_count(device: torch.device) -> int:
@@ -174,20 +189,30 @@ def _grams_chunk(n: int, bsz: int, dtype: torch.dtype,
 
 
 def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
-    """Pass A: [B, 3, C, C] f32 grams. CPU tensors take the plain version;
-    CUDA tensors launch ``segmif_ffm_grams``: per-(image, token-chunk)
-    partial grams (in bf16 the tensor-core kernel, one projection per
-    block; in f32 the CUDA-core kernel), then an in-order sum over the
-    chunks."""
-    if x1.device.type == "cpu":
+    """Pass A: [B, 3, C, C] f32 grams, through the operator
+    ``segmif::ffm_grams`` (``ffm_grams_op``). CPU tensors take the plain
+    version (through autograd when a gradient is needed); CUDA tensors
+    launch ``segmif_ffm_grams``: per-(image, token-chunk) partial grams
+    (in bf16 the tensor-core kernel, one projection per block; in f32 the
+    CUDA-core kernel), then an in-order sum over the chunks."""
+    if x1.device.type == "cpu" and _build.needs_grad(x1, x2, s, wp, bp):
         return crosspath_grams_ref(x1, x2, s, wp, bp)
-    if x1.device.type != "cuda":
-        raise ValueError(f"crosspath_grams: unsupported device {x1.device}")
-    _build.refuse_grad(x1, x2, s, wp, bp, instead="crosspath_fused")
-    _check_tokens("crosspath_grams", x1, x2, s)
-    bsz, n, c = x1.shape
+    if x1.is_cuda:
+        _build.refuse_grad(x1, x2, s, wp, bp, instead="crosspath_fused")
+        _check_tokens("crosspath_grams", x1, x2, s)
     w, b = _halves(wp.to(x1.device), bp.to(x1.device), x1.dtype,
                   _GRAM_PICKS)
+    return torch.ops.segmif.ffm_grams(x1, x2, s, w, b)
+
+
+@torch.library.custom_op("segmif::ffm_grams", mutates_args=(),
+                         device_types="cuda")
+def ffm_grams_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of ``segmif_ffm_grams`` on the current stream; the
+    partial grams and the output are allocated here."""
+    _check_aligned("crosspath_grams", x1, x2, s)
+    bsz, n, c = x1.shape
     chunk = _grams_chunk(n, bsz, x1.dtype, x1.device)
     n_chunks = math.ceil(n / chunk)
     partial = torch.empty((bsz, n_chunks, 3, c, c), dtype=torch.float32,
@@ -205,16 +230,27 @@ def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
     return out
 
 
+@ffm_grams_op.register_kernel("cpu")
+def _ffm_grams_cpu(x1, x2, s, w, b):
+    return _grams_plain(x1, x2, s, w, b)
+
+
+@ffm_grams_op.register_fake
+def _ffm_grams_fake(x1, x2, s, w, b):
+    c = x1.shape[-1]
+    return x1.new_empty((x1.shape[0], 3, c, c), dtype=torch.float32)
+
+
 crosspath_grams.launches = 0
 
 
 # ------------------------------------------------------------------ pass B
 
-def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
-    """Plain pass B. mats [B, 4, C, C]; be [2, C]; lnp [2, 2, C]
-    (LayerNorm (scale, bias) per output) -> (o1, o2) [B, N, C]."""
+def _apply_plain(x1, x2, s, w, b, mats, be, lnp):
+    """Plain pass B on the kernel's operands: w [3, C, C] and b [3, C],
+    the picked halves (w and mats rounded to the inputs' type)."""
     dt = x1.dtype
-    w, b = _halves(wp, bp, dt, _APPLY_PICKS)
+    w = w.float()
     y3 = _relu_proj(s, w[0], b[0])
     u1 = _relu_proj(x1, w[1], b[1])
     u2 = _relu_proj(x2, w[2], b[2])
@@ -226,6 +262,13 @@ def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
     out1 = _layer_norm(x1.float() + o1, lnp[0, 0], lnp[0, 1])
     out2 = _layer_norm(x2.float() + o2, lnp[1, 0], lnp[1, 1])
     return out1.to(dt), out2.to(dt)
+
+
+def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
+    """Plain pass B. mats [B, 4, C, C]; be [2, C]; lnp [2, 2, C]
+    (LayerNorm (scale, bias) per output) -> (o1, o2) [B, N, C]."""
+    w, b = _halves(wp, bp, x1.dtype, _APPLY_PICKS)
+    return _apply_plain(x1, x2, s, w, b, mats, be, lnp)
 
 
 def _apply_chunk(n: int, bsz: int, dtype: torch.dtype,
@@ -243,24 +286,24 @@ def _apply_chunk(n: int, bsz: int, dtype: torch.dtype,
 
 
 def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
-    """Pass B. CPU tensors take the plain version; CUDA tensors launch
+    """Pass B, through the operator ``segmif::ffm_apply``
+    (``ffm_apply_op``). CPU tensors take the plain version (through
+    autograd when a gradient is needed); CUDA tensors launch
     ``segmif_ffm_apply``: in bf16 the tensor-core kernel (weights and
-    contexts as bf16, the seven products chained in registers), in f32 the
-    CUDA-core kernel."""
-    if x1.device.type == "cpu":
-        return crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp)
-    if x1.device.type != "cuda":
-        raise ValueError(
-            f"crosspath_apply_rows: unsupported device {x1.device}")
-    _build.refuse_grad(x1, x2, s, wp, bp, mats, be, lnp,
-                       instead="crosspath_fused")
-    _check_tokens("crosspath_apply_rows", x1, x2, s)
+    contexts as bf16, the seven products chained in registers), in f32
+    the CUDA-core kernel."""
+    args = (x1, x2, s, wp, bp, mats, be, lnp)
+    if x1.device.type == "cpu" and _build.needs_grad(*args):
+        return crosspath_apply_rows_ref(*args)
     bsz, n, c = x1.shape
-    if mats.shape != (bsz, 4, c, c) or be.shape != (2, c) or \
-            lnp.shape != (2, 2, c):
-        raise ValueError("crosspath_apply_rows: mats/be/lnp shapes "
-                         f"{tuple(mats.shape)} {tuple(be.shape)} "
-                         f"{tuple(lnp.shape)}")
+    if x1.is_cuda:
+        _build.refuse_grad(*args, instead="crosspath_fused")
+        _check_tokens("crosspath_apply_rows", x1, x2, s)
+        if mats.shape != (bsz, 4, c, c) or be.shape != (2, c) or \
+                lnp.shape != (2, 2, c):
+            raise ValueError("crosspath_apply_rows: mats/be/lnp shapes "
+                             f"{tuple(mats.shape)} {tuple(be.shape)} "
+                             f"{tuple(lnp.shape)}")
     dev, dt = x1.device, x1.dtype
     # w and mats rounded to the input type (exact in it), as the plain
     # version rounds them; the kernel reads them in that type
@@ -269,19 +312,45 @@ def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
     m = mats.to(dev).to(dt).contiguous()
     be = be.to(dev).float().contiguous()
     lnp = lnp.to(dev).float().contiguous()
-    o1 = torch.empty_like(x1)
-    o2 = torch.empty_like(x2)
+    o1, o2 = torch.ops.segmif.ffm_apply(x1, x2, s, w, b, m, be, lnp)
+    return o1, o2
+
+
+@torch.library.custom_op("segmif::ffm_apply", mutates_args=(),
+                         device_types="cuda")
+def ffm_apply_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor, mats: torch.Tensor,
+                 be: torch.Tensor, lnp: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``segmif_ffm_apply`` on the current stream; the
+    outputs are allocated here."""
+    _check_aligned("crosspath_apply_rows", x1, x2, s)
+    bsz, n, _ = x1.shape
+    dev, dt = x1.device, x1.dtype
+    o1 = torch.empty(x1.shape, dtype=dt, device=dev)
+    o2 = torch.empty(x2.shape, dtype=dt, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.segmif_ffm_apply(
             x1.data_ptr(), x2.data_ptr(), s.data_ptr(), w.data_ptr(),
-            b.data_ptr(), m.data_ptr(), be.data_ptr(), lnp.data_ptr(),
+            b.data_ptr(), mats.data_ptr(), be.data_ptr(), lnp.data_ptr(),
             o1.data_ptr(), o2.data_ptr(), bsz, n,
             _apply_chunk(n, bsz, dt, dev), _build.DTYPE_CODES[dt], stream)
     _build.check(err, "crosspath_apply_rows")
     crosspath_apply_rows.launches += 1
     return o1, o2
+
+
+@ffm_apply_op.register_kernel("cpu")
+def _ffm_apply_cpu(x1, x2, s, w, b, mats, be, lnp):
+    o1, o2 = _apply_plain(x1, x2, s, w, b, mats, be, lnp)
+    return o1.contiguous(), o2.contiguous()
+
+
+@ffm_apply_op.register_fake
+def _ffm_apply_fake(x1, x2, s, w, b, mats, be, lnp):
+    return x1.new_empty(x1.shape), x2.new_empty(x2.shape)
 
 
 crosspath_apply_rows.launches = 0

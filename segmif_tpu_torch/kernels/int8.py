@@ -25,8 +25,9 @@ not have.
  - ``drdb_int8_ref``: the plain version (image layout, dilation 2). Its
    integer convolutions are float64 per-tap products, exact on any device:
    every partial sum is an integer below 2^53.
- - ``drdb_int8_growth`` / ``drdb_int8_tail``: the CUDA kernels in
-   ``csrc/drdb_int8.cu`` on CUDA tensors (replacing the TPU kernel
+ - ``drdb_int8_growth`` / ``drdb_int8_tail``: the operators
+   ``segmif::drdb_int8_growth`` and ``segmif::drdb_int8_tail``: the CUDA
+   kernels in ``csrc/drdb_int8.cu`` on CUDA tensors (replacing the TPU kernel
    ``drdb_strips_int8_pallas``; the growth convs on wgmma with TMA-fed
    halos), the plain versions on CPU tensors. The growth wrapper writes xq
    and r1..r5 into one int8 [B, H, W, 224] buffer that the tail reads.
@@ -35,7 +36,7 @@ not have.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -118,6 +119,11 @@ class Int8Drdb(NamedTuple):
         return cls(kq=tuple(get(f"kq{s}") for s in range(NCONV)),
                    sv=tuple(get(f"sv{s}") for s in range(NCONV)),
                    **{f: get(f) for f in cls._fields[2:]})
+
+
+# the operators' int8 weight list: ``Int8Drdb.tensors()``'s names in order
+Q_NAMES = tuple(f"{f}{i}" for f in ("kq", "sv") for i in range(NCONV)) + \
+    Int8Drdb._fields[2:]
 
 
 def _source_range(s: int, c: int, g: int) -> Tuple[int, int]:
@@ -225,8 +231,10 @@ def drdb_int8_ref(x: torch.Tensor, q: Int8Drdb) -> torch.Tensor:
     return drdb_int8_tail_ref(x, drdb_int8_growth_ref(x, q), q)
 
 
-def _check(x: torch.Tensor, q: Int8Drdb, what: str) -> int:
-    """Refuse what the kernels do not take; return x's pixel stride."""
+def _check(x: torch.Tensor, q: Int8Drdb, what: str,
+           address: bool = True) -> int:
+    """Refuse what the kernels do not take; return x's pixel stride.
+    ``address``: also x's address (read where the kernel launches)."""
     _build.refuse_grad(x)
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{what}: dtype {x.dtype}; the kernel takes f32 or "
@@ -237,20 +245,41 @@ def _check(x: torch.Tensor, q: Int8Drdb, what: str) -> int:
         if t.device != x.device:
             raise ValueError(f"{what}: {name} on {t.device}, x on "
                              f"{x.device}")
-    return _pixel_stride(x, C, f"{what} x")
+    return _pixel_stride(x, C, f"{what} x", address)
+
+
+def _q_list(q: Int8Drdb) -> List[torch.Tensor]:
+    return list(q.tensors().values())
+
+
+def _q_from(ts: Sequence[torch.Tensor]) -> Int8Drdb:
+    return Int8Drdb.from_tensors(dict(zip(Q_NAMES, ts)).__getitem__)
 
 
 def drdb_int8_growth(x: torch.Tensor, q: Int8Drdb) -> torch.Tensor:
-    """x: [B, 64, H, W] -> the int8 buffer [B, H, W, 224] (xq, r1..r5).
+    """x: [B, 64, H, W] -> the int8 buffer [B, H, W, 224] (xq, r1..r5),
+    through the operator ``segmif::drdb_int8_growth``
+    (``drdb_int8_growth_op``).
 
     CPU tensors take ``drdb_int8_growth_ref``. CUDA tensors launch the
     entry kernel and the growth conv kernel five times (one wrapper call,
     one count)."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and (q.wpk is None or _build.needs_grad(x)):
         return drdb_int8_growth_ref(x, q)
-    if x.device.type != "cuda":
-        raise ValueError(f"drdb_int8_growth: unsupported device {x.device}")
-    x_ps = _check(x, q, "drdb_int8_growth")
+    if x.is_cuda:
+        _check(x, q, "drdb_int8_growth", address=False)
+    return torch.ops.segmif.drdb_int8_growth(x, _q_list(q))
+
+
+@torch.library.custom_op("segmif::drdb_int8_growth", mutates_args=(),
+                         device_types="cuda")
+def drdb_int8_growth_op(x: torch.Tensor,
+                        q: List[torch.Tensor]) -> torch.Tensor:
+    """The entry quantise and the five growth launches
+    (``segmif_drdb_int8_growth``) on the current stream, into the int8
+    buffer allocated here. ``q``: ``Int8Drdb.tensors()``'s values."""
+    qd = _q_from(q)
+    x_ps = _check(x, qd, "drdb_int8_growth")
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
@@ -258,13 +287,24 @@ def drdb_int8_growth(x: torch.Tensor, q: Int8Drdb) -> torch.Tensor:
                            device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_int8_growth(
-            x.data_ptr(), x_ps, feat.data_ptr(), q.wpk.data_ptr(),
-            q.svk.data_ptr(), q.bias.data_ptr(), q.s_in.data_ptr(),
-            q.invs.data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype],
+            x.data_ptr(), x_ps, feat.data_ptr(), qd.wpk.data_ptr(),
+            qd.svk.data_ptr(), qd.bias.data_ptr(), qd.s_in.data_ptr(),
+            qd.invs.data_ptr(), bsz, h, w_, _build.DTYPE_CODES[x.dtype],
             stream)
     _build.check(err, "drdb_int8_growth")
     drdb_int8_growth.launches += 1
     return feat
+
+
+@drdb_int8_growth_op.register_kernel("cpu")
+def _drdb_int8_growth_cpu(x, q):
+    return drdb_int8_growth_ref(x, _q_from(q))
+
+
+@drdb_int8_growth_op.register_fake
+def _drdb_int8_growth_fake(x, q):
+    bsz, _, h, w_ = x.shape
+    return x.new_empty((bsz, h, w_, CT), dtype=torch.int8)
 
 
 drdb_int8_growth.launches = 0
@@ -273,41 +313,66 @@ drdb_int8_growth.launches = 0
 def drdb_int8_tail(x: torch.Tensor, feat: torch.Tensor,
                    q: Int8Drdb) -> torch.Tensor:
     """x: [B, 64, H, W]; feat: the int8 buffer [B, H, W, 224] ->
-    x + relu(bottleneck), [B, 64, H, W] in x's dtype.
+    x + relu(bottleneck), [B, 64, H, W] in x's dtype (channels_last),
+    through the operator ``segmif::drdb_int8_tail``
+    (``drdb_int8_tail_op``).
 
     CPU tensors take ``drdb_int8_tail_ref``. CUDA tensors launch the tail
     kernel, which writes a channels_last output."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and (q.wpk is None or _build.needs_grad(x)):
         return drdb_int8_tail_ref(x, feat, q)
-    if x.device.type != "cuda":
-        raise ValueError(f"drdb_int8_tail: unsupported device {x.device}")
-    x_ps = _check(x, q, "drdb_int8_tail")
+    if x.is_cuda:
+        _check(x, q, "drdb_int8_tail", address=False)
+        bsz, _, h, w_ = x.shape
+        if (feat.dtype != torch.int8 or feat.shape != (bsz, h, w_, CT)
+                or not feat.is_contiguous() or feat.device != x.device):
+            raise ValueError(f"drdb_int8_tail: feat {feat.dtype} "
+                             f"{tuple(feat.shape)}, expected a contiguous "
+                             f"int8 [{bsz}, {h}, {w_}, {CT}] on {x.device}")
+    return torch.ops.segmif.drdb_int8_tail(x, feat, _q_list(q))
+
+
+@torch.library.custom_op("segmif::drdb_int8_tail", mutates_args=(),
+                         device_types="cuda")
+def drdb_int8_tail_op(x: torch.Tensor, feat: torch.Tensor,
+                      q: List[torch.Tensor]) -> torch.Tensor:
+    """One launch of the int8 tail (``segmif_drdb_int8_tail``) on the
+    current stream; the channels_last output is allocated here."""
+    qd = _q_from(q)
+    x_ps = _check(x, qd, "drdb_int8_tail")
     bsz, _, h, w_ = x.shape
-    if (feat.dtype != torch.int8 or feat.shape != (bsz, h, w_, CT)
-            or not feat.is_contiguous() or feat.device != x.device):
-        raise ValueError(f"drdb_int8_tail: feat {feat.dtype} "
-                         f"{tuple(feat.shape)}, expected a contiguous int8 "
-                         f"[{bsz}, {h}, {w_}, {CT}] on {x.device}")
     lib = _build.library()
     with torch.cuda.device(x.device):
         out = torch.empty_like(x, memory_format=torch.channels_last)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.segmif_drdb_int8_tail(
-            x.data_ptr(), x_ps, feat.data_ptr(), q.kbq.data_ptr(),
-            q.svb.data_ptr(), q.bb.data_ptr(), out.data_ptr(), bsz * h * w_,
-            _build.DTYPE_CODES[x.dtype], stream)
+            x.data_ptr(), x_ps, feat.data_ptr(), qd.kbq.data_ptr(),
+            qd.svb.data_ptr(), qd.bb.data_ptr(), out.data_ptr(),
+            bsz * h * w_, _build.DTYPE_CODES[x.dtype], stream)
     _build.check(err, "drdb_int8_tail")
     drdb_int8_tail.launches += 1
     return out
+
+
+@drdb_int8_tail_op.register_kernel("cpu")
+def _drdb_int8_tail_cpu(x, feat, q):
+    return drdb_int8_tail_ref(x, feat, _q_from(q)).contiguous(
+        memory_format=torch.channels_last)
+
+
+@drdb_int8_tail_op.register_fake
+def _drdb_int8_tail_fake(x, feat, q):
+    return torch.empty_like(x, memory_format=torch.channels_last)
 
 
 drdb_int8_tail.launches = 0
 
 
 def drdb_int8(x: torch.Tensor, q: Int8Drdb) -> torch.Tensor:
-    """The int8 DRDB: the plain version on a CPU tensor (a gradient through
-    it raises), the two kernels on a CUDA tensor (which refuse tensors that
-    require a gradient). x: [B, 64, H, W] -> same shape."""
-    if x.device.type == "cpu":
+    """The int8 DRDB: growth then tail, the two operators (the kernels on
+    a CUDA tensor, which refuse tensors that require a gradient; the plain
+    versions on a CPU tensor, where a gradient through ``drdb_int8_ref``
+    raises). x: [B, 64, H, W] -> same shape."""
+    if x.device.type == "cpu" and (q.wpk is None or _build.needs_grad(x)):
         return drdb_int8_ref(x, q)
     return drdb_int8_tail(x, drdb_int8_growth(x, q), q)

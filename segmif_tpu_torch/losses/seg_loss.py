@@ -18,12 +18,17 @@ import torch
 def _log_probs(logits: torch.Tensor, labels: torch.Tensor,
                ignore_index: int):
     """(valid mask, log p of the labelled class, 0 where ignored) in f32
-    (f64 for f64 logits)."""
+    (f64 for f64 logits). The label's log p is picked by a one-hot mask
+    summed over the classes (exact: one term and zeros), whose backward
+    needs no scatter: ``gather``'s backward sums with float atomics on the
+    card, in an order that changes from run to run."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(
         logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
-    return valid, logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    classes = torch.arange(logp.shape[-1], device=logp.device)
+    onehot = safe.unsqueeze(-1) == classes
+    return valid, torch.where(onehot, logp, torch.zeros_like(logp)).sum(-1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

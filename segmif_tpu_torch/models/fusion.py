@@ -39,7 +39,7 @@ from ..kernels.drdb import (drdb_block, drdb_growth, drdb_tail, pack_growth,
 from ..kernels.ffm import crosspath_apply
 from ..kernels.int8 import Int8Drdb, drdb_int8, quantize_drdb, record_amax
 from ..ops.color import minmax_stretch
-from ..ops.image import nchw, nhwc
+from ..ops.image import nchw, nhwc, resize_bilinear
 
 _CL = torch.channels_last
 
@@ -94,6 +94,10 @@ class DRDB(nn.Module):
         ``load_state_dict``, ``.to()`` and an in-place edit all change. The
         cache also holds the weights' storages, so no other weight can
         take one of those addresses while the key names it."""
+        pinned = getattr(self, "pinned_growth_w", None)
+        if pinned is not None and pinned.dtype == dtype:
+            return ((self.pinned_growth_w, self.pinned_growth_b),
+                    (self.pinned_tail_w, self.pinned_tail_b))
         dconvs, (wb, bb) = self._weights()
         ws = [t for c in dconvs for t in c] + [wb, bb]
         if any(t.is_inference() for t in ws):   # no version counter
@@ -105,6 +109,19 @@ class DRDB(nn.Module):
                                   pack_tail(wb, bb, dtype)),
                             [t.detach() for t in ws])
         return self._packed[1]
+
+    @torch.no_grad()
+    def pin_kernel_weights(self, dtype: torch.dtype) -> None:
+        """Keep the float kernels' packing for ``dtype`` as non-persistent
+        buffers, which ``kernel_weights`` returns from then on: what an
+        exported program carries, since a traced call reads no weight's
+        address. For a copy that serves frozen weights: the buffers do not
+        follow later edits of the weights."""
+        gpk, tpk = self.kernel_weights(dtype)
+        for name, t in zip(("growth_w", "growth_b", "tail_w", "tail_b"),
+                           (*gpk, *tpk)):
+            self.register_buffer("pinned_" + name, t.clone(),
+                                 persistent=False)
 
     def _apply(self, fn, recurse=True):
         # .to(dtype) and friends must not round the scales or the int8
@@ -402,8 +419,7 @@ class FusionNetwork(nn.Module):
              hw: Tuple[int, int]) -> torch.Tensor:
         s = proj(nchw(tap.to(proj.weight.dtype)))
         if s.shape[2:] != hw:
-            s = F.interpolate(s, size=hw, mode="bilinear",
-                              align_corners=False, antialias=False)
+            s = nchw(resize_bilinear(nhwc(s), hw))
         return s
 
     def _interact(self, x1, x2, s, round_idx: int, maps: list):

@@ -38,10 +38,54 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Bilinear resize of [B, H, W, C] to [B, size[0], size[1], C] with
     half-pixel centres and no antialiasing (``jax.image.resize`` bilinear
-    for upsampling, which is all the serving path does)."""
-    out = F.interpolate(nchw(x), size=(int(size[0]), int(size[1])),
-                        mode="bilinear", align_corners=False, antialias=False)
-    return nhwc(out)
+    for upsampling, which is all the port does).
+
+    The forward is ``F.interpolate``. When a gradient is needed and both
+    factors are integers (every resize of the training path: 2, 4 and 8
+    in the head, 4 for the logits, 4 and 8 for the fusion taps), the
+    backward is the adjoint of ``upsample_bilinear_int`` (``_ResizeIntFn``)
+    and not ``F.interpolate``'s, whose CUDA form sums with float atomics
+    in an order that changes from run to run."""
+    size = (int(size[0]), int(size[1]))
+    factors = _int_factors(x.shape[1:3], size)
+    if factors is not None and torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeIntFn.apply(x, factors)
+    return _interpolate(x, size)
+
+
+def _interpolate(x: torch.Tensor, size) -> torch.Tensor:
+    return nhwc(F.interpolate(nchw(x), size=size, mode="bilinear",
+                              align_corners=False, antialias=False))
+
+
+def _int_factors(hw, size):
+    """(sh, sw) when ``size`` is ``hw`` times whole numbers, else None."""
+    if any(n <= 0 or m % n for n, m in zip(hw, size)):
+        return None
+    return tuple(m // n for n, m in zip(hw, size))
+
+
+class _ResizeIntFn(torch.autograd.Function):
+    """``F.interpolate``'s forward; the backward is the adjoint of the
+    integer-factor upsample, recomputed through ``upsample_bilinear_int``
+    (shifted lerps, whose backward has no atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, factors):
+        ctx.factors = factors
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        return _interpolate(x, (x.shape[1] * factors[0],
+                                x.shape[2] * factors[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.x_meta
+        with torch.enable_grad():
+            z = torch.zeros(shape, dtype=dtype, device=device,
+                            requires_grad=True)
+            y = upsample_bilinear_int(z, ctx.factors)
+            gx, = torch.autograd.grad(y, z, g)
+        return gx, None
 
 
 def normalize_imagenet(rgb01: torch.Tensor) -> torch.Tensor:
@@ -51,14 +95,15 @@ def normalize_imagenet(rgb01: torch.Tensor) -> torch.Tensor:
     return (rgb01 * 255.0 - mean) / std
 
 
-def upsample_bilinear_int(x: torch.Tensor, s: int) -> torch.Tensor:
+def upsample_bilinear_int(x: torch.Tensor, s) -> torch.Tensor:
     """Integer-factor half-pixel bilinear upsample of [..., H, W, C] by
-    ``s`` (``resize_bilinear``'s maths to float rounding), as shifted
-    lerps: output k of each input pixel along an axis sits at offset
-    f = (k + 0.5) / s - 0.5 and mixes the pixel with its neighbour on f's
-    side (edge pixels repeated)."""
+    ``s`` (one factor, or (sh, sw)); ``resize_bilinear``'s maths to float
+    rounding, as shifted lerps: output k of each input pixel along an axis
+    sits at offset f = (k + 0.5) / s - 0.5 and mixes the pixel with its
+    neighbour on f's side (edge pixels repeated)."""
+    sh, sw = (s, s) if isinstance(s, int) else s
 
-    def up1(t: torch.Tensor, axis: int) -> torch.Tensor:
+    def up1(t: torch.Tensor, axis: int, s: int) -> torch.Tensor:
         n = t.shape[axis]
         prev = torch.cat([t.narrow(axis, 0, 1), t.narrow(axis, 0, n - 1)],
                          axis)
@@ -76,7 +121,7 @@ def upsample_bilinear_int(x: torch.Tensor, s: int) -> torch.Tensor:
         shape[axis] *= s
         return y.reshape(shape)
 
-    return up1(up1(x, x.dim() - 3), x.dim() - 2)
+    return up1(up1(x, x.dim() - 3, sh), x.dim() - 2, sw)
 
 
 def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:

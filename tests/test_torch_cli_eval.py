@@ -131,7 +131,8 @@ def test_test_segmentation_equals_jax(setup, tmp_path, capsys):
 
 
 def test_cli_refusals(setup, tmp_path):
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="queue 1's \"Spatial row "
+                                         "sharding\" item"):
         test_fusion.main(_fusion_args(setup, tmp_path, ["--spatial", "2"])
                          + ["--device", "cpu"])
     if not torch.cuda.is_available():   # the card is the default
