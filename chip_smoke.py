@@ -5,6 +5,12 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
+or phases 1-3 and 13 alone: on one card as in the whole run, and on a
+host with several cards phase 13 (a), (c), (d) and (e) with one rank
+per card, over NCCL:
+
+    python3 chip_smoke.py --parallel
+
 Phases (each prints its lines; any failure exits non-zero before the last
 line):
  1. refuse to run without a CUDA device;
@@ -168,7 +174,34 @@ line):
     the accuracy overfit (60 fusion and 20 seg steps of round 1) in a
     child process in deterministic mode (``utils.determinism``), twice at
     seed 1: the same logged losses and final weights bit for bit; a run
-    at seed 2 must differ.
+    at seed 2 must differ;
+13. the parallel paths (``segmif_tpu_torch.parallel``), on ranks this
+    script spawns after it built the kernels (their launches join the
+    kernels line): (b) one f32 fusion step through the data-parallel path
+    over NCCL at world size 1, against the plain step; (a) 2 ranks on the
+    card over gloo (NCCL refuses two ranks on one device; send/recv and
+    all_gather staged through pinned host memory, printed), a mit_b3
+    round >= 2 fusion step at global batch 8, 480x640, and a seg step at
+    4, 480x480 (drop-path, dropout, BatchNorm), in f32 against one
+    process on the whole batch (gradients, DWA state, BN buffers, AdamW's
+    steps: phase 9 (a)'s limits and a relative L2 over all gradient
+    leaves for the seg step, DP_FUSION_* for the fusion step, beside
+    controls without ranks: the one-process fusion step again, on its
+    rows reversed, and on each rank's rows alone against the same rows
+    tiled to the whole batch's size) and in bf16 under phase 8 (c)'s
+    480x640 limits, the kernel launches of each step on
+    each rank, and two planted faults that must fail (the CE averaged per
+    rank, BatchNorm on each rank's statistics); (d) the multi-rank dry
+    run (``parallel.dryrun``) on those 2 ranks; (c) the 1080p / mit_b5
+    stretch pair fused by ``make_spatial_fuse_fn`` on 2, 4, 7 (blocks of
+    uneven height) and 8 ranks of the card, f32 and bf16, against one
+    rank, with each rank's launches (9 sr-attention, 2 + 2 FFM, 4 + 4
+    DRDB a pair) and two planted faults that must fail (a halo of 8 rows,
+    the FFM grams not summed); (e) each path's time beside one process's,
+    with the card's name and power limit (ranks sharing one card measure
+    the parallel paths' overhead, not a speed-up). With ``--parallel`` on
+    a host of N >= 2 cards: (a), (d) on N ranks and (c) on 2 and N, one
+    rank a card, over NCCL.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3018,7 +3051,738 @@ def repeatability(dev):
     print(f"phase 12 (e): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def main() -> int:
+# Phase 13: the parallel paths (segmif_tpu_torch.parallel), ranks spawned
+# on this one card (gloo: NCCL refuses two ranks on one device), after
+# the parent built the kernels. Ranks that share a card measure what the
+# sharding costs, not a speed-up.
+DP_WORLD = 2
+DP_FUSION = (8, H, W)          # global batch, rows, columns
+DP_SEG = (4, 480, 480)
+DP_TIMED = 3                   # timed steps, after one warm-up
+# the kernels each DP step launches on each rank (rows 4 and 2 a rank)
+DP_EXPECT = {"fusion": {"sr_attention": 35, **FLOAT_PATH},
+             "seg": {"sr_attention": 28, **SEG_ONLY}}
+# f32 against one process: phase 8 (a)'s limits (TRAIN_LOSS_RTOL,
+# TRAIN_LEAF_RTOL) and the seg step's relative L2 below, except the
+# fusion step's leaves. The f32 fusion step of one process is not the same
+# at a rank's batch as at the whole batch's: the controls
+# (``f32_controls``, no ranks) ran the same maths at both shapes on the
+# H100 and read, for the rows with 97 % of their labels ignored (where
+# the CE through the frozen seg net weighs most), 6.25e-2 of relu.weight's
+# largest gradient, a relative L2 of 1.49e-2 over all leaves and 2.05e-2
+# of the AdamW steps more than 1 % apart; the same batch again read
+# 2.5e-7 in L2, its rows reversed 4.2e-6. The DP step against one process
+# read 1.29e-2 (DRDB1.Dcov5.bias), 6.6e-3 in L2 and 7.65e-3 of the
+# steps, inside that spread; so the fusion step is held to 4e-2 per leaf
+# and 3e-2 of the steps (the CE averaged per rank read 8.2e-2 and
+# 8.0e-2), and its L2 is printed, not held: the CE fault's 6.9e-3 lies
+# inside the shape spread. Exact on CPU ranks: f64 at 1e-9
+# (test_torch_parallel.py), f32 equal to grad_accum's micro-batches
+# (test_torch_parallel_f32.py). The seg step read 8.0e-6 per leaf.
+DP_FUSION_LEAF_RTOL = 4e-2
+DP_FUSION_FLIP_SHARE = 3e-2
+# the seg step, f32: sqrt(sum |got - ref|^2 / sum |ref|^2) over all
+# gradient leaves together (read 5.9e-7; the planted faults 0.84 and 0.99)
+DP_L2_RTOL = 1e-3
+# bf16 against bf16 (rank rows against one process): phase 8 (c)'s
+# limits for bf16 against f32 at 480x640
+DP_BF16_LOSS = 2e-2
+DP_BF16_NORM = (0.02, 20.0)
+# AdamW's first step moves an element by lr g / (|g| + eps) (plus its
+# weight decay): the same step, the group's lr, wherever |g| is far above
+# eps. Updated weights are held by their steps, leaf by leaf: no element's
+# step apart by more than a flipped step (2.02 times the leaf's largest
+# step), and at most this share of elements apart by more than 1 % of it
+# (elements whose gradient lies within rounding of zero step either way)
+DP_FLIP_SHARE = 1e-3
+SPATIAL_WORLDS = (2, 4, 7, 8)   # 7: blocks of 155 and 154 rows
+SPATIAL_EXPECT = {"sr_attention": 9, **FLOAT_PATH}   # per rank, per pair
+# N ranks against one, on the fused Y, relative to its largest magnitude:
+# f32, phase 6's PIPE_RTOL; bf16, phase 4's bf16 DRDB block limits
+# (rtol 2^-7, atol 2^-6), the rtol of the largest |ref|: a context entry
+# one bf16 step apart (the grams summed in another order) moves elements
+# of any size through the rest of the trunk
+SPATIAL_TOL = {"float32": (PIPE_RTOL["fused_y"], 0.0),
+               "bfloat16": (2 ** -7, 2 ** -6)}
+SPATIAL_TIMED = 3
+SHARED_NOTE = "; ranks sharing one card measure overhead, not speed-up"
+
+
+def _counters():
+    from segmif_tpu_torch.kernels.attention import sr_attention
+    from segmif_tpu_torch.kernels.drdb import drdb_growth, drdb_tail
+    from segmif_tpu_torch.kernels.ffm import (crosspath_apply_rows,
+                                              crosspath_grams)
+    from segmif_tpu_torch.kernels.int8 import (drdb_int8_growth,
+                                               drdb_int8_tail)
+
+    return {"sr_attention": sr_attention, "ffm_grams": crosspath_grams,
+            "ffm_apply": crosspath_apply_rows, "drdb_growth": drdb_growth,
+            "drdb_tail": drdb_tail, "drdb_int8_growth": drdb_int8_growth,
+            "drdb_int8_tail": drdb_int8_tail}
+
+
+def _dp_batches():
+    """Phase 13 (a)'s global batches, the same in every process (a
+    seeded CPU generator): labels 10 % ignored in the first half of each
+    batch and 97 % in the second (the ranks' counts of valid pixels
+    differ 30-fold, so a CE averaged per rank moves the step), and the
+    seg batch's second half brighter (the ranks' BatchNorm statistics
+    differ)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 130)
+    b, h, w = DP_FUSION
+
+    def ignore(label):
+        b, h, w = label.shape
+        share = torch.tensor([0.1] * (b // 2) + [0.97] * (b - b // 2))
+        label[torch.rand((b, h, w), generator=gen)
+              < share[:, None, None]] = 255
+        return label
+
+    fusion = train_batch(gen, b, h, w, "cpu")
+    fusion["label"] = ignore(fusion["label"])
+    b, h, w = DP_SEG
+    image = torch.rand((b, h, w, 3), generator=gen)
+    image[b // 2:] = 0.5 + 0.5 * image[b // 2:]
+    label = ignore(torch.randint(0, 9, (b, h, w), generator=gen))
+    return fusion, {"image": image, "label": label}
+
+
+def _dp_models():
+    """(JointPipeline for the fusion step, at the reference modules'
+    scale; SegmentationNetwork for the seg step), seeded."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import (JointPipeline,
+                                                 SegmentationNetwork,
+                                                 init_params)
+
+    joint = drift.init_reference_scale(
+        JointPipeline("mit_b3"), torch.Generator().manual_seed(SEED + 131))
+    seg = init_params(SegmentationNetwork("mit_b3"),
+                      torch.Generator().manual_seed(SEED + 132))
+    return joint, seg
+
+
+def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
+             kinds=("fusion", "seg"), fusion_batch=None):
+    """One round >= 2 fusion step and one seg step (3-group AdamW,
+    drop-path, dropout, BatchNorm) of copies of ``models``
+    (``_dp_models``) on phase 13's batches (the fusion step's replaced by
+    ``fusion_batch`` when given), in ``dtype``; under ``shard`` on this
+    rank's rows; the steps of ``kinds`` only. Returns
+    {'fusion' | 'seg': {'metrics', 'grads', 'before', 'after', 'dwa' |
+    'stats', 'launches', 'ms'}} with tensors on the CPU; ``timed`` more
+    steps give 'ms' per step (host clock around synchronised steps)."""
+    import torch
+
+    from segmif_tpu_torch.train.compare import RecordGrads
+    from segmif_tpu_torch.train.optimizer import (adamw_poly,
+                                                  adamw_poly_grouped)
+    from segmif_tpu_torch.train.state import FusionTrainState, SegTrainState
+    from segmif_tpu_torch.train.steps import (make_fusion_train_step,
+                                              make_seg_train_step)
+
+    joint, seg = (copy.deepcopy(m) for m in models)
+    fusion_default, seg_batch = _dp_batches()
+    if fusion_batch is None:
+        fusion_batch = fusion_default
+    if shard is not None:
+        fusion_batch = shard[0].take(fusion_batch)
+        seg_batch = shard[1].take(seg_batch)
+    kw = [{} if shard is None else {"shard": s} for s in (shard or (0, 0))]
+    out = {}
+    for kind in kinds:
+        if kind == "fusion":
+            tx = RecordGrads(adamw_poly(TRAIN_LR, 0, 20000))
+            step = make_fusion_train_step(joint, tx, False,
+                                          compute_dtype=dtype, device=dev)
+            state = FusionTrainState.create(joint.fusion, tx)
+            batch = {k: v.to(dev) for k, v in fusion_batch.items()}
+            args, extra = (batch, TRAIN_FUSION_SCALE), kw[0]
+        else:
+            names = [k for k, _ in seg.named_parameters()]
+            tx = RecordGrads(adamw_poly_grouped(names, TRAIN_LR, 0, 20000))
+            step = make_seg_train_step(seg, tx, compute_dtype=dtype,
+                                       device=dev)
+            state = SegTrainState.create(seg, tx)
+            batch = {k: v.to(dev) for k, v in seg_batch.items()}
+            args, extra = (batch, SEED), kw[1]
+        before = {k: v.detach().cpu().clone() for k, v in
+                  state.params.items()}
+        for c in (counters or {}).values():
+            c.launches = 0
+        metrics = step(state, *args, **extra)
+        torch.cuda.synchronize()
+        res = {"launches": {k: c.launches for k, c in
+                            (counters or {}).items()},
+               "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
+               "grads": {k: v.cpu() for k, v in tx.grads.items()},
+               "before": before,
+               "after": {k: v.detach().cpu() for k, v in
+                         state.params.items()}}
+        if kind == "fusion":
+            res["dwa"] = {k: getattr(state.dwa, k).cpu() for k in
+                          ("prev", "prev2")}
+        else:
+            res["stats"] = {k: v.cpu() for k, v in
+                            state.batch_stats.items()}
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                step(state, *args, **extra)
+            torch.cuda.synchronize()
+            res["ms"] = (time.perf_counter() - t0) * 1e3 / timed
+        out[kind] = res
+        del step, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flip_check(got, want):
+    """(largest |step_got - step_want| over the leaf's largest step, share
+    of elements whose steps are more than 1 % of it apart) over the
+    updated weights."""
+    worst, far, n = 0.0, 0, 0
+    for k, w in want["after"].items():
+        step = w - want["before"][k]
+        top = step.abs().max().item()
+        if top == 0.0:
+            continue
+        d = ((got["after"][k] - got["before"][k]) - step).abs()
+        worst = max(worst, d.max().item() / top)
+        far += (d > 0.01 * top).sum().item()
+        n += d.numel()
+    return worst, far / n
+
+
+def _losses_rel(g, e, kind) -> float:
+    keys = ("loss", "loss_fusion", "loss_seg") if kind == "fusion" \
+        else ("loss",)
+    return max(abs(g["metrics"][k].item() - e["metrics"][k].item())
+               / max(abs(e["metrics"][k].item()), 1e-30) for k in keys)
+
+
+def _state_leaves(res, kind) -> dict:
+    """The DWA state (fusion) or the BN buffers (seg) of a step."""
+    if kind == "fusion":
+        return {f"dwa.{k}": v for k, v in res["dwa"].items()}
+    return res["stats"]
+
+
+def f32_errors(g, e, kind) -> dict:
+    """Phase 13 (a)'s f32 measures of step result ``g`` against ``e``
+    (``dp_steps``' entries): the losses' relative error, the worst leaf
+    of the gradients and the DWA state or BN buffers (max|err|/max|ref|,
+    the exact-zero leaves apart), those leaves' largest magnitude over
+    the largest gradient's, the relative L2 error of all gradient leaves
+    together, and AdamW's steps (``_flip_check``)."""
+    from segmif_tpu_torch.train.compare import exact_zero_grad, leaf_errors
+
+    keep = [k for k in e["grads"] if not exact_zero_grad(k)]
+    errs = leaf_errors({**{k: g["grads"][k] for k in keep},
+                        **_state_leaves(g, kind)},
+                       {**{k: e["grads"][k] for k in keep},
+                        **_state_leaves(e, kind)})
+    top = max(v.abs().max().item() for v in e["grads"].values())
+    diff2 = sum((g["grads"][k].double() - e["grads"][k].double())
+                .pow(2).sum().item() for k in keep)
+    ref2 = sum(e["grads"][k].double().pow(2).sum().item() for k in keep)
+    flip, share = _flip_check(g, e)
+    return {"rel": _losses_rel(g, e, kind), "leaves": len(errs),
+            "worst": max(errs.items(), key=lambda kv: kv[1]),
+            "zero": max((max(g["grads"][k].abs().max().item(),
+                             e["grads"][k].abs().max().item()) / top
+                         for k in e["grads"] if exact_zero_grad(k)),
+                        default=0.0),
+            "l2": math.sqrt(diff2 / ref2), "flip": flip, "share": share}
+
+
+def f32_line(m, kind, limits=None) -> str:
+    """``f32_errors``' measures as text; ``limits``: (worst leaf, relative
+    L2 or None, share of AdamW steps apart) of a check, printed with the
+    other limits."""
+    leaf, l2, share = limits or (None, None, None)
+
+    def lim(x):
+        return "" if limits is None or x is None else f" (limit {x:g})"
+
+    return (f"losses relative {m['rel']:.2e}{lim(TRAIN_LOSS_RTOL)}; "
+            f"{m['leaves']} gradient leaves, "
+            f"{'DWA state' if kind == 'fusion' else 'BN buffers'}: worst "
+            f"max|err|/max|ref| {m['worst'][1]:.3e} ({m['worst'][0]})"
+            f"{lim(leaf)}; all gradient leaves' relative L2 "
+            f"{m['l2']:.3e}{lim(l2)}; exact-zero leaves "
+            f"{m['zero']:.1e} of the largest gradient{lim(1e-6)}; updated "
+            f"weights: worst step difference {m['flip']:.3f} of the "
+            f"leaf's largest step{lim(2.02)}, share beyond 1% of it "
+            f"{m['share']:.2e}{lim(share)}")
+
+
+def dp_compare(label, got, want, dtype):
+    """Phase 13 (a)'s checks of a DP run against one process: one
+    (passed, line) per step."""
+    from segmif_tpu_torch.train.compare import exact_zero_grad, norm_ratios
+
+    out = []
+    for kind in ("fusion", "seg"):
+        g, e = got[kind], want[kind]
+        if dtype == "float32":
+            m = f32_errors(g, e, kind)
+            limits = ((DP_FUSION_LEAF_RTOL, None, DP_FUSION_FLIP_SHARE)
+                      if kind == "fusion" else
+                      (TRAIN_LEAF_RTOL, DP_L2_RTOL, DP_FLIP_SHARE))
+            leaf, l2, share = limits
+            good = (m["rel"] <= TRAIN_LOSS_RTOL and m["worst"][1] <= leaf
+                    and (l2 is None or m["l2"] <= l2)
+                    and m["zero"] <= 1e-6 and m["flip"] <= 2.02
+                    and m["share"] <= share)
+            line = f"{label} {kind}: " + f32_line(m, kind, limits)
+        else:
+            rel = _losses_rel(g, e, kind)
+            extra, extra_e = _state_leaves(g, kind), _state_leaves(e, kind)
+            grads = {k: v for k, v in g["grads"].items()
+                     if not exact_zero_grad(k)}
+            grads_e = {k: v for k, v in e["grads"].items()
+                       if not exact_zero_grad(k)}
+            steps = {k: g["after"][k] - g["before"][k] for k in e["after"]
+                     if not exact_zero_grad(k)}
+            steps_e = {k: e["after"][k] - e["before"][k] for k in steps}
+            ratios = norm_ratios({**grads, **extra}, {**grads_e, **extra_e})
+            ratios.update({f"step {k}": v for k, v in
+                           norm_ratios(steps, steps_e).items()})
+            # leaves whose reference is all zeros (the aux classifier's
+            # gradient) have no ratio
+            ratios = {k: v for k, v in ratios.items() if math.isfinite(v)}
+            lo, hi = min(ratios.values()), max(ratios.values())
+            good = (rel <= DP_BF16_LOSS and lo >= DP_BF16_NORM[0]
+                    and hi <= DP_BF16_NORM[1])
+            line = (
+                f"{label} {kind}: losses relative {rel:.2e} (limit "
+                f"{DP_BF16_LOSS:g}); {len(ratios)} gradient leaves, "
+                f"buffers and weight steps, norm ratio in [{lo:.4f}, "
+                f"{hi:.4f}] (limits {DP_BF16_NORM})")
+        out.append((good, line))
+    return out
+
+
+def _agree(comm, tree) -> bool:
+    """Whether every rank holds the same values: an f64 checksum of the
+    tree (sum, then sum of squares of the element-wise ranks) gathered."""
+    import torch
+
+    flat = torch.cat([v.double().flatten()
+                      for _, v in sorted(tree.items())])
+    pos = torch.arange(flat.numel(), dtype=torch.float64)
+    mine = torch.stack([flat.sum(), (flat * pos).sum()]).to(comm.device)
+    got = comm.all_gather_rows(mine[None], [1] * comm.world)
+    return bool((got == got[0]).all())
+
+
+def f32_controls(models, dev, world, one) -> list:
+    """Phase 13 (a)'s controls, without ranks: the f32 fusion step of one
+    process against itself where only the order of its sums can differ.
+    (repeat) the whole batch again, against ``one`` (``dp_steps``'
+    fusion entry on it); (order) the batch's rows in reverse order,
+    against ``one``; (shape) each rank's B / ``world`` rows alone against
+    the same rows tiled ``world`` times (batch B): every loss is a mean
+    and the CE a sum over a count that the tiling multiplies alike, so
+    these are the same maths at a rank's shape and at one process's.
+    Returns their lines."""
+    import torch
+
+    batch = _dp_batches()[0]
+    per = DP_FUSION[0] // world
+
+    def run(b):
+        return dp_steps(models, dev, torch.float32, kinds=("fusion",),
+                        fusion_batch=b)["fusion"]
+
+    pairs = [("the whole batch again", run(batch), one),
+             ("the batch's rows in reverse order",
+              run({k: v.flip(0) for k, v in batch.items()}), one)]
+    for r in range(world):
+        rows = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+        pairs.append((
+            f"rank {r}'s {per} rows against the same rows tiled to batch "
+            f"{DP_FUSION[0]}", run(rows),
+            run({k: torch.cat([v] * world) for k, v in rows.items()})))
+    return [f"dp (a) control, no ranks, f32 fusion step, {label}: "
+            + f32_line(f32_errors(got, want, "fusion"), "fusion")
+            for label, got, want in pairs]
+
+
+def dp_rank(comm):
+    """Phase 13 (a) and (d) on one of the DP ranks: rank 0 first runs the
+    one-process steps on the whole batches (f32 and bf16) and the f32
+    controls while the other ranks wait, then every rank runs the DP steps
+    in f32 and bf16 (the bf16 ones counted and timed), the two planted
+    faults in f32, and the dry run. Rank 0 returns the lines and
+    verdicts."""
+    import torch
+
+    from segmif_tpu_torch.models import segformer_head
+    from segmif_tpu_torch.parallel import dryrun
+    from segmif_tpu_torch.parallel.mesh import batch_shard, make_mesh
+    from segmif_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    counters = _counters()
+    mesh = make_mesh(comm=comm)
+    shard = (batch_shard(mesh, DP_FUSION[0]), batch_shard(mesh, DP_SEG[0]))
+    models = _dp_models()
+    one = {}
+    if comm.rank == 0:
+        for name in ("float32", "bfloat16"):
+            timed = DP_TIMED if name == "bfloat16" else 0
+            one[name] = dp_steps(models, dev, getattr(torch, name),
+                                 timed=timed)
+        controls = f32_controls(models, dev, comm.world,
+                                one["float32"]["fusion"])
+    comm.barrier()
+    out = {"transport": comm.transport, "lines": [], "ok": True}
+    if comm.rank == 0:
+        out["lines"] += controls
+    for name in ("float32", "bfloat16"):
+        got = dp_steps(models, dev, getattr(torch, name), shard,
+                       timed=DP_TIMED if name == "bfloat16" else 0,
+                       counters=counters)
+        same = all(_agree(comm, {**got[k]["grads"], **got[k]["after"]})
+                   for k in ("fusion", "seg"))
+        if name == "bfloat16":
+            out["launches"] = {k: got[k]["launches"] for k in got}
+            out["ms"] = {k: (got[k]["ms"], one.get(name, got)[k]["ms"])
+                         for k in got}
+        if comm.rank == 0:
+            res = dp_compare(f"dp (a) {name}, {comm.world} ranks", got,
+                             one[name], name)
+            out["lines"] += [ln for _, ln in res] + [
+                f"dp (a) {name}: every rank's gradients and weights the "
+                f"same: {same}"]
+            out["ok"] = out["ok"] and same and all(ok for ok, _ in res)
+        del got
+    real_ce, real_bs = steps.ce_share, segformer_head.batch_stats
+    faults = {
+        "CE averaged per rank": (steps, "ce_share", lambda lg, lb, ig, s: (
+            steps.cross_entropy(lg, lb, ig) * s.share)),
+        "BatchNorm on local statistics": (
+            segformer_head, "batch_stats",
+            lambda x, shard=None: real_bs(x))}
+    for label, (mod, attr, fake) in faults.items():
+        setattr(mod, attr, fake)
+        try:
+            bad = dp_steps(models, dev, torch.float32, shard)
+        finally:
+            steps.ce_share, segformer_head.batch_stats = real_ce, real_bs
+        if comm.rank == 0:
+            res = dp_compare(f"planted fault, dp (a), {label}", bad,
+                             one["float32"], "float32")
+            out["lines"] += [ln + (" (holds: the fault does not reach this "
+                                   "step)" if ok else
+                                   " (the check fails, as it must)")
+                             for ok, ln in res]
+            out["ok"] = out["ok"] and not all(ok for ok, _ in res)
+        del bad
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun(comm)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_launches"] = {k: c.launches for k, c in counters.items()}
+    return out
+
+
+def spatial_rank(comm, worlds):
+    """Phase 13 (c) on one of the spatial ranks: rank 0 first fuses the
+    stretch pair on its own (f32 and bf16) while the others wait; then
+    each group of the first N ranks (N in ``worlds``) fuses it with
+    ``make_spatial_fuse_fn`` in f32 and bf16 (launches counted) and times
+    the bf16 fuse; with N = 2 the planted faults run in f32."""
+    import torch
+
+    from segmif_tpu_torch._device import place
+    from segmif_tpu_torch.cli.stretch import synthetic_pair
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+    from segmif_tpu_torch.parallel import spatial
+    from segmif_tpu_torch.parallel.mesh import make_mesh
+    from segmif_tpu_torch.train.steps import make_fuse_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    counters = _counters()
+    model = init_params(JointPipeline("mit_b5", STRETCH_CLASSES),
+                        torch.Generator().manual_seed(0))
+    ir, vis = (t.to(dev) for t in synthetic_pair(*STRETCH_HW))
+    ref = {}
+    out = {"lines": [], "ok": True, "launches": {}, "ms": {}}
+    if comm.rank == 0:
+        for name in SPATIAL_TOL:
+            fuse = make_fuse_fn(model, getattr(torch, name), dev)
+            ref[name] = fuse(ir, vis, vis)[1].float().cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_TIMED):
+            fuse(ir, vis, vis)
+        torch.cuda.synchronize()
+        out["ms"][1] = (time.perf_counter() - t0) * 1e3 / SPATIAL_TIMED
+        del fuse
+    comm.barrier()
+    groups = {n: comm.subgroup(range(n)) for n in worlds}
+
+    def held_to_one(label, y, name, fault=False):
+        if comm.rank != 0:
+            return
+        rtol, atol = SPATIAL_TOL[name]
+        want = ref[name]
+        err = (y.float().cpu() - want).abs().max().item()
+        limit = atol + rtol * want.abs().max().item()
+        ok = err <= limit and bool(torch.isfinite(y).all())
+        out["lines"].append(
+            f"{label}: fused Y {tuple(y.shape)} max_abs_err {err:.3e} of "
+            f"max |ref| {want.abs().max().item():.3e} (limit {limit:.3e})"
+            + (" (the check fails, as it must)" if fault else ""))
+        out["ok"] = out["ok"] and (ok != fault)
+
+    for n, sub in groups.items():
+        if sub is not None:
+            mesh = make_mesh(comm=sub)
+            for name in SPATIAL_TOL:
+                fuse = spatial.make_spatial_fuse_fn(
+                    mesh, model, getattr(torch, name), dev)
+                for c in counters.values():
+                    c.launches = 0
+                _, y = fuse(ir, vis, vis)
+                torch.cuda.synchronize()
+                counts = {k: c.launches for k, c in counters.items()}
+                out["launches"][(n, name)] = counts
+                rows = sorted({b - a for a, b in
+                               spatial.row_blocks(STRETCH_HW[0], n)})
+                held_to_one(f"spatial (c) {name}, {n} ranks (blocks of "
+                            f"{rows} rows)", y, name)
+                if name == "bfloat16":
+                    sub.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(SPATIAL_TIMED):
+                        fuse(ir, vis, vis)
+                    torch.cuda.synchronize()
+                    sub.barrier()
+                    out["ms"][n] = ((time.perf_counter() - t0) * 1e3
+                                    / SPATIAL_TIMED)
+                del fuse, y
+            if n == 2:
+                infer = place(copy.deepcopy(model), dev).eval()
+                with torch.inference_mode():
+                    taps = infer.seg.encode_taps_raw(vis)
+                    y = spatial.spatial_fuse_batched(
+                        mesh, infer.fusion, ir, vis[..., 0:1], *taps,
+                        halo=8)
+                held_to_one("planted fault, spatial (c) f32, 2 ranks, a "
+                            "halo of 8 rows", y, "float32", fault=True)
+                real = spatial.all_reduce_grams
+                spatial.all_reduce_grams = lambda c, g: g
+                try:
+                    with torch.inference_mode():
+                        y = spatial.spatial_fuse_batched(
+                            mesh, infer.fusion, ir, vis[..., 0:1], *taps)
+                finally:
+                    spatial.all_reduce_grams = real
+                held_to_one("planted fault, spatial (c) f32, 2 ranks, the "
+                            "FFM grams not summed over the ranks", y,
+                            "float32", fault=True)
+                del infer, taps, y
+            torch.cuda.empty_cache()
+        comm.barrier()
+    out["transport"] = comm.transport
+    return out
+
+
+def parallel_checks(dev, totals, card: str):
+    """Phase 13: the parallel paths; see the module docstring."""
+    import torch
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_check(dev, tmp)
+        dp_checks(totals, card, tmp)
+        spatial_checks(totals, card, tmp)
+    print(f"phase 13: {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
+def nccl_check(dev, tmp):
+    """Phase 13 (b): NCCL at world size 1, one fusion step through the
+    DP path against the plain step."""
+    import os
+
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+    from segmif_tpu_torch.parallel import dist
+    from segmif_tpu_torch.parallel.mesh import batch_shard, make_mesh
+    from segmif_tpu_torch.train.compare import (KeepGrads, leaf_errors,
+                                                step_grads)
+    from segmif_tpu_torch.train.state import FusionTrainState
+    from segmif_tpu_torch.train.steps import make_fusion_train_step
+
+    t0 = time.perf_counter()
+    comm = dist.init(1, 0, device="cuda",
+                     init_method="file://" + os.path.join(tmp, "nccl"))
+    try:
+        check(comm.backend == "nccl", f"world 1 on the card took "
+                                      f"{comm.backend}, not nccl")
+        model = drift.init_reference_scale(
+            JointPipeline("mit_b3"),
+            torch.Generator().manual_seed(SEED + 133))
+        batch = train_batch(torch.Generator().manual_seed(SEED + 134),
+                            2, *TRAIN_HW, dev)
+        want_m, want = step_grads(model, batch, False, torch.float32,
+                                  dev, TRAIN_FUSION_SCALE)
+        shard = batch_shard(make_mesh(comm=comm), 2)
+        m = copy.deepcopy(model)
+        tx = KeepGrads()
+        step = make_fusion_train_step(m, tx, False,
+                                      compute_dtype=torch.float32,
+                                      device=dev)
+        state = FusionTrainState.create(m.fusion, tx)
+        got_m = step(state, batch, TRAIN_FUSION_SCALE, shard=shard)
+        rel = abs(got_m["loss"].item() - want_m["loss"].item()) / abs(
+            want_m["loss"].item())
+        worst = max(leaf_errors(state.opt_state, want).values())
+        print(f"parallel (b) NCCL, world 1 ({comm.transport}): one "
+              f"f32 round >= 2 fusion step, mit_b3 batch 2 "
+              f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, through the DP path "
+              f"against the plain step: loss relative {rel:.2e}, worst "
+              f"leaf {worst:.3e} (limits {TRAIN_LOSS_RTOL:g}, "
+              f"{TRAIN_LEAF_RTOL:g}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_LEAF_RTOL,
+              "parallel (b): the NCCL step differs")
+    finally:
+        dist.leave()
+    torch.cuda.empty_cache()
+
+
+def dp_checks(totals, card, tmp, world=DP_WORLD):
+    """Phase 13 (a), (d) and their part of (e): DP and the dry run on
+    ``world`` ranks (on one card, or one card each)."""
+    from segmif_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    dp = dist.launch(dp_rank, world, (), device="cuda", timeout=600,
+                     workdir=tmp)
+    r0 = dp[0]
+    print(f"parallel (a) ranks: {world} on {card}: {r0['transport']}",
+          flush=True)
+    for ln in r0["lines"]:
+        print(ln, flush=True)
+    check(r0["ok"], "parallel (a): a DP check failed, or a planted "
+                    "fault passed")
+    for r, res in enumerate(dp):
+        for kind, counts in res["launches"].items():
+            check(counts == DP_EXPECT[kind],
+                  f"parallel (a) rank {r} {kind}: launches {counts}, "
+                  f"expected {DP_EXPECT[kind]}")
+            for k, v in counts.items():
+                totals[k] += v
+        for k, v in res["dryrun_launches"].items():
+            totals[k] += v
+        check(res["dryrun_launches"]["ffm_grams"] > 0,
+              "parallel (d): the dry run launched no FFM kernel")
+    print(f"parallel (a) launches per rank per bf16 step: "
+          f"{r0['launches']}", flush=True)
+    note = SHARED_NOTE if r0["transport"].startswith("gloo") else ""
+    for kind, (ms, one_ms) in r0["ms"].items():
+        print(f"parallel (e) {kind} step bf16, {world} ranks "
+              f"({r0['transport']}; {card}): {ms:.1f} ms per step on "
+              f"rank 0 against {one_ms:.1f} ms for one process on the "
+              f"whole batch{note}", flush=True)
+    print(f"parallel (d) {r0['dryrun']} ({r0['dryrun_s']:.1f} s)",
+          flush=True)
+    check(dp[1]["dryrun"] == r0["dryrun"],
+          "parallel (d): the ranks' dry-run lines differ")
+    print(f"parallel (a)+(d): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return r0["transport"]
+
+
+def spatial_checks(totals, card, tmp, worlds=SPATIAL_WORLDS):
+    """Phase 13 (c) and its part of (e): the spatial fuse on each count
+    of ranks in ``worlds`` (on one card, or one card each)."""
+    from segmif_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    sp = dist.launch(spatial_rank, max(worlds), (worlds,), device="cuda",
+                     timeout=600, workdir=tmp)
+    r0 = sp[0]
+    print(f"parallel (c) ranks: {r0['transport']}", flush=True)
+    for ln in r0["lines"]:
+        print(ln, flush=True)
+    check(r0["ok"], "parallel (c): a spatial check failed, or a "
+                    "planted fault passed")
+    for r, res in enumerate(sp):
+        for (n, name), counts in res["launches"].items():
+            check(counts == SPATIAL_EXPECT,
+                  f"parallel (c) rank {r} of {n}, {name}: launches "
+                  f"{counts}, expected {SPATIAL_EXPECT}")
+            for k, v in counts.items():
+                totals[k] += v
+    print(f"parallel (c) launches per rank per pair: "
+          f"{SPATIAL_EXPECT}", flush=True)
+    curve = ", ".join(f"{n} rank{'s' * (n > 1)} {ms:.1f} ms"
+                      for n, ms in sorted(r0["ms"].items()))
+    note = SHARED_NOTE if r0["transport"].startswith("gloo") else ""
+    print(f"parallel (e) spatial fuse bf16, mit_b5 {STRETCH_HW[0]}x"
+          f"{STRETCH_HW[1]} batch 1 ({r0['transport']}; {card}): "
+          f"{curve} (rank 0, host clock over {SPATIAL_TIMED} pairs{note})",
+          flush=True)
+    print(f"parallel (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    return r0["transport"]
+
+
+def nccl_run(card: str) -> int:
+    """``--parallel`` on several cards: phase 13 (a), (c), (d) and (e)
+    with one rank per card of this host, over NCCL
+    (``dist.choose_backend``'s rule); the spatial fuse on 2 ranks and on
+    every card. Returns the exit code."""
+    import torch
+
+    n = torch.cuda.device_count()
+    totals = {k: 0 for k in _counters()}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for transport in (dp_checks(totals, card, tmp, world=n),
+                          spatial_checks(totals, card, tmp,
+                                         worlds=tuple(sorted({2, n})))):
+            check(transport.startswith("nccl"),
+                  f"{n} ranks on {n} cards took {transport}, not nccl")
+    check(all(totals[k] > 0 for k, v in STRETCH_FUSE.items() if v),
+          f"a kernel of the parallel paths never launched: {totals}")
+    print(f"phase 13 over NCCL on {n} cards: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--parallel", action="store_true",
+                   help="phases 1-3 and 13 alone; with several cards, one "
+                        "rank per card over NCCL")
+    args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -3054,12 +3818,25 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip()
     print(card, flush=True)
+    if args.parallel and torch.cuda.device_count() > 1:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip(),
+              flush=True)
 
     # phase 3: build
     _build.library()
     srcs = ", ".join(str(p.relative_to(ROOT)) for p in _build.sources())
     print(f"build: {_build.build_seconds:.1f} s, nvcc "
           f"{' '.join(_build.ARCH_FLAGS)}, from {srcs}", flush=True)
+    if args.parallel:
+        if torch.cuda.device_count() > 1:
+            return nccl_run(card)
+        parallel_checks(dev, {k: 0 for k in _counters()}, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": 1}}), flush=True)
+        return 0
 
     # phase 4: kernels vs plain at main-path shapes
     kres = kernel_checks(dev)
@@ -3246,6 +4023,9 @@ def main() -> int:
         fresh_process_check(fresh)
     print(json.dumps({"stretch_kernels": stretch_rows}), flush=True)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 13: the parallel paths
+    parallel_checks(dev, totals, card)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

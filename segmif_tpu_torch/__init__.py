@@ -34,7 +34,10 @@ Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
    ``Prefetcher``, ``iterate_eval`` and the batched device-side
    augmentation; ``train.streaming``: the disk-backed splits; ``eval``:
    the confusion matrix, the scores, the evaluator, the fused-PNG writer
-   and the colormaps; ``config``: the config tree; ``cli``: ``train``,
+   and the colormaps; ``parallel``: data parallelism and the
+   row-sharded fusion trunk over ``torch.distributed`` (``dist``,
+   ``mesh``, ``spatial``, ``dryrun``); ``config``: the config tree;
+   ``cli``: ``train``,
    ``test_fusion``, ``test_segmentation``, ``convert_checkpoint``,
    ``stretch`` (the 1080p/mit_b5 path) and ``export``
    (``python -m segmif_tpu_torch.cli.<name>``); ``disk_check``: the

@@ -25,22 +25,26 @@ clock on the CPU). ``--data_root`` fuses a folder at batch 1
 The run is on the card unless ``--device cpu`` is given; the compute
 dtype defaults to bfloat16 on the card and float32 on the CPU.
 
-Departure from the JAX CLI: ``--spatial`` (row shards of the fusion
-trunk) defaults to 1, the plain fuse on one device; the JAX CLI defaults
-to 8. N > 1 is refused: spatial row sharding is ROADMAP queue 1's
-"Spatial row sharding" item, not ported yet.
+``--spatial N`` splits the fusion trunk's rows over N ranks
+(``parallel.spatial.make_spatial_fuse_fn``): under torchrun
+(``torchrun --standalone --nproc_per_node N -m
+segmif_tpu_torch.cli.stretch --spatial N ...``), else on N ranks the CLI
+spawns; N = 1 is the plain fuse in this process. N defaults to the
+number of cards this process sees (1 on the CPU): the JAX CLI's default
+of 8 meant 8 devices, and N ranks that share one card only add the
+exchanges' overhead. Rank r computes on ``cuda:r % device_count``; ranks
+that share a card talk over gloo, ranks with a card each over NCCL
+(``parallel.dist``). Every rank holds at least 16 rows. Rank 0 segments
+the gathered fused image, prints and writes; the others only fuse.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Callable, Tuple
 
 from .test_fusion import add_runtime_args, runtime
-
-SPATIAL_REFUSAL = ("--spatial N > 1: the row-sharded fusion trunk "
-                   "(parallel/spatial.py) is not ported; it is ROADMAP "
-                   "queue 1's \"Spatial row sharding\" item")
 
 
 def make_stretch_fns(model, compute_dtype, device) -> Tuple[Callable,
@@ -104,13 +108,14 @@ def _clock(dev):
     return start
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--config", default="configs/stretch_1080p.yaml")
-    p.add_argument("--spatial", type=int, default=1,
-                   help="row shards for the fusion trunk: 1, the plain "
-                        "fuse (N > 1 is not ported)")
+    p.add_argument("--spatial", type=int, default=None,
+                   help="row shards (ranks) for the fusion trunk; 1: the "
+                        "plain fuse in this process; default: the cards "
+                        "this process sees (1 on the CPU)")
     p.add_argument("--synthetic", action="store_true",
                    help="run on one synthetic pair (no data needed)")
     p.add_argument("--data_root", default=None)
@@ -123,32 +128,88 @@ def main(argv=None):
                    help="fusion only (skip the segmentation branch)")
     add_runtime_args(p)
     args = p.parse_args(argv)
-    if args.spatial != 1:
-        raise ValueError(SPATIAL_REFUSAL)
+    if args.spatial is None:
+        import torch
 
-    import torch
+        args.spatial = max(1, torch.cuda.device_count()) \
+            if torch.device(args.device).type == "cuda" else 1
+    return args
 
+
+def _config(args):
+    """(config, H, W) of the run."""
     from ..config import load_yaml
-    from ..models.network import JointPipeline, init_params
 
-    dev, dtype, acc = runtime(args)
     cfg = load_yaml(args.config)
     if args.backbone:
         cfg.backbone = args.backbone
     h, w = args.size if args.size else cfg.data.resize_range
-    print(f"stretch config: backbone={cfg.backbone} "
+    return cfg, h, w
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    if args.spatial > 1:
+        from ..parallel.dist import run_cli
+        from ..parallel.spatial import row_blocks
+
+        if args.synthetic or not args.data_root:
+            row_blocks(_config(args)[1], args.spatial)
+        return _from_numpy(run_cli(args.spatial, args.device,
+                                   lambda c: _run(args, c), _rank, argv))
+    return _run(args)
+
+
+def _rank(comm, argv):
+    """One spawned rank of ``--spatial N``: its result with tensors as
+    numpy arrays (rank 0's is returned)."""
+    out = _run(_parse(argv), comm)
+    return tuple(t.cpu().numpy() if hasattr(t, "numpy") else t for t in out)
+
+
+def _from_numpy(out):
+    import numpy as np
+    import torch
+
+    return tuple(torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+                 for t in out)
+
+
+def _run(args, comm=None):
+    import torch
+
+    from ..models.network import JointPipeline, init_params
+
+    dev, dtype, acc = runtime(args, comm)
+    cfg, h, w = _config(args)
+    lead = comm is None or comm.rank == 0   # prints, segments, writes
+    say = print if lead else (lambda *a, **k: None)
+    say(f"stretch config: backbone={cfg.backbone} "
           f"classes={cfg.data.num_classes} resolution={h}x{w} "
           f"spatial shards={args.spatial} device={dev.type} "
           f"dtype={str(dtype).split('.')[-1]}", flush=True)
+    if comm is not None:
+        say(f"spatial ranks: {comm.transport}", flush=True)
 
     t0 = time.perf_counter()
     model = init_params(JointPipeline(cfg.backbone, cfg.data.num_classes,
                                       cfg.embedding_dim),
                         torch.Generator().manual_seed(0))
-    print(f"params initialized in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    fuse_fn, seg_fn = make_stretch_fns(model, dtype, dev)
+    say(f"params initialized in {time.perf_counter() - t0:.1f}s",
+        flush=True)
+    if args.spatial > 1:
+        from ..parallel.mesh import make_mesh
+        from ..parallel.spatial import make_spatial_fuse_fn
+
+        fuse_fn = make_spatial_fuse_fn(make_mesh(args.spatial, comm=comm),
+                                       model, dtype, dev)
+        seg_fn = make_stretch_fns(model, dtype, dev)[1] if lead else None
+    else:
+        fuse_fn, seg_fn = make_stretch_fns(model, dtype, dev)
     clock = _clock(dev)
+    if args.no_seg or not lead:
+        seg_fn = None
 
     if args.synthetic or not args.data_root:
         ir, vis = synthetic_pair(h, w)
@@ -158,18 +219,18 @@ def main(argv=None):
             fused, _ = fuse_fn(ir, vis, vis)
             tf = stop()
             logits, ts = None, 0.0
-            if not args.no_seg:
+            if seg_fn is not None:
                 stop = clock()
                 logits = seg_fn(fused)
                 ts = stop()
             tag = "warm-up" if i == 0 else "steady-state"
-            print(f"[{tag}] fuse {tf:.0f} ms"
-                  + ("" if args.no_seg else f", seg {ts:.0f} ms"),
-                  flush=True)
-        print(f"fused shape {tuple(fused.shape)}"
-              + ("" if logits is None else
-                 f", logits shape {tuple(logits.shape)}"))
-        print("stretch 1080p OK", flush=True)
+            say(f"[{tag}] fuse {tf:.0f} ms"
+                + ("" if args.no_seg else f", seg {ts:.0f} ms"),
+                flush=True)
+        say(f"fused shape {tuple(fused.shape)}"
+            + ("" if logits is None else
+               f", logits shape {tuple(logits.shape)}"))
+        say("stretch 1080p OK", flush=True)
         return fused, logits
 
     from ..data.datasets import FusionFolderDataset
@@ -177,9 +238,9 @@ def main(argv=None):
 
     ds = FusionFolderDataset(args.data_root)
     names, fused, _ = generate_fused(fuse_fn, ds, batch_size=1,
-                                     out_dir=args.out_dir, device=dev,
-                                     dtype=acc)
-    print(f"fused {len(names)} images at {h}x{w} -> {args.out_dir}")
+                                     out_dir=args.out_dir if lead else None,
+                                     device=dev, dtype=acc)
+    say(f"fused {len(names)} images at {h}x{w} -> {args.out_dir}")
     return names, fused
 
 

@@ -16,7 +16,13 @@ the seg encoder's taps of its guide image, and writes
 
 ``--static_guide IMAGE`` computes the guide's taps once from IMAGE
 (``serving.precompute_guide_taps``) and broadcasts them to every batch.
-``--spatial N > 0`` (row sharding over N devices) is refused.
+``--spatial N > 0`` fuses with the fusion trunk's rows split over N ranks
+(``parallel.spatial.make_spatial_fuse_fn``): under torchrun
+(``torchrun --standalone --nproc_per_node N -m
+segmif_tpu_torch.cli.test_fusion --spatial N ...``), else on N ranks the
+CLI spawns (one rank: in this process); rank 0 writes the PNGs. Each
+image's rows per rank must be at least 16; ``--static_guide`` is not
+taken with it.
 
 The run is on the card unless ``--device cpu`` is given (without a card it
 raises); the compute dtype defaults to bfloat16 on the card and float32 on
@@ -27,6 +33,7 @@ from __future__ import annotations
 import argparse
 import copy
 import logging
+import sys
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -41,15 +48,16 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                         "float32 on the CPU")
 
 
-def runtime(args):
-    """(device, compute dtype, input dtype) from ``--device`` and
-    ``--compute_dtype``; raises without a card unless ``--device cpu``."""
+def runtime(args, comm=None):
+    """(device, compute dtype, input dtype) from ``--device`` (or the
+    device of ``comm``'s rank) and ``--compute_dtype``; raises without a
+    card unless ``--device cpu``."""
     import torch
 
     from .._device import resolve
     from ..kernels import _build
 
-    dev = resolve(args.device)
+    dev = resolve(args.device if comm is None else comm.device)
     name = args.compute_dtype or ("float32" if dev.type == "cpu"
                                   else "bfloat16")
     dtype = getattr(torch, name)
@@ -114,7 +122,7 @@ def make_static_guide_fuse_fn(model, guide_rgb01, compute_dtype,
     return fuse
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data_root", required=True)
     p.add_argument("--ir_dir", default="Infrared")
@@ -132,40 +140,76 @@ def main(argv=None):
                    help="reproduce the reference's double uint8 "
                         "quantization")
     p.add_argument("--spatial", type=int, default=0, metavar="N",
-                   help="not ported: N > 0 is refused")
+                   help="split the fusion trunk's rows over N ranks")
     p.add_argument("--static_guide", default=None, metavar="IMAGE",
                    help="compute the guide's seg-encoder taps ONCE from "
                         "this image and reuse them for every pair")
     add_runtime_args(p)
-    args = p.parse_args(argv)
-    if args.spatial > 0:
-        raise ValueError("--spatial: the row-sharded fusion trunk "
-                         "(parallel/spatial.py) is not ported; it is "
-                         "ROADMAP queue 1's \"Spatial row sharding\" item")
+    return p.parse_args(argv)
 
+
+def _dataset(args):
+    from ..data.datasets import FusionFolderDataset
+
+    return FusionFolderDataset(args.data_root, ir_dir=args.ir_dir,
+                               vis_dir=args.vis_dir,
+                               guide_dir=args.guide_dir,
+                               label_dir=args.label_dir)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    if args.spatial > 0:
+        from ..parallel.dist import run_cli
+        from ..parallel.spatial import row_blocks
+
+        if args.static_guide:
+            raise ValueError("--static_guide is not taken with --spatial")
+        ds = _dataset(args)
+        if len(ds):   # every rank holds >= 16 rows of each image
+            row_blocks(ds[0][1].shape[0], args.spatial)
+        return run_cli(args.spatial, args.device, lambda c: _run(args, c),
+                       _rank, argv)
+    return _run(args)
+
+
+def _rank(comm, argv):
+    """One spawned rank of ``--spatial N``."""
+    return _run(_parse(argv), comm)
+
+
+def _run(args, comm=None):
     import torch
 
-    from ..data.datasets import FusionFolderDataset, _load_image
+    from ..data.datasets import _load_image
     from ..eval.evaluator import generate_fused
+    from ..parallel.mesh import make_mesh
+    from ..parallel.spatial import make_spatial_fuse_fn
     from ..train.steps import make_fuse_fn
 
-    dev, dtype, acc = runtime(args)
+    dev, dtype, acc = runtime(args, comm)
     model = build_model(args.backbone, args.num_classes, args.checkpoint_dir,
                         args.torch_fusion_ckpt, args.torch_seg_ckpt)
-    ds = FusionFolderDataset(args.data_root, ir_dir=args.ir_dir,
-                             vis_dir=args.vis_dir, guide_dir=args.guide_dir,
-                             label_dir=args.label_dir)
-    if args.static_guide:
+    ds = _dataset(args)
+    out_dir = args.out_dir
+    if args.spatial > 0:
+        fuse_fn = make_spatial_fuse_fn(make_mesh(args.spatial, comm=comm),
+                                       model, dtype, dev)
+        if comm is not None and comm.rank > 0:
+            out_dir = None   # rank 0 writes
+    elif args.static_guide:
         guide = _load_image(Path(args.static_guide), gray_to_rgb=True)
         fuse_fn = make_static_guide_fuse_fn(
             model, torch.from_numpy(guide)[None] / 255.0, dtype, dev)
     else:
         fuse_fn = make_fuse_fn(model, dtype, dev)
     names, _, _ = generate_fused(
-        fuse_fn, ds, batch_size=args.batch_size, out_dir=args.out_dir,
+        fuse_fn, ds, batch_size=args.batch_size, out_dir=out_dir,
         quantize_like_reference=args.reference_quantization, device=dev,
         dtype=acc)
-    print(f"fused {len(names)} images -> {args.out_dir}")
+    if out_dir is not None:
+        print(f"fused {len(names)} images -> {out_dir}")
     return names
 
 

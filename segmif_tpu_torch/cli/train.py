@@ -19,14 +19,29 @@ The run is on the card unless ``--device cpu`` is given; without a card
 and without ``--device cpu`` it raises. On the CPU the compute dtype
 defaults to float32, on the card to bfloat16. The log goes to stdout and
 to ``train.log`` in the checkpoint dir.
+
+Data parallelism over N ranks (``train.interactive``; N ranks train as one
+process on the whole batch):
+
+    torchrun --standalone --nproc_per_node N \
+        -m segmif_tpu_torch.cli.train --mesh_data N ...
+
+or, without torchrun, ``--mesh_data N`` alone: the CLI spawns the N ranks
+itself (``parallel.dist.launch``). Rank r computes on ``cuda:r %
+device_count`` (``--device cpu``: the CPU); the ranks talk over NCCL when
+each has a card of its own and over gloo when they share one or run on
+the CPU (``parallel.dist.choose_backend``). Only rank 0 logs at INFO and
+writes files.
 """
 from __future__ import annotations
 
 import argparse
+import logging
+import sys
 from pathlib import Path
 
 
-def main(argv=None):
+def _parse(argv):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", default=None, help="seg-task YAML")
     p.add_argument("--configf", default=None, help="fusion-task YAML")
@@ -51,9 +66,10 @@ def main(argv=None):
     p.add_argument("--remat", action="store_true",
                    help="not ported (refused)")
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="devices of the data axis; the port takes one")
+                   help="ranks of the data axis (-1: every launched rank); "
+                        "N > 1 without torchrun spawns N ranks")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="devices of the model axis; the port takes one")
+                   help="ranks of the model axis; > 1 is not ported")
     p.add_argument("--streaming", action="store_true",
                    help="keep the splits on disk (decode per batch; fused "
                         "images in a disk memmap)")
@@ -71,8 +87,26 @@ def main(argv=None):
                         "float32 on the CPU")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    from ..parallel.dist import run_cli
+
+    return run_cli(args.mesh_data, args.device, lambda c: _run(args, c),
+                   _rank, argv)
+
+
+def _rank(comm, argv):
+    """One spawned rank of ``--mesh_data N``."""
+    return _run(_parse(argv), comm)
+
+
+def _run(args, comm=None):
+    """The run on this process; ``comm``: its rank's group under data
+    parallelism."""
     from ..config import TrainConfig, load_yaml
     from ..data.datasets import FusionFolderDataset, SyntheticFusionDataset
     from ..train.interactive import InteractiveTrainer
@@ -115,7 +149,9 @@ def main(argv=None):
     cfg.mesh_model = args.mesh_model
 
     Path(cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
-    logger = setup_logger(str(Path(cfg.checkpoint_dir) / "train.log"))
+    writer = comm is None or comm.rank == 0
+    logger = setup_logger(str(Path(cfg.checkpoint_dir) / "train.log"))  \
+        if writer else setup_logger(level=logging.WARNING)
     if args.synthetic:
         size = tuple(args.synthetic_size)
         n_val = args.synthetic_val or max(args.synthetic // 4, 1)
@@ -132,7 +168,8 @@ def main(argv=None):
                     "pairs in %s", len(train_ds), d.root_dir, len(val_ds),
                     d.val_root_dir)
     trainer = InteractiveTrainer(cfg, train_ds, val_ds, logger=logger,
-                                 device=args.device)
+                                 device=args.device if comm is None
+                                 else comm.device)
     result = trainer.run(start_round=args.start_round)
     logger.info("training complete: best mIoU %.4f", result["best_mIoU"])
     return result

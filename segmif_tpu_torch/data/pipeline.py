@@ -13,7 +13,11 @@ one log line:
 Unlike the JAX package, a native loader that was asked for and cannot run
 raises; it never falls back to the Python readers.
 
-Not ported: the per-process sharding (the port trains in one process).
+Under data parallelism on one host (``parallel.mesh``) every rank reads
+the same global batches, in the same order, and keeps its rows. The JAX
+package's per-process striding (``shard_by_process``: each process takes
+names[i::process_count]) is a multi-host feature, not ported: ROADMAP
+queue 1's "Multi-host data parallelism" item.
 """
 from __future__ import annotations
 

@@ -364,12 +364,19 @@ W_KEYS = ("wp1", "bp1", "wp2", "bp2", "wp3", "bp3", "wkv1", "wkv2", "wkv3",
           "ln2_bias")
 
 
-def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int):
-    """Pass A grams (kernel), the context/fold step, pass B (kernel)."""
+def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int,
+                       reduce=None):
+    """Pass A grams (kernel), the context/fold step, pass B (kernel).
+    ``reduce`` maps the [B, 3, C, C] f32 grams of these tokens to the
+    grams the contexts read: the row-sharded trunk
+    (``parallel.spatial``) sums them over the ranks, so that every rank
+    applies the whole image's contexts to its own tokens."""
     dim = x1.shape[-1]
     wp = torch.stack([w["wp1"], w["wp2"], w["wp3"]])
     bp = torch.stack([w["bp1"], w["bp2"], w["bp3"]])
     grams = crosspath_grams(x1, x2, s, wp, bp)
+    if reduce is not None:
+        grams = reduce(grams)
     bd_1 = linear_ctx_blockdiag_from_gram(grams[:, 0], w["wkv1"], scale,
                                           num_heads)
     bd_2 = linear_ctx_blockdiag_from_gram(grams[:, 1], w["wkv2"], scale,

@@ -32,13 +32,14 @@ def _log_probs(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = 255) -> torch.Tensor:
+                  ignore_index: int = 255, count=None) -> torch.Tensor:
     """logits: [B, H, W, C] (any leading dims); labels: [B, H, W] int.
     Mean CE over the pixels whose label != ignore_index, in f32 (f64 for
-    f64 logits)."""
+    f64 logits). ``count`` replaces the number of those pixels as the
+    divisor (the global batch's under data parallelism)."""
     valid, logpt = _log_probs(logits, labels, ignore_index)
     nll = torch.where(valid, -logpt, torch.zeros_like(logpt))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / (valid.sum() if count is None else count).clamp_min(1)
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -62,14 +62,22 @@ def drop_path_rates(config: MiTConfig) -> List[float]:
             for i in range(total)]
 
 
-def drop_path_mask(x: torch.Tensor, rate: float,
-                   gen: torch.Generator) -> torch.Tensor:
+def uniform(shape, gen, device) -> torch.Tensor:
+    """Uniform [0, 1) draws of ``shape`` on ``device`` from ``gen``: a
+    ``torch.Generator``, or under data parallelism a
+    ``parallel.mesh.BatchShard``, which draws for the global batch and
+    keeps this rank's rows."""
+    if isinstance(gen, torch.Generator):
+        return torch.rand(shape, generator=gen, device=device)
+    return gen.rand(shape, device)
+
+
+def drop_path_mask(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
     """One keep (1) / drop (0) draw per sample, shaped to broadcast over
-    ``x``, in x's dtype: uniform < 1 - rate, from ``gen`` on x's
-    device."""
+    ``x``, in x's dtype: uniform < 1 - rate, from ``gen`` (``uniform``)
+    on x's device."""
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    u = torch.rand(shape, generator=gen, device=x.device)
-    return (u < 1.0 - rate).to(x.dtype)
+    return (uniform(shape, gen, x.device) < 1.0 - rate).to(x.dtype)
 
 
 def drop_path(x: torch.Tensor, rate: float, mask: torch.Tensor

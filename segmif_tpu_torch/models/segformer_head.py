@@ -17,6 +17,9 @@ and ``Dropout`` in the JAX head:
    ``F.batch_norm(training=True)`` would fold the unbiased variance.)
  - dropout keeps each element with probability 1 - rate (a mask from the
    caller's ``torch.Generator``) and scales the kept ones by 1 / keep.
+Under data parallelism ``gen`` is the step's ``parallel.mesh.BatchShard``:
+the statistics are the global batch's and the masks the global draws'
+rows.
 """
 from __future__ import annotations
 
@@ -28,16 +31,29 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 from ..ops.image import nchw, nhwc, resize_bilinear
+from .mit import uniform
 
 BN_MOMENTUM = 0.9
 
 
-def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def batch_stats(x: torch.Tensor, shard=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel mean and biased variance of NCHW ``x``, in f32 (f64
-    for f64 x), as flax computes them (the fast form, clipped at 0)."""
+    for f64 x), as flax computes them (the fast form, clipped at 0).
+    Under data parallelism (``shard``, a ``parallel.mesh.BatchShard``)
+    those of the global batch: the sums, the sums of squares and the
+    counts of every rank, summed over the ranks through autograd, as
+    GSPMD's global mean does in the JAX step."""
     xf = x.to(_build.acc_dtype(x.dtype))
-    mean = xf.mean(dim=(0, 2, 3))
-    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    if shard is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    else:
+        c = x.shape[1]
+        sums = shard.sum(torch.cat([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+            xf.new_full((1,), x.numel() // c)]))
+        mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
     return mean, (mean2 - mean * mean).clamp_min(0.0)
 
 
@@ -53,10 +69,12 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
         buf.copy_(m * buf + (1 - m) * new.to(buf.dtype))
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     shard=None) -> torch.Tensor:
     """Train-mode BatchNorm of NCHW ``x`` with the batch's statistics
-    (which carry the gradient) and the running buffers updated."""
-    mean, var = batch_stats(x)
+    (which carry the gradient; the global batch's under ``shard``) and
+    the running buffers updated."""
+    mean, var = batch_stats(x, shard)
     update_running_stats(bn, mean.detach(), var.detach(),
                          x.numel() // x.shape[1])
     mul = torch.rsqrt(var + bn.eps) * bn.weight
@@ -64,11 +82,10 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dropout_mask(x: torch.Tensor, rate: float,
-                 gen: torch.Generator) -> torch.Tensor:
-    """Keep (True) / drop draws shaped like ``x``: uniform < 1 - rate."""
-    u = torch.rand(x.shape, generator=gen, device=x.device)
-    return u < 1.0 - rate
+def dropout_mask(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """Keep (True) / drop draws shaped like ``x``: uniform < 1 - rate,
+    from ``gen`` (``mit.uniform``)."""
+    return uniform(x.shape, gen, x.device) < 1.0 - rate
 
 
 def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor) -> torch.Tensor:
@@ -119,7 +136,8 @@ class SegFormerHead(nn.Module):
             x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                              bn.bias, training=False, eps=bn.eps)
             return nhwc(self.linear_pred(torch.relu(x)))
-        x = torch.relu(batch_norm_train(x, bn))
+        shard = None if isinstance(gen, torch.Generator) else gen
+        x = torch.relu(batch_norm_train(x, bn, shard))
         if self.dropout_rate > 0.0:
             if gen is None:
                 raise ValueError("dropout in train mode needs a generator")

@@ -1,0 +1,135 @@
+"""The multi-rank dry run (counterpart of ``__graft_entry__.py:32``
+``dryrun_multichip``, without its tensor-parallel part): on N ranks, one
+step of each parallel path at tiny shapes.
+
+    python -m segmif_tpu_torch.parallel.dryrun 2 [--device cpu]
+    torchrun --standalone --nproc_per_node 2 \\
+        -m segmif_tpu_torch.parallel.dryrun 2
+
+ - one round >= 2 fusion step (the frozen seg network's CE, DWA) under
+   data parallelism, mit_b0 at 64x64, one sample per rank;
+ - one seg step (the 3-group AdamW, BatchNorm batch statistics, drop-path
+   and dropout);
+ - the spatial fuse (``make_spatial_fuse_fn``) of the first pair, its
+   rows split over the ranks (16 rows a rank at least: 64 rows up to 4
+   ranks, 16 N beyond);
+ - a mit_b3 forward under data parallelism at 96x128: the deployed
+   configuration's parameter shapes.
+
+Rank 0 prints one line, as the JAX dry run does. Tensor parallelism is
+named in it as waiting for its slice (ROADMAP's "Tensor parallelism").
+The ranks compute in f32 on the CPU and in bf16 on the card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from .._device import place
+from . import dist
+from .mesh import batch_shard, make_mesh, put_batch, put_replicated
+from .spatial import HALO, make_spatial_fuse_fn
+
+
+def _data(b: int, h: int, w: int):
+    """The JAX dry run's draws: ir, vis, guide, label from default_rng
+    0..3."""
+    r = np.random.default_rng
+    return {"ir": r(0).uniform(0, 1, (b, h, w, 1)).astype(np.float32),
+            "vis": r(1).uniform(0, 1, (b, h, w, 3)).astype(np.float32),
+            "guide": r(2).uniform(0, 1, (b, h, w, 3)).astype(np.float32),
+            "label": r(3).integers(0, 9, (b, h, w)).astype(np.int64)}
+
+
+def dryrun(comm: dist.Comm) -> str:
+    """Run the dry run's four paths on this rank; returns the line rank 0
+    prints."""
+    from ..models.network import JointPipeline, init_params
+    from ..train.optimizer import adamw_poly, adamw_poly_grouped
+    from ..train.state import FusionTrainState, SegTrainState
+    from ..train.steps import make_fusion_train_step, make_seg_train_step
+
+    dev = comm.device
+    dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    mesh = make_mesh(comm=comm)
+    n = mesh.data
+    h, w = max(64, HALO * n), 64
+    model = init_params(JointPipeline("mit_b0", num_classes=9),
+                        torch.Generator().manual_seed(0))
+    put_replicated(mesh, model)
+    data = {k: torch.from_numpy(v) for k, v in _data(n, h, w).items()}
+    shard = batch_shard(mesh, n)
+
+    # the fusion-phase step, round >= 2: CE through the frozen seg net, DWA
+    ftx = adamw_poly(3e-4, warmup_iter=0, max_iter=1000)
+    fstep = make_fusion_train_step(model, ftx, round1=False,
+                                   compute_dtype=dtype, device=dev)
+    fstate = FusionTrainState.create(model.fusion, ftx)
+    fm = fstep(fstate, shard.take(data), 0.4, shard)
+
+    # the seg-phase step: 3-group AdamW, BN batch statistics, dropout
+    seg = model.seg
+    stx = adamw_poly_grouped([k for k, _ in seg.named_parameters()], 8e-5,
+                             warmup_iter=10, max_iter=1000)
+    sstep = make_seg_train_step(seg, stx, compute_dtype=dtype, device=dev)
+    sstate = SegTrainState.create(seg, stx)
+    sm = sstep(sstate, shard.take({"image": data["guide"],
+                                   "label": data["label"]}), 1, shard)
+
+    # spatial: the fusion trunk's rows over the ranks
+    sp_rgb, sp_y = make_spatial_fuse_fn(mesh, model, dtype, dev)(
+        data["ir"][:1], data["vis"][:1], data["guide"][:1])
+
+    # the deployed model's parameter shapes: mit_b3, data parallel forward
+    b3 = init_params(JointPipeline("mit_b3", num_classes=9),
+                     torch.Generator().manual_seed(2))
+    put_replicated(mesh, b3)
+    b3 = place(b3, dev).to(dtype).eval()
+    b3_data = _data(n, 96, 128)
+    rows = put_batch(mesh, {k: torch.from_numpy(b3_data[k])
+                            for k in ("ir", "vis")})
+    with torch.inference_mode():
+        _, fy, logits = b3(rows["ir"].to(dev, dtype),
+                           rows["vis"].to(dev, dtype))
+        sums = torch.stack([fy.float().sum(), logits.float().sum(),
+                            torch.tensor(float(logits[..., 0].numel()),
+                                         device=dev)]).double()
+        comm.all_reduce_sum_(sums)
+    checks = [torch.isfinite(t).all() for t in (fm["loss"], sm["loss"],
+                                                 sp_y, sums)]
+    if not all(bool(c) for c in checks) or sp_y.shape != (1, h, w, 1):
+        raise RuntimeError("dry run: a non-finite result or a wrong shape")
+    classes = logits.shape[-1]
+    return (f"dryrun OK on {n} ranks ({comm.transport}; mesh data={n}, "
+            "model=1: tensor parallelism waits for the Tensor parallelism "
+            f"slice): fusion loss {float(fm['loss']):.4f}, seg loss "
+            f"{float(sm['loss']):.4f}, spatial fused {tuple(sp_y.shape)}, "
+            f"mit_b3 dp forward logits mean "
+            f"{float(sums[1] / (sums[2] * classes)):.4f}")
+
+
+def _rank(comm, _argv):
+    return dryrun(comm)
+
+
+def main(argv=None) -> str:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("ranks", type=int, nargs="?", default=2)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if args.ranks < 2:
+        p.error("the dry run spans 2 ranks or more")
+    line = dist.run_cli(args.ranks, args.device, dryrun, _rank, argv)
+    if dist.env_ranks()[1] == 0:   # rank 0 under torchrun
+        print(line, flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

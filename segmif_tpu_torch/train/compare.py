@@ -3,7 +3,8 @@ what ``chip_smoke.py`` phases 8-9 and the tests hold a step to (the card
 against the CPU in f32; bf16 against f32).
 
  - ``KeepGrads``: an optimizer that applies nothing and keeps the
-   gradients it was given as its state.
+   gradients it was given as its state; ``RecordGrads``: one that applies
+   another and keeps the gradients beside.
  - ``step_grads``: (metrics, gradients) of one fusion step of a copy of a
    model; ``seg_step_grads``: (metrics, gradients, BatchNorm buffers, BN
    fold ratio) of one seg step of a copy of a seg network.
@@ -47,6 +48,22 @@ class KeepGrads:
 
     def update(self, grads, state, params):
         return {k: g.detach().clone() for k, g in grads.items()}
+
+
+class RecordGrads:
+    """An optimizer that applies ``tx`` and keeps the gradients it was
+    given (``grads``): one step gives both its gradients and its updated
+    weights."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.tx.update(grads, state, params)
 
 
 def step_grads(model, batch: Dict[str, torch.Tensor], round1: bool,
@@ -108,9 +125,9 @@ class _CaptureBnInput:
         self.real, self.inputs = segformer_head.batch_norm_train, []
         real = self.real
 
-        def capture(x, bn):
+        def capture(x, bn, *rest):
             self.inputs.append(x.detach())
-            return real(x, bn)
+            return real(x, bn, *rest)
 
         segformer_head.batch_norm_train = capture
         return self

@@ -42,9 +42,21 @@ averaged over the batches weighted by their sizes. With
 ``dump_fused_images`` each regeneration also writes its fused images as
 PNGs to ``fused_{train,val}_r<round>/`` in the checkpoint dir.
 
+Data parallelism (``mesh_data`` N > 1, or -1 under N launched ranks;
+``parallel.mesh``): every rank reads the same global batch order (the
+``Prefetcher``'s (seed, epoch) permutation), draws the global batch's
+augmentation and keeps its rows (``parallel.mesh.BatchShard``), and the
+steps sum the gradients and losses over the ranks, so N ranks train as
+one process on the whole batch. The weights are broadcast from rank 0
+once, at the start. The regeneration and the mIoU evaluation run the
+whole set on every rank (each rank's fused set and mIoU are then the
+same: the same weights through the same deterministic passes), and only
+rank 0 writes: checkpoints, ``progress.json``, fused PNGs, the eval log.
+Every rank reads them on resume. ``fusion.grad_accum`` > 1 and
+``streaming`` are refused under data parallelism.
+
 Options the port does not run raise ``ValueError`` naming their ROADMAP
-item (a mesh of more than one device, ``remat``, ``fusion.train_chunk``
-> 1).
+item (``mesh_model`` > 1, ``remat``, ``fusion.train_chunk`` > 1).
 """
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ from ..eval.evaluator import (fusion_quality_eval, generate_fused,
                               segmentation_eval)
 from ..kernels import _build
 from ..models.network import JointPipeline, init_params
+from ..parallel.mesh import TP_REFUSAL, batch_shard, make_mesh, put_replicated
 from ..utils.logging import eta, setup_logger
 from . import checkpoint as ckpt
 from .optimizer import adamw_poly, adamw_poly_grouped
@@ -145,9 +158,7 @@ def refuse_unported(cfg: TrainConfig) -> None:
         (cfg.fusion.train_chunk > 1, "fusion.train_chunk > 1: the lax.scan "
          "chunking of train steps is on ROADMAP queue 1's 'Do not port' "
          "list; the port runs one step per iteration"),
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1,
-         "mesh_data / mesh_model: the port trains on one device; data and "
-         "tensor parallelism are ROADMAP queue 1 item 7"),
+        (cfg.mesh_model != 1, TP_REFUSAL),
         (cfg.remat or cfg.remat_seg, "remat: on ROADMAP queue 1's 'Do not "
          "port' list (the DRDB's autograd Function already saves only its "
          "inputs)"),
@@ -161,16 +172,34 @@ def refuse_unported(cfg: TrainConfig) -> None:
             raise ValueError(why)
 
 
+def refuse_under_dp(cfg: TrainConfig, ranks: int) -> None:
+    """ValueError for the options data parallelism does not take."""
+    if ranks > 1 and cfg.fusion.grad_accum > 1:
+        # the JAX driver's rule: DP already multiplies the effective batch
+        raise ValueError("fusion.grad_accum > 1 requires mesh_data == 1 "
+                         "(use data parallelism OR accumulation)")
+    if ranks > 1 and cfg.streaming:
+        raise ValueError("streaming under data parallelism: every rank "
+                         "would write the same fused memmap; it is ROADMAP "
+                         "queue 1's \"Streaming under data parallelism\" "
+                         "item")
+
+
 class InteractiveTrainer:
     """Drives ``cfg.rounds`` rounds of fusion-phase + seg-phase training on
     the card, unless ``device="cpu"`` (``device=None`` means ``cuda`` and
-    raises when there is none)."""
+    raises when there is none). Under data parallelism each rank builds
+    one, on its own device, after joining the process group
+    (``parallel.dist``)."""
 
     def __init__(self, cfg: TrainConfig, train_dataset, val_dataset,
                  logger=None, device=None):
         refuse_unported(cfg)
         self.cfg = cfg
         self.dev = resolve(device)
+        self.mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, device=self.dev)
+        refuse_under_dp(cfg, self.mesh.data)
+        self.writer = self.mesh.rank == 0   # the rank that writes files
         self.log = logger or setup_logger()
         self.dtype = DTYPES[cfg.compute_dtype]
         self.acc = _build.acc_dtype(self.dtype)   # master weights, inputs
@@ -183,6 +212,7 @@ class InteractiveTrainer:
             ckpt.load_pretrained_encoder(self.model.seg.denoise_net.encoder,
                                          pretrained)
         place(self.model, self.dev).to(self.acc)
+        put_replicated(self.mesh, self.model)
         if cfg.streaming:
             from .streaming import StreamingFusionData
 
@@ -203,16 +233,24 @@ class InteractiveTrainer:
 
     # ------------------------------------------------------------ phases ----
 
-    def _augment(self, gen, raw, aug, seed):
+    def _shard(self, batch_size: int):
+        """This rank's ``BatchShard`` of a batch; None on one rank."""
+        return batch_shard(self.mesh, batch_size) if self.mesh.data > 1 \
+            else None
+
+    def _augment(self, gen, raw, aug, seed, shard=None):
         """One raw batch (uint8, or float32 integers in [0, 255] from a
         streamed folder) on the device, augmented with draws from ``gen``
-        seeded ``seed``."""
+        seeded ``seed``. Under ``shard``: the draws of the whole batch,
+        and this rank's rows of it."""
         gen.manual_seed(seed)
+        draws = augment.draw(gen, len(raw["label"]), aug, self.acc)
+        if shard is not None:
+            draws, raw = shard.take(draws), shard.take(raw)
         b = {k: upload(raw[k], self.dev)
              for k in ("ir", "vis", "guide", "label")}
-        return augment.augment_batch(gen, b["ir"], b["vis"], b["guide"],
-                                     b["label"], aug,
-                                     self.cfg.data.num_classes, self.acc)
+        return augment.apply(draws, b["ir"], b["vis"], b["guide"],
+                             b["label"], aug, self.cfg.data.num_classes)
 
     def _aug_config(self, crop_size: int) -> augment.AugConfig:
         d = self.cfg.data
@@ -249,16 +287,18 @@ class InteractiveTrainer:
         it = iter(pf)
         base = cfg.seed * 7 + round_idx
         gen = torch.Generator(device=self.dev)
+        shard = self._shard(fp.batch_size)
+        dp = {} if shard is None else {"shard": shard}
         t0 = datetime.datetime.now()
         metrics = {}
         try:
             for n_iter in range(start_iter, iters):
                 micro = [self._augment(gen, next(it), aug,
-                                       fold_seed(base, n_iter, 1 + j))
+                                       fold_seed(base, n_iter, 1 + j), shard)
                          for j in range(accum)]
                 batch = micro[0] if accum == 1 else {
                     k: torch.stack([m[k] for m in micro]) for k in micro[0]}
-                metrics = step_fn(state, batch, fusion_scale)
+                metrics = step_fn(state, batch, fusion_scale, **dp)
                 if (n_iter + 1) % cfg.log_iters == 0:
                     el, rem = eta(t0, n_iter + 1, iters)
                     loss = float(metrics["loss"])
@@ -287,7 +327,7 @@ class InteractiveTrainer:
         for data, tag in ((self.train_data, "train"),
                           (self.val_data, "val")):
             out = (Path(cfg.checkpoint_dir) / f"fused_{tag}_r{round_idx}"
-                   if cfg.dump_fused_images else None)
+                   if cfg.dump_fused_images and self.writer else None)
             val = data is self.val_data
             if cfg.streaming:
                 ssim = self._regenerate_streaming(fuse_fn, data, out, val)
@@ -349,14 +389,17 @@ class InteractiveTrainer:
         it = iter(pf)
         base = cfg.seed * 13 + round_idx
         gen = torch.Generator(device=self.dev)
+        shard = self._shard(sp.batch_size)
+        dp = {} if shard is None else {"shard": shard}
         t0 = datetime.datetime.now()
         try:
             for n_iter in range(start_iter, sp.iters):
                 batch = self._augment(gen, next(it), aug,
-                                      fold_seed(base, n_iter, 1))
+                                      fold_seed(base, n_iter, 1), shard)
                 # the "guide" slot of seg_view() is the fused image
                 metrics = step_fn(state, {"image": batch["guide"],
-                                          "label": batch["label"]}, base)
+                                          "label": batch["label"]}, base,
+                                  **dp)
                 if (n_iter + 1) % cfg.log_iters == 0:
                     el, rem = eta(t0, n_iter + 1, sp.iters)
                     loss = float(metrics["loss"])
@@ -387,7 +430,8 @@ class InteractiveTrainer:
         segment_fn = make_segment_fn(self.model.seg, self.dtype, self.dev)
         res = segmentation_eval(
             segment_fn, self.val_data.seg_view(), self.cfg.data.num_classes,
-            batch_size=4, log_file=str(base / "val_seg.txt"),
+            batch_size=4,
+            log_file=str(base / "val_seg.txt") if self.writer else None,
             tag=f"round{round_idx}", device=self.dev, dtype=self.acc)
         self.history.append({"round": round_idx, "mIoU": res["mIoU"]})
         self.log.info("[round %d] mIoU %.4f pixel_acc %.4f", round_idx,
@@ -401,9 +445,10 @@ class InteractiveTrainer:
 
     def _save_phase(self, role: str, round_idx: int, state):
         """Mid-phase checkpoint of the whole train state and the best-mIoU
-        gate."""
-        ckpt.save_phase(self._phase_path(role, round_idx), state,
-                        self.best_miou)
+        gate (rank 0 writes)."""
+        if self.writer:
+            ckpt.save_phase(self._phase_path(role, round_idx), state,
+                            self.best_miou)
 
     def _restore_phase(self, role: str, round_idx: int, state) -> int:
         """Restore ``state`` from this (role, round)'s mid-phase checkpoint
@@ -419,12 +464,15 @@ class InteractiveTrainer:
         return start_iter
 
     def _clear_phase(self, role: str, round_idx: int):
-        self._phase_path(role, round_idx).unlink(missing_ok=True)
+        if self.writer:
+            self._phase_path(role, round_idx).unlink(missing_ok=True)
 
     def _progress_path(self) -> Path:
         return Path(self.cfg.checkpoint_dir) / "progress.json"
 
     def _mark_progress(self, next_round: int, next_phase: str):
+        if not self.writer:
+            return
         Path(self.cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
         self._progress_path().write_text(json.dumps(
             {"next_round": next_round, "next_phase": next_phase,
@@ -437,9 +485,11 @@ class InteractiveTrainer:
         return json.loads(path.read_text())
 
     def save_checkpoint(self, role: str):
-        """The role checkpoint of ``model.fusion`` or ``model.seg``."""
-        ckpt.save_role(Path(self.cfg.checkpoint_dir) / ROLE_FILES[role],
-                       getattr(self.model, role))
+        """The role checkpoint of ``model.fusion`` or ``model.seg`` (rank 0
+        writes)."""
+        if self.writer:
+            ckpt.save_role(Path(self.cfg.checkpoint_dir) /
+                           ROLE_FILES[role], getattr(self.model, role))
 
     def load_checkpoints(self):
         base = Path(self.cfg.checkpoint_dir)

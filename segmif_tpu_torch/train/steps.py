@@ -31,6 +31,24 @@ package's ``custom_vjp``s recompute through XLA); the backward launches no
 kernel. Nothing waits for the device: the losses come back as device
 tensors, the DWA buffer and the optimizer's count live on the device.
 
+Data parallelism: each step takes a ``shard`` (``parallel.mesh.
+BatchShard``) when ranks share the batch, and the batch is then this
+rank's rows. N ranks then give the losses, gradients, DWA state and
+updated weights that one process gives on the whole batch, as the JAX DP
+step gives one device's (tests/test_parallel.py):
+ - each rank's loss is its share of the global loss: the pixel-mean
+   losses times ``shard.share``, the cross-entropy's sum over the GLOBAL
+   count of valid pixels (so the all-ignored -> 0 rule holds on the
+   global count);
+ - the gradients are summed over the ranks (one all-reduce of all
+   leaves), and so are the losses, which the metrics and the DWA buffer
+   read: every rank keeps the same weights and task weights;
+ - the seg step's BatchNorm normalises with the global batch's
+   statistics (``segformer_head.batch_stats``) and its drop-path and
+   dropout draw for the global batch and keep the rank's rows.
+``grad_accum`` > 1 with a shard raises, as the JAX driver refuses
+accumulation under data parallelism.
+
 ``make_fusion_train_chunk`` (K steps as one ``lax.scan``, a dispatch
 saving on the TPU) is not ported: the port runs the per-step loop, which
 ``tests/test_chunked_train.py`` pins as the same maths.
@@ -66,6 +84,33 @@ from ..ops.image import resize_bilinear
 from .state import FusionTrainState, SegTrainState
 
 
+def ce_share(logits: torch.Tensor, label: torch.Tensor, ignore_index: int,
+             shard) -> torch.Tensor:
+    """The cross-entropy this rank's loss carries: the whole batch's mean
+    without a shard; under one, the sum over this rank's valid pixels
+    divided by the count over every rank's."""
+    if shard is None:
+        return cross_entropy(logits, label, ignore_index)
+    count = (label != ignore_index).sum().to(logits.dtype)
+    return cross_entropy(logits, label, ignore_index,
+                         count=shard.comm.all_reduce_sum_(count))
+
+
+def _sum_over_ranks(shard, grads, losses):
+    """Gradients and losses summed over the ranks, two all-reduces of
+    flat buffers; unchanged without a shard."""
+    if shard is None:
+        return grads, losses
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    shard.comm.all_reduce_sum_(flat)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    summed = shard.comm.all_reduce_sum_(torch.stack(losses))
+    return out, list(summed)
+
+
 def fold_seed(*ints: int) -> int:
     """A 63-bit generator seed from a tuple of non-negative ints (numpy's
     ``SeedSequence``): the port's counterpart of folding into a JAX key."""
@@ -81,7 +126,7 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
                            device=None) -> Callable:
     """model: ``JointPipeline``; tx: ``optimizer.AdamW`` (anything with
     ``update(grads, opt_state, params) -> opt_state``). Returns
-    ``step(state, batch, fusion_scale) -> metrics``.
+    ``step(state, batch, fusion_scale, shard=None) -> metrics``.
 
     The model's fusion network moves to the device in f32 (the master
     weights; f64 for an f64 ``compute_dtype``) and is trained in place;
@@ -94,8 +139,10 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
     [A, B, ...]: the step takes the mean of the A micro-batch gradients
     and losses and applies one update (the DWA weights come from the first
     micro-batch). fusion_scale: a float or a device scalar (0.4 per round
-    in the reference). metrics: {'loss', 'loss_fusion', 'loss_seg',
-    'weights'}, device tensors.
+    in the reference). shard: under data parallelism this rank's
+    ``BatchShard`` of the global batch, whose rows ``batch`` holds.
+    metrics: {'loss', 'loss_fusion', 'loss_seg', 'weights'}, device
+    tensors (the global batch's under a shard).
 
     ``device=None`` means ``cuda`` (raises when there is none);
     ``device="cpu"`` trains through the kernels' plain versions."""
@@ -108,7 +155,7 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
     seg.requires_grad_(False)
 
     def loss_fn(state: FusionTrainState, mb: Dict[str, torch.Tensor],
-                fusion_scale):
+                fusion_scale, shard):
         with torch.no_grad():
             tap1, tap2 = seg.encode_taps_raw(mb["guide"])
         vis_ycrcb = rgb_to_ycrcb(mb["vis"])
@@ -116,34 +163,41 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
         weights = {n: p.to(compute_dtype) for n, p in state.params.items()}
         fused_y = functional_call(fusion, weights, (
             mb["ir"], vis_ycrcb[..., 0:1], tap1, tap2)).to(acc)
+        share = 1.0 if shard is None else shard.share
         if round1:
-            loss = fusion_loss_l1_grad(mb["ir"], vis_ycrcb, fused_y, guide_y)
-            return (loss, loss, torch.zeros((), device=dev),
+            loss = fusion_loss_l1_grad(mb["ir"], vis_ycrcb, fused_y,
+                                       guide_y) * share
+            return (loss, loss, torch.zeros((), dtype=loss.dtype,
+                                            device=dev),
                     torch.ones(2, device=dev))
-        loss1 = fusion_loss_mse_ssim(mb["ir"], vis_ycrcb, fused_y, guide_y)
+        loss1 = fusion_loss_mse_ssim(mb["ir"], vis_ycrcb, fused_y,
+                                     guide_y) * share
         # the unclipped RGB recombination, as the reference feeds its seg
         # loss (train.py:363-368)
         fused_rgb = ycrcb_to_rgb(torch.cat([fused_y, vis_ycrcb[..., 1:]],
                                            dim=-1))
         logits = resize_bilinear(seg(fused_rgb).to(acc),
                                  mb["label"].shape[1:3])
-        loss2 = cross_entropy(logits, mb["label"], ignore_index)
+        loss2 = ce_share(logits, mb["label"], ignore_index, shard)
         total, _, w = dwa_combine(state.dwa, loss1, loss2, fusion_scale,
                                   seg_scale, dwa_temperature,
                                   dwa_warmup_steps)
         return total, loss1, loss2, w
 
-    def grads_of(state, mb, fusion_scale):
-        total, loss1, loss2, w = loss_fn(state, mb, fusion_scale)
+    def grads_of(state, mb, fusion_scale, shard=None):
+        total, loss1, loss2, w = loss_fn(state, mb, fusion_scale, shard)
         grads = torch.autograd.grad(total, list(state.params.values()))
         return grads, [t.detach() for t in (total, loss1, loss2, w)]
 
     def step(state: FusionTrainState, batch: Dict[str, torch.Tensor],
-             fusion_scale) -> Dict[str, torch.Tensor]:
+             fusion_scale, shard=None) -> Dict[str, torch.Tensor]:
         if state.step.device.type != dev.type:
             raise ValueError(f"the state is on {state.step.device}, the step "
                              f"on {dev}: create the state after "
                              "make_fusion_train_step")
+        if shard is not None and grad_accum > 1:
+            raise ValueError("grad_accum > 1 under data parallelism: use "
+                             "data parallelism OR accumulation")
         batch = {k: v.to(dev) for k, v in batch.items()}
         if grad_accum > 1:
             gsum = sums = None
@@ -159,8 +213,10 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
             grads = [g * inv for g in gsum]
             total, loss1, loss2 = (s * inv for s in sums)
         else:
-            grads, (total, loss1, loss2, w) = grads_of(state, batch,
-                                                       fusion_scale)
+            g, (total, loss1, loss2, w) = grads_of(state, batch,
+                                                   fusion_scale, shard)
+            grads, (total, loss1, loss2) = _sum_over_ranks(
+                shard, g, [total, loss1, loss2])
         state.opt_state = tx.update(dict(zip(state.params, grads)),
                                     state.opt_state, state.params)
         _, state.dwa, _ = dwa_combine(state.dwa, loss1, loss2, fusion_scale,
@@ -179,7 +235,7 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
                         device=None) -> Callable:
     """model: ``SegmentationNetwork``; tx: ``optimizer.AdamW`` (the
     3-group ``adamw_poly_grouped`` in the driver). Returns
-    ``step(state, batch, seed) -> metrics``.
+    ``step(state, batch, seed, shard=None) -> metrics``.
 
     The model moves to the device in f32 (f64 for an f64 compute dtype)
     and is trained in place, its BatchNorm buffers included; build the
@@ -187,7 +243,10 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
 
     batch: {'image': [B,H,W,3] in [0,1], 'label': [B,H,W] int}. seed: the
     phase's base seed; step s draws its drop-path and dropout masks from
-    ``fold_seed(seed, s)``. metrics: {'loss'}, a device tensor.
+    ``fold_seed(seed, s)``. shard: under data parallelism this rank's
+    ``BatchShard`` of the global batch, whose rows ``batch`` holds.
+    metrics: {'loss'}, a device tensor (the global batch's under a
+    shard).
 
     A parameter that takes no gradient (the aux ``classifier``, which the
     loss does not reach) gets a zero one, so the optimizer still decays it,
@@ -201,7 +260,7 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
     gen = torch.Generator(device=dev)
 
     def step(state: SegTrainState, batch: Dict[str, torch.Tensor],
-             seed: int) -> Dict[str, torch.Tensor]:
+             seed: int, shard=None) -> Dict[str, torch.Tensor]:
         if state.step.device.type != dev.type:
             raise ValueError(f"the state is on {state.step.device}, the step "
                              f"on {dev}: create the state after "
@@ -209,14 +268,17 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
         gen.manual_seed(fold_seed(seed, state.host_step))
         image, label = batch["image"].to(dev), batch["label"].to(dev)
         weights = {n: p.to(compute_dtype) for n, p in state.params.items()}
+        draws = gen if shard is None else shard.with_gen(gen)
         logits = functional_call(seg, weights, (image,),
-                                 {"train": True, "gen": gen})
+                                 {"train": True, "gen": draws})
         logits = resize_bilinear(logits.to(acc), label.shape[1:3])
-        loss = cross_entropy(logits, label, ignore_index)
+        loss = ce_share(logits, label, ignore_index, shard)
         params = list(state.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(state.params.items(), grads)}
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        grads, (loss,) = _sum_over_ranks(shard, grads, [loss.detach()])
+        grads = dict(zip(state.params, grads))
         state.opt_state = tx.update(grads, state.opt_state, state.params)
         state.step = state.step + 1
         state.host_step += 1

@@ -23,8 +23,10 @@ the port's ``state_dict``s, which are the reference ``.pth`` layout):
  - ``cli.convert_checkpoint``: passes on good files, fails (exit 1) on a
    renamed key, a file of another width and an encoder checkpoint that
    lacks a key, and lets an encoder's ``head.*`` through.
- - ``--spatial`` is refused; without a card and without ``--device cpu``
-   the CLIs raise.
+ - ``--spatial N`` is refused where a rank would hold fewer than 16 of
+   an image's rows (``--spatial 2`` on CPU ranks is in
+   ``test_torch_spatial_cli.py``); without a card and without ``--device
+   cpu`` the CLIs raise.
  - ``cli.train --data_root`` runs one tiny round from folders, in memory
    and ``--streaming``.
  - ``segmif_tpu_torch.disk_check`` (chip_smoke.py's phase 10) on the CPU at
@@ -131,9 +133,10 @@ def test_test_segmentation_equals_jax(setup, tmp_path, capsys):
 
 
 def test_cli_refusals(setup, tmp_path):
-    with pytest.raises(ValueError, match="queue 1's \"Spatial row "
-                                         "sharding\" item"):
-        test_fusion.main(_fusion_args(setup, tmp_path, ["--spatial", "2"])
+    # 4 ranks would hold 8 of the images' 32 rows each, fewer than the
+    # halo: refused before any rank is spawned
+    with pytest.raises(ValueError, match="rows per shard 8 < halo 16"):
+        test_fusion.main(_fusion_args(setup, tmp_path, ["--spatial", "4"])
                          + ["--device", "cpu"])
     if not torch.cuda.is_available():   # the card is the default
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -3,7 +3,9 @@ against the JAX package's, on the CPU at small sizes (f32):
 
  - the CLI end to end (the counterpart of
    ``tests/test_spatial.py::test_stretch_cli_synthetic``, with one shard),
-   ``--spatial 2`` refused, ``--data_root`` on a folder written here;
+   ``--spatial N`` refused where a rank would hold fewer than 16 rows,
+   ``--data_root`` on a folder written here (``--spatial 2`` on CPU
+   ranks is in ``test_torch_spatial_cli.py``);
  - its fuse and seg on weights converted from a JAX ``JointPipeline``
    against the JAX stretch's own (``make_spatial_fuse_fn`` on a one-device
    mesh, and ``seg``) on the same ``default_rng(0)`` pair at mit_b0 64x64:
@@ -50,9 +52,10 @@ def test_stretch_cli_no_seg(capsys):
 
 
 def test_stretch_spatial_refused():
-    with pytest.raises(ValueError, match="queue 1's \"Spatial row "
-                                         "sharding\" item"):
-        stretch.main(SMALL + ["--spatial", "2", "--synthetic"])
+    # 8 shards give 32 rows 4 a rank: refused before any rank is spawned
+    with pytest.raises(ValueError, match="rows per shard 4 < halo 16"):
+        stretch.main(SMALL + ["--spatial", "8", "--synthetic", "--size",
+                              "32", "32"])
 
 
 def test_stretch_data_root(tmp_path, capsys):
