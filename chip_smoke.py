@@ -5,9 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-or phases 1-3 and 13 alone: on one card as in the whole run, and on a
-host with several cards phase 13 (a), (c), (d) and (e) with one rank
-per card, over NCCL:
+or phases 1-3, 13 and 14 alone: on one card as in the whole run, and on
+a host with several cards phase 13 (a), (c), (d) and (e) and phase 14
+with one rank per card, over NCCL:
 
     python3 chip_smoke.py --parallel
 
@@ -201,7 +201,35 @@ line):
     with the card's name and power limit (ranks sharing one card measure
     the parallel paths' overhead, not a speed-up). With ``--parallel`` on
     a host of N >= 2 cards: (a), (d) on N ranks and (c) on 2 and N, one
-    rank a card, over NCCL.
+    rank a card, over NCCL;
+14. tensor parallelism (``segmif_tpu_torch.parallel.tensor``) on 4 ranks
+    this script spawns (their launches join the kernels line): ranks 0-1
+    one model group (TP 2), all four one model group (TP 4) and a data 2 x
+    model 2 mesh; each path first in one process on rank 0. (a) the f32
+    mit_b3 forward, batch 8, 480x640 (reference-scale weights), split over
+    2 and over 4 ranks against one process, fused Y and logits per element
+    (TP_FWD_RTOL), the split's parameter count (19.00 M by column, 13.55 M
+    by row) and three planted faults that must fail (proj's and fc2's bias
+    added on every rank, kv split contiguously, the decode head's
+    linear_c*.proj split by a name-based rule, which ``tensor_parallel``
+    refuses; on TP 2); (b) bf16 ``make_serving_fn(mesh=)`` in default,
+    static-guide and int8 modes on TP 2 and TP 4 against one process under
+    ``drift``'s limits on the fused Y and the class map, the same outputs
+    on every rank of the group, the launches per request on every rank (as
+    phase 5: sr-attention 35 / 28 at a rank's heads or with every head
+    gathered); each kernel at the split path's shapes against its plain
+    version (sr-attention at a rank's heads, the FFM with weights gathered
+    from the ranks, the DRDB and int8 DRDB with a rank's whole weights);
+    (c) the f32 fusion step (round >= 2, batch 4, 480x640) and seg step
+    (batch 4, 480x480) on TP 2 and on DP 2 x TP 2 against one process
+    under phase 13's limits, the gathered leaves, gradients and BN buffers
+    the same on every rank (of the model group on TP 2, of the mesh on DP
+    2 x TP 2), launches per step per rank, two planted faults (the FFM
+    gather's backward a reduce-scatter, the gradients summed over every
+    rank); (d) the dry run on the 4 ranks (data 2 x model 2); (e) the
+    times beside one process's, with the card's name and power limit (on
+    one card: overhead). With ``--parallel`` on 4 cards: one rank a card,
+    over NCCL.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -210,6 +238,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -3122,17 +3151,17 @@ def _counters():
             "drdb_int8_tail": drdb_int8_tail}
 
 
-def _dp_batches():
+def _dp_batches(fusion_b: int = DP_FUSION[0]):
     """Phase 13 (a)'s global batches, the same in every process (a
-    seeded CPU generator): labels 10 % ignored in the first half of each
-    batch and 97 % in the second (the ranks' counts of valid pixels
-    differ 30-fold, so a CE averaged per rank moves the step), and the
-    seg batch's second half brighter (the ranks' BatchNorm statistics
-    differ)."""
+    seeded CPU generator), the fusion batch of ``fusion_b`` rows: labels
+    10 % ignored in the first half of each batch and 97 % in the second
+    (the ranks' counts of valid pixels differ 30-fold, so a CE averaged
+    per rank moves the step), and the seg batch's second half brighter
+    (the ranks' BatchNorm statistics differ)."""
     import torch
 
     gen = torch.Generator().manual_seed(SEED + 130)
-    b, h, w = DP_FUSION
+    b, h, w = fusion_b, DP_FUSION[1], DP_FUSION[2]
 
     def ignore(label):
         b, h, w = label.shape
@@ -3168,17 +3197,20 @@ def _dp_models():
 
 
 def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
-             kinds=("fusion", "seg"), fusion_batch=None):
+             kinds=("fusion", "seg"), fusion_batch=None, mesh=None):
     """One round >= 2 fusion step and one seg step (3-group AdamW,
     drop-path, dropout, BatchNorm) of copies of ``models``
     (``_dp_models``) on phase 13's batches (the fusion step's replaced by
     ``fusion_batch`` when given), in ``dtype``; under ``shard`` on this
-    rank's rows; the steps of ``kinds`` only. Returns
+    rank's rows; with ``mesh`` the copies split over its model groups
+    (phase 14); the steps of ``kinds`` only. Returns
     {'fusion' | 'seg': {'metrics', 'grads', 'before', 'after', 'dwa' |
-    'stats', 'launches', 'ms'}} with tensors on the CPU; ``timed`` more
-    steps give 'ms' per step (host clock around synchronised steps)."""
+    'stats', 'launches', 'ms'}} with tensors on the CPU, split leaves
+    gathered whole; ``timed`` more steps give 'ms' per step (host clock
+    around synchronised steps)."""
     import torch
 
+    from segmif_tpu_torch.parallel.tensor import gather_tree, tensor_parallel
     from segmif_tpu_torch.train.compare import RecordGrads
     from segmif_tpu_torch.train.optimizer import (adamw_poly,
                                                   adamw_poly_grouped)
@@ -3187,6 +3219,9 @@ def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
                                               make_seg_train_step)
 
     joint, seg = (copy.deepcopy(m) for m in models)
+    if mesh is not None:
+        tensor_parallel(joint, mesh)
+        tensor_parallel(seg, mesh)
     fusion_default, seg_batch = _dp_batches()
     if fusion_batch is None:
         fusion_batch = fusion_default
@@ -3211,8 +3246,11 @@ def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
             state = SegTrainState.create(seg, tx)
             batch = {k: v.to(dev) for k, v in seg_batch.items()}
             args, extra = (batch, SEED), kw[1]
-        before = {k: v.detach().cpu().clone() for k, v in
-                  state.params.items()}
+        def whole(tree):
+            return {k: v.detach().cpu().clone() for k, v in
+                    gather_tree(tree, state.splits).items()}
+
+        before = whole(state.params)
         for c in (counters or {}).values():
             c.launches = 0
         metrics = step(state, *args, **extra)
@@ -3220,10 +3258,8 @@ def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
         res = {"launches": {k: c.launches for k, c in
                             (counters or {}).items()},
                "metrics": {k: v.detach().cpu() for k, v in metrics.items()},
-               "grads": {k: v.cpu() for k, v in tx.grads.items()},
-               "before": before,
-               "after": {k: v.detach().cpu() for k, v in
-                         state.params.items()}}
+               "grads": whole(tx.grads), "before": before,
+               "after": whole(state.params)}
         if kind == "fusion":
             res["dwa"] = {k: getattr(state.dwa, k).cpu() for k in
                           ("prev", "prev2")}
@@ -3328,7 +3364,7 @@ def dp_compare(label, got, want, dtype):
     from segmif_tpu_torch.train.compare import exact_zero_grad, norm_ratios
 
     out = []
-    for kind in ("fusion", "seg"):
+    for kind in got:
         g, e = got[kind], want[kind]
         if dtype == "float32":
             m = f32_errors(g, e, kind)
@@ -3380,6 +3416,14 @@ def _agree(comm, tree) -> bool:
     mine = torch.stack([flat.sum(), (flat * pos).sum()]).to(comm.device)
     got = comm.all_gather_rows(mine[None], [1] * comm.world)
     return bool((got == got[0]).all())
+
+
+def _step_leaves(res) -> dict:
+    """A ``dp_steps`` result's gradients, updated leaves and BN buffers
+    (seg) under distinct names, for ``_agree``."""
+    return {f"{kind} {part} {k}": v for kind, r in res.items()
+            for part in ("grads", "after", "stats")
+            for k, v in r.get(part, {}).items()}
 
 
 def f32_controls(models, dev, world, one) -> list:
@@ -3748,11 +3792,534 @@ def spatial_checks(totals, card, tmp, worlds=SPATIAL_WORLDS):
     return r0["transport"]
 
 
+# Phase 14: tensor parallelism (segmif_tpu_torch.parallel.tensor) on ranks
+# spawned after the build: ranks 0 and 1 form one model group (TP 2), all
+# four ranks one model group (TP 4: the q / k / v gather of stages 1-3,
+# stage 4 at two heads a rank) and a data 2 x model 2 mesh (DP 2 x TP 2).
+# On one card they share it over gloo and measure overhead, not speed-up;
+# with --parallel on 4 cards each rank has a card of its own (NCCL).
+TP_WORLD, TP_MODEL = 4, 2
+TP_REQUESTS = 2
+TP_TIMED = 2
+# the steps' global fusion batch (phase 13's 8 halved: four ranks' f32
+# steps share the card), at 480x640; the seg step's as phase 13's
+TP_FUSION_B = 4
+# (a) the f32 split forward against one process, per element, within
+# these shares of the largest |ref| (PIPE_RTOL: the card-vs-CPU limits;
+# here only the order of the row-parallel sums differs)
+TP_FWD_RTOL = PIPE_RTOL
+# the split of mit_b3's JointPipeline at model 2: millions of parameters
+# by column and by row (the JAX rule's count, tests/test_torch_tp_specs.py)
+TP_SPLIT_M = (19.00, 13.55)
+# sr-attention at the heads a rank runs: (stage tokens N, heads a rank) of
+# stages 2 and 4 at model 2 and stage 4 at model 4; M = 300 key rows
+TP_SR_SHAPES = ((4800, 1), (300, 4), (300, 2))
+
+
+def serving_expect() -> dict:
+    """Phase 5's launches per request of each serving mode."""
+    float_drdb = {"drdb_growth": 4, "drdb_tail": 4, "drdb_int8_growth": 0,
+                  "drdb_int8_tail": 0}
+    expect = {}
+    for mode, sr in (("default", 35), ("static_guide", 28)):
+        expect[mode] = {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
+                        **float_drdb}
+        expect["int8_" + mode] = {**expect[mode], **{
+            k: 4 - v for k, v in float_drdb.items()}}
+    return expect
+
+
+def _full_weight_reduce_scatter(lin):
+    """Planted fault: the FFM's gathered weights summed over the group in
+    the backward (a reduce-scatter where the slice belongs)."""
+    import torch
+
+    from segmif_tpu_torch.parallel import tensor
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, comm, dim):
+            ctx.args = (comm, dim)
+            return tensor.join(comm.all_gather(x, dim), comm.world, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            comm, dim = ctx.args
+            return comm.reduce_scatter(g.contiguous(), dim), None, None
+
+    split = tensor._split(lin)
+    if split is None:
+        return lin.weight
+    return Fn.apply(lin.weight, split[0], split[1])
+
+
+def _bias_every_rank(x, lin, comm):
+    """Planted fault: a row-parallel linear's bias added on every rank."""
+    import torch.nn.functional as F
+
+    from segmif_tpu_torch.parallel import tensor
+
+    return tensor.reduce(F.linear(x, lin.weight, lin.bias), comm)
+
+
+def _name_rule(key):
+    """Planted fault: the split rule keyed by the port's own names."""
+    *mods, leaf = key.split(".")
+    return mods + ["kernel" if leaf == "weight" else leaf]
+
+
+@contextlib.contextmanager
+def _patched(module, name, fake):
+    real = getattr(module, name)
+    setattr(module, name, fake)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _split_outputs(model, mesh, x, dev, dtype):
+    """(fused Y, logits) of a copy of ``model`` in ``dtype``, split over
+    ``mesh`` (whole without one), as f32 on the CPU."""
+    import torch
+
+    from segmif_tpu_torch._device import place
+    from segmif_tpu_torch.parallel.tensor import tensor_parallel
+
+    m = place(copy.deepcopy(model), dev).to(dtype).eval()
+    if mesh is not None:
+        tensor_parallel(m, mesh)
+    with torch.inference_mode():
+        _, y, logits = m(*(t.to(dev, dtype) for t in x))
+    return y.float().cpu(), logits.float().cpu()
+
+
+def _serve_all(model, mesh, reqs, guide, cal, dev, counters):
+    """Phase 14 (b)'s three bf16 serving modes of ``model`` (split over
+    ``mesh``, whole without one) on ``reqs``: {mode: ([(fused Y, pred)]
+    on the CPU, [launches per request])} and the default mode's ms per
+    request (host clock, synchronised, after the checked requests)."""
+    import torch
+
+    from segmif_tpu_torch.ops.color import rgb_to_ycrcb
+    from segmif_tpu_torch.serving import make_serving_fn
+
+    mb = copy.deepcopy(model).to(torch.bfloat16)
+    serves = {"default": make_serving_fn(mb, device=dev, mesh=mesh),
+              "static_guide": make_serving_fn(mb, guide_rgb=guide.to(dev),
+                                              device=dev, mesh=mesh),
+              "int8_default": make_serving_fn(
+                  mb, int8_calibration=tuple(t.to(dev) for t in cal),
+                  device=dev, mesh=mesh)}
+    out = {}
+    for mode, serve in serves.items():
+        outs, counts = [], []
+        for ir, vis in reqs:
+            for c in counters.values():
+                c.launches = 0
+            rgb, pred = serve(ir.to(dev), vis.to(dev))
+            torch.cuda.synchronize()
+            counts.append({k: c.launches for k, c in counters.items()})
+            outs.append((rgb_to_ycrcb(rgb.float())[..., 0].cpu(),
+                         pred.cpu()))
+        out[mode] = (outs, counts)
+    serve = serves["default"]
+    t0 = time.perf_counter()
+    for ir, vis in reqs * TP_TIMED:
+        serve(ir.to(dev), vis.to(dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(reqs) * TP_TIMED)
+    return out, ms
+
+
+def _serve_held(got, want):
+    """(passed, line): the split serving's outputs against one process's,
+    under ``drift``'s limits on the fused Y (SSIM, max abs) and on the
+    class map (agreement; serving returns no logits)."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.ops.ssim import ssim
+
+    (ys, ps), (ys_e, ps_e) = (map(torch.cat, zip(*t)) for t in (got, want))
+    d = {"fused_y_ssim": ssim(ys[..., None], ys_e[..., None]).item(),
+         "fused_y_max_abs": (ys - ys_e).abs().max().item(),
+         "argmax_agreement": (ps == ps_e).float().mean().item()}
+    limits = {n: (op, lim) for n, op, lim in drift.BF16_LIMITS}
+    keys = ("fused_y_ssim", "fused_y_max_abs", "argmax_agreement")
+    ok = all(d[n] > limits[n][1] if limits[n][0] == ">" else
+             d[n] < limits[n][1] for n in keys)
+    return ok, ", ".join(f"{n} {d[n]:.5f} (limit {limits[n][0]} "
+                         f"{limits[n][1]:g})" for n in keys)
+
+
+def _fwd_held(got, want):
+    """(passed, line) of (a): fused Y and logits per element within
+    TP_FWD_RTOL of the largest |ref|."""
+    import torch
+
+    parts, ok = [], True
+    for name, g, e in zip(("fused_y", "logits"), got, want):
+        err, top = max_err(g, e), e.abs().max().item()
+        ok = ok and err <= TP_FWD_RTOL[name] * top and \
+            bool(torch.isfinite(g).all())
+        parts.append(f"{name} {tuple(g.shape)} max_abs_err {err:.3e} of "
+                     f"max |ref| {top:.3e} (limit {TP_FWD_RTOL[name]:g} of"
+                     " it)")
+    return ok, "; ".join(parts)
+
+
+def tp_kernel_checks(model, dev, rank) -> list:
+    """Phase 14, each kernel held against its plain version at the split
+    path's shapes on rank 0 of the model group: sr-attention at the heads
+    a rank runs (both dtypes); the FFM grams and apply with the weights
+    gathered from the ranks' pieces (bf16, [8, 307200, 64]; every rank of
+    the group gathers); the DRDB growth and tail and the int8 DRDB with a
+    rank's whole weights (bf16, [8, 64, 480, 640]; the int8 scales from
+    these inputs, as phase 4). Returns (passed, line) pairs."""
+    import torch
+
+    from segmif_tpu_torch.kernels.attention import (sr_attention,
+                                                    sr_attention_ref)
+    from segmif_tpu_torch.kernels.drdb import (drdb_growth, drdb_growth_ref,
+                                               drdb_tail, drdb_tail_ref)
+    from segmif_tpu_torch.kernels.ffm import (apply_args,
+                                              crosspath_apply_rows,
+                                              crosspath_apply_rows_ref,
+                                              crosspath_grams,
+                                              crosspath_grams_ref,
+                                              projections)
+    from segmif_tpu_torch.kernels.int8 import (drdb_int8_growth,
+                                               drdb_int8_growth_ref,
+                                               drdb_int8_tail,
+                                               drdb_int8_tail_ref,
+                                               quantize_drdb, record_amax)
+
+    bf = torch.bfloat16
+    cross = model.fusion.ffm.cross
+    w = {k: v.detach() for k, v in cross.folded_weights().items()}
+    if rank != 0:
+        return []
+    lines = []
+    gen = torch.Generator().manual_seed(SEED + 142)
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
+
+    def line(ok, text):
+        lines.append((ok, text))
+
+    for dtype in (torch.float32, bf):
+        dname = str(dtype).split(".")[1]
+        for n, h in TP_SR_SHAPES:
+            q, k, v = kv_halves(randn, BATCH, n, 300, h, 64, dtype)
+            got = sr_attention(q, k, v, 0.125)
+            ratio, err, diff, ok = held(got, sr_attention_ref(q, k, v, 0.125),
+                                        SR_TOL[dname])
+            line(ok, f"tp kernels: sr_attention {dname} B={BATCH} N={n} "
+                     f"M=300 H={h} (a rank's heads): "
+                     f"{verdict(ratio, err, diff, SR_TOL[dname])}")
+    n, c = H * W, 64
+    x1, x2, s = (randn((BATCH, n, c), bf) for _ in range(3))
+    wp, bp = projections(w)
+    grams = crosspath_grams(x1, x2, s, wp, bp)
+    want = crosspath_grams_ref(x1, x2, s, wp, bp)
+    err, top = max_err(grams, want), want.abs().max().item()
+    rtol = GRAM_RTOL["bfloat16"][0]
+    line(err <= rtol * top, f"tp kernels: ffm_grams bfloat16 B={BATCH} "
+                            f"N={n}, weights gathered from 2 ranks: "
+                            f"max_abs_err {err:.3e} of max |gram| {top:.3e}"
+                            f" (rtol {rtol:g})")
+    args = (x1, x2, s, wp, bp, *apply_args(want, w, cross.scale,
+                                           cross.num_heads))
+    ratio, err, diff, ok = held(crosspath_apply_rows(*args),
+                                crosspath_apply_rows_ref(*args),
+                                APPLY_TOL["bfloat16"])
+    line(ok, f"tp kernels: ffm_apply bfloat16 B={BATCH} N={n}, weights "
+             f"gathered: {verdict(ratio, err, diff, APPLY_TOL['bfloat16'])}")
+    del x1, x2, s, grams, want, args
+    drdb = model.fusion.DRDB1
+    dconvs, (wb, bb) = drdb._weights()
+    x = randn((BATCH, H, W, 64), bf).permute(0, 3, 1, 2)
+    gpk, tpk = drdb.kernel_weights(bf)
+    rs = drdb_growth(x, dconvs, gpk)
+    ratio, err = worst(rs, drdb_growth_ref(x, dconvs), GROWTH_TOL["bfloat16"])
+    line(ratio <= 1.0, f"tp kernels: drdb_growth bfloat16 [{BATCH}, 64, {H},"
+                       f" {W}], a rank's whole DRDB1: max_abs_err {err:.3e},"
+                       f" worst error/limit {ratio:.3f}")
+    ratio, err = worst((drdb_tail(x, rs, wb, bb, wpk=tpk),),
+                       (drdb_tail_ref(x, rs, wb, bb),),
+                       TAIL_TOL["bfloat16"], x=x)
+    line(ratio <= 1.0, f"tp kernels: drdb_tail bfloat16, the same: "
+                       f"max_abs_err {err:.3e}, worst error/limit "
+                       f"{ratio:.3f}")
+    q = quantize_drdb(dconvs, (wb, bb), record_amax([x, *rs]))
+    del rs
+    feat = drdb_int8_growth(x, q)
+    same_g = torch.equal(feat, drdb_int8_growth_ref(x, q))
+    same_t = torch.equal(drdb_int8_tail(x, feat, q),
+                         drdb_int8_tail_ref(x, feat, q))
+    line(same_g and same_t, f"tp kernels: drdb_int8 growth and tail "
+                            f"[{BATCH}, 64, {H}, {W}] bf16 x, a rank's whole "
+                            f"int8 DRDB1: bit for bit {same_g}, {same_t}")
+    del x, feat
+    torch.cuda.empty_cache()
+    return lines
+
+
+def tp_rank(comm):
+    """Phase 14 on one of the TP ranks: rank 0 first runs every path in
+    one process while the others wait; then ranks 0-1 run (a), (b) and
+    the kernels at their shapes and (c) on TP 2, every rank (a) and (b)
+    on TP 4, (c) on DP 2 x TP 2 and (d) the dry run. Rank 0 returns the
+    lines and verdicts; every rank its launches."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch._device import place
+    from segmif_tpu_torch.models.network import JointPipeline
+    from segmif_tpu_torch.parallel import dryrun, tensor
+    from segmif_tpu_torch.parallel import mesh as mesh_mod
+    from segmif_tpu_torch.parallel.mesh import (batch_shard, make_mesh,
+                                                param_shardings)
+    from segmif_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    counters = _counters()
+    sub = comm.subgroup(range(TP_MODEL))
+    mesh2 = None if sub is None else make_mesh(1, TP_MODEL, comm=sub)
+    mesh4 = make_mesh(comm.world // TP_MODEL, TP_MODEL, comm=comm)
+    mesh_all = make_mesh(1, comm.world, comm=comm)
+    out = {"lines": [], "ok": True, "launches": {}, "ms": {},
+           "transport": comm.transport}
+    r0 = comm.rank == 0
+
+    def line(ok, text, fault=False):
+        if r0:
+            out["lines"].append(text + (" (the check fails, as it must)"
+                                        if fault else ""))
+            out["ok"] = out["ok"] and (ok != fault)
+
+    def forward_check(mesh):
+        """(a): the f32 forward split over ``mesh``'s model group."""
+        got = _split_outputs(model, mesh, reqs[0], dev, f32)
+        ok, text = _fwd_held(got, ref.get("fwd", got))
+        line(ok, f"tp (a) f32 forward, TP {mesh.model}, batch {BATCH} "
+                 f"{H}x{W}, against one process: {text}")
+        torch.cuda.empty_cache()
+
+    def serve_checks(mesh):
+        """(b): the three bf16 serving modes split over ``mesh``'s model
+        group, the same outputs on its every rank, launches per rank."""
+        m = mesh.model
+        got, out["ms"][f"serve tp{m}"] = _serve_all(model, mesh, reqs, guide,
+                                                    cal, dev, counters)
+        expect = serving_expect()
+        for mode, (outs, counts) in got.items():
+            out["launches"][f"serving {mode} tp{m}"] = counts
+            same = _agree(mesh.model_comm, {
+                f"{i} {j}": t.float() for i, o in enumerate(outs)
+                for j, t in enumerate(o)})
+            if r0:
+                ok, text = _serve_held(outs, ref["serve"][mode][0])
+                line(ok and same, f"tp (b) bf16 serving {mode}, TP {m}, "
+                     f"{TP_REQUESTS} requests of {BATCH}, against one "
+                     f"process: {text}; the {m} ranks' outputs the same: "
+                     f"{same}; launches per request on rank 0 {counts[0]} "
+                     f"(expected {expect[mode]})")
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 140)
+    reqs = requests(gen, TP_REQUESTS, BATCH, "cpu")
+    guide = torch.rand((BATCH, H, W, 3), generator=gen)
+    cal = requests(gen, 1, BATCH, "cpu")[0]
+    model = drift.init_reference_scale(
+        JointPipeline("mit_b3"), torch.Generator().manual_seed(SEED + 141))
+    steps_models = _dp_models()
+    fusion_batch = _dp_batches(TP_FUSION_B)[0]
+    f32 = torch.float32
+    ref = {}
+    if r0:   # one process, on the whole model
+        t0 = time.perf_counter()
+        ref["fwd"] = _split_outputs(model, None, reqs[0], dev, f32)
+        ref["serve"], out["ms"]["serve one"] = _serve_all(
+            model, None, reqs, guide, cal, dev, counters)
+        ref["steps"] = dp_steps(steps_models, dev, f32, timed=TP_TIMED,
+                                fusion_batch=fusion_batch)
+        out["ms"].update({f"one {k}": v["ms"]
+                          for k, v in ref["steps"].items()})
+        out["ms"]["one process s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    comm.barrier()
+    if mesh2 is not None:
+        # (a) the f32 split forward, batch 8, 480x640
+        dims = param_shardings(TP_MODEL, dict(model.named_parameters()))
+        shares = tuple(round(sum(p.numel() for n, p in
+                                 model.named_parameters()
+                                 if dims[n] == d) / 1e6, 2) for d in (0, 1))
+        line(shares == TP_SPLIT_M, f"tp split of mit_b3 at model "
+             f"{TP_MODEL}: {shares[0]:.2f} M parameters by column, "
+             f"{shares[1]:.2f} M by row (expected {TP_SPLIT_M})")
+        forward_check(mesh2)
+        for label, (mod, name, fake) in {
+                "proj's and fc2's bias added on every rank": (
+                    tensor, "row_linear", _bias_every_rank),
+                "kv split contiguously (JAX's columns taken literally)": (
+                    tensor, "kv_parts", lambda key: 1)}.items():
+            with _patched(mod, name, fake):
+                bad = _split_outputs(model, mesh2, reqs[0], dev, f32)
+            ok, text = _fwd_held(bad, ref.get("fwd", bad))
+            line(ok, f"planted fault, tp (a), {label}: {text}", fault=True)
+        with _patched(mesh_mod, "jax_path", _name_rule):
+            try:
+                _split_outputs(model, mesh2, reqs[0], dev, f32)
+                refused = "split and ran"
+            except ValueError as e:
+                refused = f"refused: {str(e)[:100]}..."
+        line(refused.startswith("split"), "planted fault, tp (a), the decode"
+             f" head's linear_c*.proj split by a name-based rule: {refused}",
+             fault=True)
+        torch.cuda.empty_cache()
+        # (b) bf16 serving in three modes, and the kernels at these shapes
+        serve_checks(mesh2)
+        mb = tensor.tensor_parallel(place(copy.deepcopy(model), dev).to(
+            torch.bfloat16).eval(), mesh2)
+        with torch.inference_mode():
+            for ok, text in tp_kernel_checks(mb, dev, sub.rank):
+                line(ok, text)
+        del mb
+        torch.cuda.empty_cache()
+        # (c) the steps on TP 2
+        res = dp_steps(steps_models, dev, f32, timed=TP_TIMED,
+                       counters=counters, fusion_batch=fusion_batch,
+                       mesh=mesh2)
+        same = _agree(sub, _step_leaves(res))
+        out["launches"].update({f"tp2 {k}": [res[k]["launches"]]
+                                for k in res})
+        out["ms"].update({f"tp2 {k}": res[k]["ms"] for k in res})
+        if r0:
+            for ok, text in dp_compare(f"tp (c) f32, TP {TP_MODEL}", res,
+                                       ref["steps"], "float32"):
+                line(ok, text)
+            line(same, f"tp (c) f32, TP {TP_MODEL}: both ranks' whole and "
+                       f"gathered leaves, gradients and BN buffers the "
+                       f"same: {same}")
+        del res
+        with _patched(tensor, "full_weight", _full_weight_reduce_scatter):
+            bad = dp_steps(steps_models, dev, f32, kinds=("fusion",),
+                           fusion_batch=fusion_batch, mesh=mesh2)
+        if r0:
+            for ok, text in dp_compare("planted fault, tp (c), the FFM "
+                                       "gather's backward a reduce-scatter",
+                                       bad, ref["steps"], "float32"):
+                line(ok, text, fault=True)
+        del bad
+        torch.cuda.empty_cache()
+    comm.barrier()
+    # (a) and (b) on TP 4: every rank one model group
+    forward_check(mesh_all)
+    serve_checks(mesh_all)
+    # (c) the steps on DP 2 x TP 2
+    shard = (batch_shard(mesh4, TP_FUSION_B), batch_shard(mesh4, DP_SEG[0]))
+    res = dp_steps(steps_models, dev, f32, shard, timed=TP_TIMED,
+                   counters=counters, fusion_batch=fusion_batch, mesh=mesh4)
+    same = _agree(comm, _step_leaves(res))
+    out["launches"].update({f"dp2xtp2 {k}": [res[k]["launches"]]
+                            for k in res})
+    out["ms"].update({f"dp2xtp2 {k}": res[k]["ms"] for k in res})
+    if r0:
+        for ok, text in dp_compare(f"tp (c) f32, DP {mesh4.data} x TP "
+                                   f"{TP_MODEL}", res, ref["steps"],
+                                   "float32"):
+            line(ok, text)
+        line(same, f"tp (c) f32, DP {mesh4.data} x TP {TP_MODEL}: every "
+                   f"rank's gathered leaves, gradients and BN buffers the "
+                   f"same: {same}")
+    del res
+    real_sum = steps._sum_over_ranks
+
+    def world_sum(shard, grads, losses):
+        return real_sum(dataclasses.replace(shard, comm=comm), grads, losses)
+
+    with _patched(steps, "_sum_over_ranks", world_sum):
+        bad = dp_steps(steps_models, dev, f32, shard, kinds=("fusion",),
+                       fusion_batch=fusion_batch, mesh=mesh4)
+    if r0:
+        for ok, text in dp_compare("planted fault, tp (c), the gradients "
+                                   "summed over every rank, not the data "
+                                   "group", bad, ref["steps"], "float32"):
+            line(ok, text, fault=True)
+    del bad
+    torch.cuda.empty_cache()
+    # (d) the dry run on every rank: data 2 x model 2
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun(comm)
+    out["ms"]["dryrun s"] = time.perf_counter() - t0
+    out["dryrun_launches"] = {k: c.launches for k, c in counters.items()}
+    return out
+
+
+def tp_checks(totals, card, tmp, world=TP_WORLD):
+    """Phase 14: tensor parallelism on ``world`` ranks (on one card, or
+    one card each); see the module docstring."""
+    from segmif_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    res = dist.launch(tp_rank, world, (), device="cuda", timeout=900,
+                      workdir=tmp)
+    r0 = res[0]
+    print(f"tp ranks: {world} on {card}: {r0['transport']}", flush=True)
+    for ln in r0["lines"]:
+        print(ln, flush=True)
+    check(r0["ok"], "phase 14: a tensor-parallel check failed, or a "
+                    "planted fault passed")
+    expect = serving_expect()
+    for r, out in enumerate(res):
+        for key, per_call in out["launches"].items():
+            want = (expect[key.split()[1]] if key.startswith("serving")
+                    else DP_EXPECT[key.split()[1]])
+            for counts in per_call:
+                check(counts == want, f"phase 14 rank {r} {key}: launches "
+                                      f"{counts}, expected {want}")
+                for k, v in counts.items():
+                    totals[k] += v
+        for k, v in out["dryrun_launches"].items():
+            totals[k] += v
+        check(out["dryrun"] == r0["dryrun"],
+              "phase 14 (d): the ranks' dry-run lines differ")
+    print(f"tp launches per rank: serving on TP {TP_MODEL} and TP {world} "
+          f"as phase 5 (sr-attention 35 / 28 at a rank's heads or all "
+          f"heads gathered, FFM 2 + 2, DRDB 4 + 4 or int8 4 + 4); steps as "
+          f"phase 13 ({DP_EXPECT}); on every rank", flush=True)
+    note = SHARED_NOTE if r0["transport"].startswith("gloo") else ""
+    ms = r0["ms"]
+    print(f"tp (e) ({r0['transport']}; {card}): bf16 serving default, "
+          f"batch {BATCH}: TP {TP_MODEL} {ms[f'serve tp{TP_MODEL}']:.1f} / "
+          f"TP {world} {ms[f'serve tp{world}']:.1f} ms per request against "
+          f"{ms['serve one']:.1f} ms in one process; f32 steps "
+          f"(fusion batch {TP_FUSION_B} {H}x{W}, seg batch {DP_SEG[0]} "
+          f"{DP_SEG[1]}x{DP_SEG[2]}) ms per step on rank 0, one process / "
+          f"TP {TP_MODEL} / DP 2 x TP {TP_MODEL}: fusion "
+          f"{ms['one fusion']:.1f} / "
+          f"{ms['tp2 fusion']:.1f} / {ms['dp2xtp2 fusion']:.1f}, seg "
+          f"{ms['one seg']:.1f} / {ms['tp2 seg']:.1f} / "
+          f"{ms['dp2xtp2 seg']:.1f}{note}", flush=True)
+    print(f"tp (d) {r0['dryrun']} ({ms['dryrun s']:.1f} s)", flush=True)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    return r0["transport"]
+
+
 def nccl_run(card: str) -> int:
     """``--parallel`` on several cards: phase 13 (a), (c), (d) and (e)
     with one rank per card of this host, over NCCL
     (``dist.choose_backend``'s rule); the spatial fuse on 2 ranks and on
-    every card. Returns the exit code."""
+    every card; phase 14 on 4 ranks (TP 2 on two cards, TP 4 and DP 2 x
+    TP 2 on four; with fewer than 4 cards its ranks share them over
+    gloo). Returns the exit code."""
     import torch
 
     n = torch.cuda.device_count()
@@ -3764,9 +4331,12 @@ def nccl_run(card: str) -> int:
                                          worlds=tuple(sorted({2, n})))):
             check(transport.startswith("nccl"),
                   f"{n} ranks on {n} cards took {transport}, not nccl")
+        transport = tp_checks(totals, card, tmp)
+        check(transport.startswith("nccl") == (n >= TP_WORLD),
+              f"phase 14's {TP_WORLD} ranks on {n} cards took {transport}")
     check(all(totals[k] > 0 for k, v in STRETCH_FUSE.items() if v),
           f"a kernel of the parallel paths never launched: {totals}")
-    print(f"phase 13 over NCCL on {n} cards: "
+    print(f"phases 13 and 14 on {n} cards: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3780,8 +4350,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--parallel", action="store_true",
-                   help="phases 1-3 and 13 alone; with several cards, one "
-                        "rank per card over NCCL")
+                   help="phases 1-3, 13 and 14 alone; with several cards, "
+                        "one rank per card over NCCL")
     args = p.parse_args(argv)
     import torch
 
@@ -3832,7 +4402,10 @@ def main(argv=None) -> int:
     if args.parallel:
         if torch.cuda.device_count() > 1:
             return nccl_run(card)
-        parallel_checks(dev, {k: 0 for k in _counters()}, card)
+        totals = {k: 0 for k in _counters()}
+        parallel_checks(dev, totals, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            tp_checks(totals, card, tmp)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": 1}}), flush=True)
@@ -3915,14 +4488,7 @@ def main(argv=None) -> int:
                 "drdb_tail": drdb_tail,
                 "drdb_int8_growth": drdb_int8_growth,
                 "drdb_int8_tail": drdb_int8_tail}
-    expect = {}
-    for mode, sr in (("default", 35), ("static_guide", 28)):
-        float_drdb = {"drdb_growth": 4, "drdb_tail": 4,
-                      "drdb_int8_growth": 0, "drdb_int8_tail": 0}
-        expect[mode] = {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
-                        **float_drdb}
-        expect["int8_" + mode] = {**expect[mode], **{
-            k: 4 - v for k, v in float_drdb.items()}}
+    expect = serving_expect()
     cal = requests(gen, 1, BATCH, dev)[0]   # one calibration batch
     qmodel = quantize_for_serving(model, cal)
     serves = {"default": make_serving_fn(model),
@@ -4026,6 +4592,10 @@ def main(argv=None) -> int:
 
     # phase 13: the parallel paths
     parallel_checks(dev, totals, card)
+
+    # phase 14: tensor parallelism
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_checks(totals, card, tmp)
 
     src = "segmif_tpu_torch/kernels/csrc/"
     meta = {

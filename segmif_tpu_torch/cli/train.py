@@ -27,11 +27,14 @@ process on the whole batch):
         -m segmif_tpu_torch.cli.train --mesh_data N ...
 
 or, without torchrun, ``--mesh_data N`` alone: the CLI spawns the N ranks
-itself (``parallel.dist.launch``). Rank r computes on ``cuda:r %
-device_count`` (``--device cpu``: the CPU); the ranks talk over NCCL when
-each has a card of its own and over gloo when they share one or run on
-the CPU (``parallel.dist.choose_backend``). Only rank 0 logs at INFO and
-writes files.
+itself (``parallel.dist.launch``). Tensor parallelism over M ranks a model
+group (``parallel.tensor``): ``--mesh_model M``, with ``--mesh_data D``
+on D x M ranks (``--mesh_data -1``, the default, is every rank over M);
+alone, the CLI spawns D x M ranks (M with ``--mesh_data -1``). Rank r
+computes on ``cuda:r % device_count`` (``--device cpu``: the CPU); the
+ranks talk over NCCL when each has a card of its own and over gloo when
+they share one or run on the CPU (``parallel.dist.choose_backend``). Only
+rank 0 logs at INFO and writes files.
 """
 from __future__ import annotations
 
@@ -69,7 +72,8 @@ def _parse(argv):
                    help="ranks of the data axis (-1: every launched rank); "
                         "N > 1 without torchrun spawns N ranks")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="ranks of the model axis; > 1 is not ported")
+                   help="ranks of a model group (tensor parallelism); "
+                        "without torchrun D x M ranks are spawned")
     p.add_argument("--streaming", action="store_true",
                    help="keep the splits on disk (decode per batch; fused "
                         "images in a disk memmap)")
@@ -95,18 +99,19 @@ def main(argv=None):
     args = _parse(argv)
     from ..parallel.dist import run_cli
 
-    return run_cli(args.mesh_data, args.device, lambda c: _run(args, c),
-                   _rank, argv)
+    ranks = max(args.mesh_data, 1) * args.mesh_model
+    return run_cli(ranks, args.device, lambda c: _run(args, c), _rank,
+                   argv)
 
 
 def _rank(comm, argv):
-    """One spawned rank of ``--mesh_data N``."""
+    """One spawned rank of ``--mesh_data N`` / ``--mesh_model M``."""
     return _run(_parse(argv), comm)
 
 
 def _run(args, comm=None):
-    """The run on this process; ``comm``: its rank's group under data
-    parallelism."""
+    """The run on this process; ``comm``: the group of every rank under
+    data or tensor parallelism."""
     from ..config import TrainConfig, load_yaml
     from ..data.datasets import FusionFolderDataset, SyntheticFusionDataset
     from ..train.interactive import InteractiveTrainer

@@ -124,8 +124,8 @@ class TrainConfig:
     fusion: FusionPhaseConfig = dataclasses.field(default_factory=FusionPhaseConfig)
     seg: SegPhaseConfig = dataclasses.field(default_factory=SegPhaseConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
-    mesh_data: int = -1                # -1 = all devices (one, in the port)
-    mesh_model: int = 1
+    mesh_data: int = -1                # -1 = every rank over mesh_model
+    mesh_model: int = 1                # ranks of a model group (TP)
 
 
 def _update(dc, d: dict):

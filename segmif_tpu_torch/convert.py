@@ -12,7 +12,7 @@ Plain numpy in, torch out; no JAX import. Layout rules:
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -174,3 +174,59 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> StateDict:
     out = seg_state_dict_from_jax(params["seg"], batch_stats["seg"], "seg.")
     out.update(fusion_state_dict_from_jax(params["fusion"], "fusion."))
     return out
+
+
+# the port's module names that the JAX package names otherwise (the maps
+# above, read backwards), by the module's last name; a dotted pair maps
+# its two names to one
+_JAX_NAMES = {"denoise_net": "seg", "conv3": "seg_proj1",
+              "conv4": "seg_proj2", "kv3": "kv_seg"}
+_JAX_PAIRS = {("dwconv", "dwconv"): ["dwconv"],
+              ("linear_fuse", "conv"): ["linear_fuse"],
+              ("linear_fuse", "bn"): ["bn"], ("conv", "0"): ["conv_a"],
+              ("conv", "2"): ["conv_b"]}
+
+
+def jax_path(key: str) -> List[str]:
+    """The JAX ``JointPipeline`` params path of the port's parameter
+    ``key`` (a ``JointPipeline.state_dict()`` name): the converter's name
+    map above read backwards. ``seg.denoise_net.encoder.block1.0.attn.kv.
+    weight`` -> ``seg/seg/encoder/block1_0/attn/kv/kernel``; the decode
+    head's ``linear_c1.proj.weight`` -> ``.../decoder/linear_c1/kernel``;
+    the FFM's ``cross_attn.kv3.weight`` -> ``.../cross_attn/kv_seg/
+    kernel``; norms' weights -> ``scale``; ``fusion.relu.weight`` ->
+    ``fusion/prelu_alpha``."""
+    *mods, leaf = key.split(".")
+    if mods == ["fusion", "relu"]:
+        return ["fusion", "prelu_alpha"]
+    out: List[str] = []
+    i = 0
+    while i < len(mods):
+        name = mods[i]
+        pair = tuple(mods[i:i + 2])
+        if pair in _JAX_PAIRS:
+            out += _JAX_PAIRS[pair]
+            i += 2
+            continue
+        if re.fullmatch(r"block\d", name) and i + 1 < len(mods):
+            out.append(f"{name}_{mods[i + 1]}")
+            i += 2
+            continue
+        if re.fullmatch(r"linear_c\d", name) and mods[i + 1:i + 2] == \
+                ["proj"]:
+            out.append(name)
+            i += 2
+            continue
+        if name == "conv" and out and out[-1].startswith("drdb"):
+            out.append("bottleneck")
+        elif re.fullmatch(r"DRDB\d", name):
+            out.append(name.lower())
+        elif re.fullmatch(r"Dcov\d", name):
+            out.append("dconv" + name[4:])
+        else:
+            out.append(_JAX_NAMES.get(name, name))
+        i += 1
+    if leaf == "weight":
+        norm = "norm" in out[-1] or out[-1] == "bn"
+        leaf = "scale" if norm else "kernel"
+    return out + [leaf]

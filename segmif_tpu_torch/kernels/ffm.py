@@ -371,12 +371,26 @@ def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int,
     grams the contexts read: the row-sharded trunk
     (``parallel.spatial``) sums them over the ranks, so that every rank
     applies the whole image's contexts to its own tokens."""
-    dim = x1.shape[-1]
-    wp = torch.stack([w["wp1"], w["wp2"], w["wp3"]])
-    bp = torch.stack([w["bp1"], w["bp2"], w["bp3"]])
+    wp, bp = projections(w)
     grams = crosspath_grams(x1, x2, s, wp, bp)
     if reduce is not None:
         grams = reduce(grams)
+    return crosspath_apply_rows(x1, x2, s, wp, bp,
+                                *apply_args(grams, w, scale, num_heads))
+
+
+def projections(w: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three channel projections as the kernels take them: wp [3, C,
+    2C], bp [3, 2C]."""
+    return (torch.stack([w["wp1"], w["wp2"], w["wp3"]]),
+            torch.stack([w["bp1"], w["bp2"], w["bp3"]]))
+
+
+def apply_args(grams: torch.Tensor, w: Dict, scale: float, num_heads: int):
+    """Pass B's (mats, be, lnp) from pass A's [B, 3, C, C] grams: the
+    contexts folded into the end projections, their biases, the two
+    LayerNorms."""
+    dim = grams.shape[-1]
     bd_1 = linear_ctx_blockdiag_from_gram(grams[:, 0], w["wkv1"], scale,
                                           num_heads)
     bd_2 = linear_ctx_blockdiag_from_gram(grams[:, 1], w["wkv2"], scale,
@@ -389,7 +403,7 @@ def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int,
     be = torch.stack([w["be1"], w["be2"]]).float()
     lnp = torch.stack([torch.stack([w["ln1_scale"], w["ln1_bias"]]),
                        torch.stack([w["ln2_scale"], w["ln2_bias"]])]).float()
-    return crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp)
+    return mats, be, lnp
 
 
 class _CrossPathFn(torch.autograd.Function):

@@ -23,6 +23,11 @@ names otherwise, are ``cat_proj{1,2}_r{1,2}`` as in the JAX package.
 The trunk runs NCHW convs on channels_last memory, so the bytes of a
 [B, C, H, W] activation are the [B, H*W, C] token view the FFM kernels read
 without a copy.
+
+Under tensor parallelism (``parallel.tensor``) the FFM's projections are
+held split over the model group and gathered where they are used
+(``folded_weights`` and the modular path alike); the FFM maths runs whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from ..kernels.ffm import crosspath_apply
 from ..kernels.int8 import Int8Drdb, drdb_int8, quantize_drdb, record_amax
 from ..ops.color import minmax_stretch
 from ..ops.image import nchw, nhwc, resize_bilinear
+from ..parallel import tensor as tp_ops
 
 _CL = torch.channels_last
 
@@ -183,7 +189,7 @@ class CrossAttention(nn.Module):
         ``return_context`` the [B, H, D, D] context blocks (f32)."""
         c = x1.shape[-1]
         scale = (c // self.num_heads) ** -0.5
-        kv = self.kv3(seg)
+        kv = tp_ops.linear(self.kv3, seg)
         bd = linear_ctx_blockdiag(kv[..., :c], kv[..., c:], scale,
                                   self.num_heads)
         o1 = torch.bmm(x1, bd.to(x1.dtype))
@@ -209,7 +215,7 @@ class CrossAttention2(nn.Module):
         scale = (c // self.num_heads) ** -0.5
         outs = []
         for proj, x in ((self.kv1, x1), (self.kv2, x2)):
-            kv = proj(x)
+            kv = tp_ops.linear(proj, x)
             outs.append(linear_cross_attention(seg, kv[..., :c], kv[..., c:],
                                                scale, self.num_heads))
         return outs[0], outs[1]
@@ -259,18 +265,19 @@ class CrossPath(nn.Module):
 
     def folded_weights(self) -> Dict[str, torch.Tensor]:
         """Weights in the JAX layout ([in, out] kernels) that
-        ``kernels.ffm`` takes ('both' only)."""
+        ``kernels.ffm`` takes ('both' only); split ones gathered."""
+        full = tp_ops.full_weight
         w = {}
         for i in (1, 2, 3):
             lin = getattr(self, f"channel_proj{i}")
-            w[f"wp{i}"], w[f"bp{i}"] = lin.weight.t(), lin.bias
-        w["wkv3"] = self.cross_attn.kv3.weight.t()
-        w["wkv1"] = self.cross_attn2.kv1.weight.t()
-        w["wkv2"] = self.cross_attn2.kv2.weight.t()
+            w[f"wp{i}"], w[f"bp{i}"] = full(lin).t(), lin.bias
+        w["wkv3"] = full(self.cross_attn.kv3).t()
+        w["wkv1"] = full(self.cross_attn2.kv1).t()
+        w["wkv2"] = full(self.cross_attn2.kv2).t()
         for i in (1, 2):
             lin = getattr(self, f"end_proj{i}")
             norm = getattr(self, f"norm{i}")
-            w[f"we{i}"], w[f"be{i}"] = lin.weight.t(), lin.bias
+            w[f"we{i}"], w[f"be{i}"] = full(lin).t(), lin.bias
             w[f"ln{i}_scale"], w[f"ln{i}_bias"] = norm.weight, norm.bias
         return w
 
@@ -280,9 +287,10 @@ class CrossPath(nn.Module):
         if self.folded:
             return crosspath_apply(x1, x2, seg, self.folded_weights(),
                                    self.scale, self.num_heads)
-        y1, u1 = F.relu(self.channel_proj1(x1)).chunk(2, dim=-1)
-        y2, u2 = F.relu(self.channel_proj2(x2)).chunk(2, dim=-1)
-        y3, u3 = F.relu(self.channel_proj3(seg)).chunk(2, dim=-1)
+        lin = tp_ops.linear
+        y1, u1 = F.relu(lin(self.channel_proj1, x1)).chunk(2, dim=-1)
+        y2, u2 = F.relu(lin(self.channel_proj2, x2)).chunk(2, dim=-1)
+        y3, u3 = F.relu(lin(self.channel_proj3, seg)).chunk(2, dim=-1)
         ctx = None
         if self.interaction == "both":
             out = self.cross_attn(u1, u2, u3, self.return_context)
@@ -295,8 +303,8 @@ class CrossPath(nn.Module):
             m1, m2 = self.cross_attn(u1, u2, u3)
         else:
             m1, m2 = self.cross_attn2(y1, y2, y3)
-        o1 = self.norm1(x1 + self.end_proj1(m1))
-        o2 = self.norm2(x2 + self.end_proj2(m2))
+        o1 = self.norm1(x1 + lin(self.end_proj1, m1))
+        o2 = self.norm2(x2 + lin(self.end_proj2, m2))
         if self.return_context:
             return o1, o2, ctx
         return o1, o2

@@ -18,6 +18,9 @@ before (``train=False``), every block is deterministic.
  - The depthwise 3x3 of Mix-FFN is a grouped conv.
  - Attention goes through ``kernels.attention.sr_attention``: the CUDA
    kernel on CUDA tensors, plain PyTorch on CPU tensors.
+ - Under tensor parallelism (``parallel.tensor.tensor_parallel`` sets a
+   block's ``tp``, its model group) the attention and the Mix-FFN run
+   their split leaves Megatron-style; see ``parallel.tensor``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from ..kernels.attention import sr_attention
 from ..ops.image import nchw, nhwc
+from ..parallel import tensor as tp_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +119,9 @@ class OverlapPatchEmbed(nn.Module):
 
 class EfficientSelfAttention(nn.Module):
     """Spatially-reduced self-attention: K/V from an sr-strided conv of the
-    token grid."""
+    token grid. ``tp``: the model group when q, kv and proj are split."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int,
                  qkv_bias: bool = True):
@@ -133,15 +139,35 @@ class EfficientSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         b, n, c = x.shape
         heads = self.num_heads
-        q = self.q(x).unflatten(-1, (heads, c // heads))
         xs = x
         if self.sr_ratio > 1:
             xs = self.norm(_nchw_to_tokens(self.sr(_tokens_to_nchw(x, h, w))))
+        if self.tp is not None:
+            return self._forward_tp(x, xs, heads, c // heads)
+        q = self.q(x).unflatten(-1, (heads, c // heads))
         kv = self.kv(xs)
         k = kv[..., :c].unflatten(-1, (heads, c // heads))
         v = kv[..., c:].unflatten(-1, (heads, c // heads))
         out = sr_attention(q, k, v, self.scale)
         return self.proj(out.reshape(b, n, c))
+
+    def _forward_tp(self, x, xs, heads: int, d: int) -> torch.Tensor:
+        """The rank's heads of q, k and v (its columns of q and of each
+        half of kv); all heads on every rank, gathered, where the group
+        does not divide them; proj row-parallel."""
+        comm = self.tp
+        q = tp_ops.col_linear(x, self.q, comm)
+        kv = tp_ops.col_linear(xs, self.kv, comm)
+        cl = q.shape[-1]
+        k, v = kv[..., :cl], kv[..., cl:]
+        if heads % comm.world:
+            q, k, v = (tp_ops.gather(t, comm) for t in (q, k, v))
+        hl = q.shape[-1] // d
+        out = sr_attention(*(t.unflatten(-1, (hl, d)) for t in (q, k, v)),
+                           self.scale).flatten(-2)
+        if heads % comm.world:
+            out = tp_ops.scatter(out, comm)
+        return tp_ops.row_linear(out, self.proj, comm)
 
 
 class DWConv(nn.Module):
@@ -156,7 +182,10 @@ class DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """fc1 -> depthwise 3x3 conv -> GELU (exact) -> fc2."""
+    """fc1 -> depthwise 3x3 conv -> GELU (exact) -> fc2. ``tp``: the model
+    group when fc1 and fc2 are split."""
+
+    tp = None
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
@@ -165,8 +194,23 @@ class MixFFN(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        if self.tp is not None:
+            return self._forward_tp(x, h, w)
         y = F.gelu(self.dwconv(self.fc1(x), h, w), approximate="none")
         return self.fc2(y)
+
+    def _forward_tp(self, x, h: int, w: int) -> torch.Tensor:
+        """fc1 column-parallel, the rank's channels of the whole depthwise
+        conv, fc2 row-parallel."""
+        comm = self.tp
+        y = tp_ops.col_linear(x, self.fc1, comm)
+        conv = self.dwconv.dwconv
+        wd, bd = (tp_ops.local(tp_ops.copy(t, comm), comm.rank, comm.world,
+                               0) for t in (conv.weight, conv.bias))
+        y = _nchw_to_tokens(F.conv2d(_tokens_to_nchw(y, h, w), wd, bd,
+                                     padding=1, groups=wd.shape[0]))
+        y = F.gelu(y, approximate="none")
+        return tp_ops.row_linear(y, self.fc2, comm)
 
 
 class Block(nn.Module):

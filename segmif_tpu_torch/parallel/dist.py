@@ -16,17 +16,21 @@ Ranks and backends:
    ``fn(comm, *args)`` on each and returns their results in rank order. It
    kills every rank when one fails or the time runs out. The CLIs get
    their ranks through ``run_cli``: ``join_env`` under torchrun,
-   ``launch`` for ``--mesh_data N`` / ``--spatial N`` when they run
-   alone.
+   ``launch`` for ``--mesh_data N`` / ``--mesh_model M`` / ``--spatial
+   N`` when they run alone.
 
 Collectives (``Comm``): ``all_reduce_sum_`` (in place), ``all_reduce_sum``
 (differentiable: its backward all-reduces the incoming gradient),
-``broadcast_``, ``all_gather_rows`` and ``exchange_rows`` (the halo's
-neighbour exchange). Gloo moves CUDA tensors in all_reduce and broadcast
-only; for send/recv and all_gather, ``Comm`` stages CUDA tensors through
-pinned host buffers. It does so explicitly, ``init`` says so in one log
-line, and ``Comm.transport`` names it. The compute stays on the card: this is a
-transport, not a fallback.
+``broadcast_``, ``all_gather_rows``, ``all_gather`` and
+``reduce_scatter`` (equal shards along a dim: tensor parallelism's) and
+``exchange_rows`` (the halo's neighbour exchange). ``subgroup`` makes the
+``Comm`` of some of the ranks (the data and model groups of a two-axis
+mesh). Gloo moves CUDA tensors in all_reduce and broadcast only; for
+send/recv and all_gather, ``Comm`` stages CUDA tensors through pinned host
+buffers, and gloo's reduce-scatter is an all-reduce and a slice. It does
+so explicitly, ``init`` says so in one log line, and ``Comm.transport``
+names it. The compute stays on the card: this is a transport, not a
+fallback.
 
 Every init and every collective has a timeout (``TIMEOUT_S`` unless the
 caller gives one), so no rank waits forever on a peer that died.
@@ -169,6 +173,11 @@ class Comm:
                "buffers; all_reduce and broadcast by gloo's CUDA support"
                if self.staged else ""))
 
+    def __deepcopy__(self, memo):
+        # a process group is not copied: a deep copy of a module that
+        # holds a Comm (a tensor-parallel model) talks to the same ranks
+        return self
+
     def global_rank(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(
             self.group, r)
@@ -234,6 +243,36 @@ class Comm:
         out = torch.cat([o[:c] for o, c in zip(outs, counts)])
         return out.to(self.device).movedim(0, dim)
 
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` (the same shape on every rank) concatenated
+        along ``dim``, in rank order; contiguous."""
+        wire = self._wire(x)
+        outs = [self._buffer(wire.shape, wire.dtype)
+                for _ in range(self.world)]
+        dist.all_gather(outs, wire, group=self.group)
+        return torch.cat(outs, dim=dim).to(self.device)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, cut into ``world`` equal
+        pieces along ``dim``: this rank's piece. NCCL reduces and scatters
+        in one call; gloo all-reduces (through its CUDA support, as
+        ``all_reduce_sum_``) and slices. No path of the package calls it:
+        the split model's gather slices in its backward, and only the
+        planted fault that gives that backward a reduce-scatter uses it
+        (chip_smoke.py phase 14, tests/parallel_ranks.py)."""
+        n = x.shape[dim] // self.world
+        if x.shape[dim] % self.world:
+            raise ValueError(f"reduce_scatter: {x.shape[dim]} entries along "
+                             f"dim {dim} over {self.world} ranks")
+        if self.backend == "nccl":
+            xm = x.movedim(dim, 0).contiguous()
+            out = xm.new_empty((n,) + tuple(xm.shape[1:]))
+            dist.reduce_scatter_tensor(out, xm, group=self.group)
+            return out.movedim(0, dim)
+        full = self.all_reduce_sum_(x.clone(
+            memory_format=torch.contiguous_format))
+        return full.narrow(dim, self.rank * n, n)
+
     def exchange_rows(self, top: torch.Tensor, bottom: torch.Tensor,
                       from_above: Optional[Tuple], from_below: Optional[Tuple]
                       ) -> Tuple[Optional[torch.Tensor],
@@ -268,19 +307,23 @@ class Comm:
 
 def _rank_main(fn, rank, world, init_method, device, timeout, threads,
                args, results):
-    """One spawned rank: join the group, run ``fn``, report."""
+    """One spawned rank: join the group, run ``fn``, report. A failure is
+    reported before the group is left: leaving waits on the peers'
+    collectives, and the parent kills every rank once it hears."""
+    joined = False
     try:
         if threads:
             torch.set_num_threads(threads)
         comm = init(world, rank, None, device, init_method, timeout)
-        try:
-            value = fn(comm, *args)
-            comm.barrier()
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, True, value))
+        joined = True
+        value = fn(comm, *args)
+        comm.barrier()
+        report = (rank, True, value)
     except BaseException:   # reported to the parent, which re-raises
-        results.put((rank, False, traceback.format_exc()))
+        report = (rank, False, traceback.format_exc())
+    results.put(report)
+    if joined:
+        dist.destroy_process_group()
 
 
 def launch(fn: Callable, world: int, args: tuple = (), device: str = "cpu",

@@ -1,23 +1,24 @@
 """The multi-rank dry run (counterpart of ``__graft_entry__.py:32``
-``dryrun_multichip``, without its tensor-parallel part): on N ranks, one
-step of each parallel path at tiny shapes.
+``dryrun_multichip``): on N ranks, one step of each parallel path at tiny
+shapes, on the JAX dry run's mesh: data N/2 x model 2 for an even N >= 4
+(tensor parallelism, ``parallel.tensor``), else data N x model 1.
 
     python -m segmif_tpu_torch.parallel.dryrun 2 [--device cpu]
     torchrun --standalone --nproc_per_node 2 \\
         -m segmif_tpu_torch.parallel.dryrun 2
 
- - one round >= 2 fusion step (the frozen seg network's CE, DWA) under
-   data parallelism, mit_b0 at 64x64, one sample per rank;
+ - one round >= 2 fusion step (the frozen seg network's CE, DWA) of
+   mit_b0 at 64x64, one sample a data index, the model split over each
+   model group;
  - one seg step (the 3-group AdamW, BatchNorm batch statistics, drop-path
    and dropout);
  - the spatial fuse (``make_spatial_fuse_fn``) of the first pair, its
-   rows split over the ranks (16 rows a rank at least: 64 rows up to 4
-   ranks, 16 N beyond);
- - a mit_b3 forward under data parallelism at 96x128: the deployed
-   configuration's parameter shapes.
+   rows split over the data axis (16 rows a rank at least: 64 rows up to
+   4, 16 D beyond), each model group running its rows split;
+ - a mit_b3 forward at 96x128, data x model: the deployed configuration's
+   parameter shapes.
 
-Rank 0 prints one line, as the JAX dry run does. Tensor parallelism is
-named in it as waiting for its slice (ROADMAP's "Tensor parallelism").
+Rank 0 prints one line, as the JAX dry run does, with the mesh's axes.
 The ranks compute in f32 on the CPU and in bf16 on the card.
 """
 from __future__ import annotations
@@ -30,8 +31,16 @@ import torch
 
 from .._device import place
 from . import dist
-from .mesh import batch_shard, make_mesh, put_batch, put_replicated
+from .mesh import Mesh, batch_shard, make_mesh, put_batch, put_replicated
 from .spatial import HALO, make_spatial_fuse_fn
+from .tensor import tensor_parallel
+
+
+def mesh_axes(world: int):
+    """(data, model) of the JAX dry run on ``world`` ranks: model 2 for
+    an even world of 4 or more."""
+    model = 2 if world % 2 == 0 and world >= 4 else 1
+    return world // model, model
 
 
 def _data(b: int, h: int, w: int):
@@ -54,12 +63,12 @@ def dryrun(comm: dist.Comm) -> str:
 
     dev = comm.device
     dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
-    mesh = make_mesh(comm=comm)
+    mesh = make_mesh(*mesh_axes(comm.world), comm=comm)
     n = mesh.data
     h, w = max(64, HALO * n), 64
     model = init_params(JointPipeline("mit_b0", num_classes=9),
                         torch.Generator().manual_seed(0))
-    put_replicated(mesh, model)
+    tensor_parallel(put_replicated(mesh, model), mesh)
     data = {k: torch.from_numpy(v) for k, v in _data(n, h, w).items()}
     shard = batch_shard(mesh, n)
 
@@ -79,14 +88,15 @@ def dryrun(comm: dist.Comm) -> str:
     sm = sstep(sstate, shard.take({"image": data["guide"],
                                    "label": data["label"]}), 1, shard)
 
-    # spatial: the fusion trunk's rows over the ranks
-    sp_rgb, sp_y = make_spatial_fuse_fn(mesh, model, dtype, dev)(
+    # spatial: the fusion trunk's rows over the data axis
+    sp_rgb, sp_y = make_spatial_fuse_fn(Mesh(n, mesh.comm), model, dtype,
+                                        dev)(
         data["ir"][:1], data["vis"][:1], data["guide"][:1])
 
-    # the deployed model's parameter shapes: mit_b3, data parallel forward
+    # the deployed model's parameter shapes: mit_b3, data x model forward
     b3 = init_params(JointPipeline("mit_b3", num_classes=9),
                      torch.Generator().manual_seed(2))
-    put_replicated(mesh, b3)
+    tensor_parallel(put_replicated(mesh, b3), mesh)
     b3 = place(b3, dev).to(dtype).eval()
     b3_data = _data(n, 96, 128)
     rows = put_batch(mesh, {k: torch.from_numpy(b3_data[k])
@@ -97,17 +107,18 @@ def dryrun(comm: dist.Comm) -> str:
         sums = torch.stack([fy.float().sum(), logits.float().sum(),
                             torch.tensor(float(logits[..., 0].numel()),
                                          device=dev)]).double()
-        comm.all_reduce_sum_(sums)
+        if mesh.comm is not None:   # a sample counted once
+            mesh.comm.all_reduce_sum_(sums)
     checks = [torch.isfinite(t).all() for t in (fm["loss"], sm["loss"],
                                                  sp_y, sums)]
     if not all(bool(c) for c in checks) or sp_y.shape != (1, h, w, 1):
         raise RuntimeError("dry run: a non-finite result or a wrong shape")
     classes = logits.shape[-1]
-    return (f"dryrun OK on {n} ranks ({comm.transport}; mesh data={n}, "
-            "model=1: tensor parallelism waits for the Tensor parallelism "
-            f"slice): fusion loss {float(fm['loss']):.4f}, seg loss "
-            f"{float(sm['loss']):.4f}, spatial fused {tuple(sp_y.shape)}, "
-            f"mit_b3 dp forward logits mean "
+    return (f"dryrun OK on {comm.world} ranks ({comm.transport}; mesh "
+            f"data={n}, model={mesh.model}): fusion loss "
+            f"{float(fm['loss']):.4f}, seg loss {float(sm['loss']):.4f}, "
+            f"spatial fused {tuple(sp_y.shape)}, mit_b3 dp x tp forward "
+            "logits mean "
             f"{float(sums[1] / (sums[2] * classes)):.4f}")
 
 

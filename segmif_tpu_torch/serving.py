@@ -14,6 +14,12 @@
    package exports StableHLO; a ``.pt2`` calls the ``segmif::``
    operators, so its loader imports ``segmif_tpu_torch.kernels``).
 
+``make_serving_fn(..., mesh=)`` serves one stream on a model group of
+ranks (``parallel.mesh``, tensor parallelism: ``parallel.tensor``), the
+JAX ``bench.py --mesh_model`` path: every rank of the group passes the
+same inputs and returns the same outputs. The model is copied, broadcast
+from rank 0, quantised first when int8 (its DRDBs stay whole), then split.
+
 Each entry point runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` (and raises when there is no CUDA device),
 ``device="cpu"`` serves on the CPU through the kernels' plain versions.
@@ -33,6 +39,8 @@ import torch
 from . import kernels  # noqa: F401 (registers the segmif:: operators)
 from ._device import place, resolve as _device
 from .ops.image import const, resize_bilinear
+from .parallel.mesh import put_replicated
+from .parallel.tensor import tensor_parallel
 
 
 def _place(model, dev: torch.device):
@@ -98,10 +106,16 @@ class ServingModule(torch.nn.Module):
 
 
 def _serving_module(model, guide_rgb, with_seg, vis_channel,
-                    int8_calibration, dev) -> ServingModule:
-    model = (_place(model, dev) if int8_calibration is None else
-             quantize_for_serving(model, int8_calibration, guide_rgb,
-                                  vis_channel, dev))
+                    int8_calibration, dev, mesh=None) -> ServingModule:
+    split = mesh is not None and mesh.model > 1
+    if int8_calibration is not None:
+        model = quantize_for_serving(model, int8_calibration, guide_rgb,
+                                     vis_channel, dev)
+    else:
+        model = _place(copy.deepcopy(model) if split else model, dev)
+    if split:
+        # the same weights, amaxes and int8 buffers on every rank
+        tensor_parallel(put_replicated(mesh, model), mesh)
     taps = None
     if guide_rgb is not None:
         taps = precompute_guide_taps(model, guide_rgb, dev)
@@ -112,7 +126,7 @@ def make_serving_fn(model, guide_rgb: Optional[torch.Tensor] = None,
                     with_seg: bool = True, vis_channel: str = "r",
                     int8_calibration: Optional[Tuple[torch.Tensor,
                                                      torch.Tensor]] = None,
-                    device=None) -> Callable:
+                    device=None, mesh=None) -> Callable:
     """ir: [B,H,W,1] f32 in [0,1]; vis: [B,H,W,3] f32 in [0,1]. Returns
     ``(fused_rgb, pred)`` on the serving device, with pred the int32 class
     map at full resolution (the argmax of the 1/4-res logits upsampled
@@ -120,10 +134,13 @@ def make_serving_fn(model, guide_rgb: Optional[torch.Tensor] = None,
 
     ``int8_calibration=(ir_cal, vis_cal)`` serves a calibrated int8 copy of
     the model (``quantize_for_serving``); otherwise the model itself is
-    moved to the device and served."""
+    moved to the device and served. ``mesh``: a ``parallel.mesh.Mesh``
+    whose model group serves one stream (a split copy of the model; every
+    rank of the group calls ``serve`` with the same inputs and gets the
+    same outputs); ``device`` is then the rank's."""
     dev = _device(device)
     module = _serving_module(model, guide_rgb, with_seg, vis_channel,
-                             int8_calibration, dev)
+                             int8_calibration, dev, mesh)
 
     def serve(ir: torch.Tensor, vis: torch.Tensor):
         with torch.inference_mode():

@@ -15,6 +15,10 @@
    (``pretrained/<backbone>.pth``) into the encoder, ``head.*`` dropped.
 
 Every file is written under a temporary name and renamed into place.
+Under tensor parallelism (``parallel.tensor``) the files hold what one
+process holds: the split parameters and their AdamW moments are gathered
+before a save (a collective: every rank takes part, one writes) and cut
+to the rank's pieces on a load, for any number of ranks a model group.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import torch
 import torch.nn as nn
 
 from ..losses.dwa import DWAState
+from ..parallel.tensor import gather_state_dict, gather_tree, \
+    shard_state_dict, shard_tree
 
 
 def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -44,24 +50,36 @@ def _load(path: str | Path):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def save_role(path: str | Path, module: nn.Module) -> None:
-    """``module.state_dict()`` on the CPU, in the reference key layout."""
-    _save(_cpu(module.state_dict()), path)
+def save_role(path: str | Path, module: nn.Module,
+              state_dict: Dict[str, torch.Tensor] = None) -> None:
+    """``module.state_dict()`` on the CPU, in the reference key layout
+    (``state_dict``: that of ``parallel.tensor.gather_state_dict``, taken
+    by every rank of a split module beforehand)."""
+    if state_dict is None:
+        state_dict = gather_state_dict(module)
+    _save(_cpu(state_dict), path)
 
 
 @torch.no_grad()
 def load_role(path: str | Path, module: nn.Module) -> None:
     """A role checkpoint into ``module`` (strict), on the module's
-    device and in its dtypes."""
-    module.load_state_dict(_load(path), strict=True)
+    device and in its dtypes; a split module takes its pieces."""
+    module.load_state_dict(shard_state_dict(module, _load(path)),
+                           strict=True)
 
 
 def state_tree(state) -> dict:
     """A ``FusionTrainState`` or ``SegTrainState`` (AdamW's state) as a
-    tree of CPU tensors."""
+    tree of CPU tensors, the split leaves gathered (a collective under
+    tensor parallelism)."""
     opt = state.opt_state
-    tree = {"params": _cpu(state.params),
-            "opt": {"mu": _cpu(opt.mu), "nu": _cpu(opt.nu),
+    splits = state.splits
+
+    def whole(tensors):
+        return _cpu(gather_tree(tensors, splits))
+
+    tree = {"params": whole(state.params),
+            "opt": {"mu": whole(opt.mu), "nu": whole(opt.nu),
                     "count": opt.count.cpu()},
             "step": state.step.cpu()}
     if hasattr(state, "dwa"):
@@ -77,13 +95,17 @@ def load_state_tree(state, tree: dict) -> None:
     """``state_tree``'s output back into ``state``, in place (the
     parameters and buffers are the modules' own)."""
     dev = state.step.device
+    splits = state.splits
     for name in ("params", "batch_stats"):
+        part = shard_tree(tree[name], splits) if name == "params" \
+            else tree.get(name, {})
         for k, t in getattr(state, name, {}).items():
-            t.copy_(tree[name][k])
+            t.copy_(part[k])
     opt = state.opt_state
     for name in ("mu", "nu"):
+        part = shard_tree(tree["opt"][name], splits)
         for k, t in getattr(opt, name).items():
-            t.copy_(tree["opt"][name][k])
+            t.copy_(part[k])
     state.opt_state = opt._replace(count=tree["opt"]["count"].to(dev))
     state.step = tree["step"].to(dev)
     if hasattr(state, "dwa"):
@@ -92,8 +114,12 @@ def load_state_tree(state, tree: dict) -> None:
         state.host_step = int(tree["host_step"])
 
 
-def save_phase(path: str | Path, state, best_miou: float) -> None:
-    _save({"state": state_tree(state), "best_miou": float(best_miou)}, path)
+def save_phase(path: str | Path, state, best_miou: float,
+               tree: dict = None) -> None:
+    """The mid-phase checkpoint (``tree``: ``state_tree(state)``, taken
+    by every rank of a split state beforehand)."""
+    tree = state_tree(state) if tree is None else tree
+    _save({"state": tree, "best_miou": float(best_miou)}, path)
 
 
 def load_phase(path: str | Path, state) -> float:

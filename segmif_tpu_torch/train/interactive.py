@@ -52,11 +52,21 @@ once, at the start. The regeneration and the mIoU evaluation run the
 whole set on every rank (each rank's fused set and mIoU are then the
 same: the same weights through the same deterministic passes), and only
 rank 0 writes: checkpoints, ``progress.json``, fused PNGs, the eval log.
-Every rank reads them on resume. ``fusion.grad_accum`` > 1 and
-``streaming`` are refused under data parallelism.
+Every rank reads them on resume. ``fusion.grad_accum`` > 1 is refused
+under data parallelism. With ``streaming`` every rank regenerates the
+fused images and rank 0 alone writes the memmap; every rank waits for it
+(a barrier before and after) and the others read it.
+
+Tensor parallelism (``mesh_model`` M > 1 on D x M ranks,
+``parallel.tensor``): after the broadcast the model is split over each
+model group; the steps sum over the data group only, the regeneration and
+the evaluation run split on every rank, and the checkpoints hold what one
+process holds (every rank gathers, rank 0 writes; a load cuts the pieces
+for any M). Without launched ranks ``mesh_data`` or ``mesh_model`` above 1
+raises ("launch N ranks").
 
 Options the port does not run raise ``ValueError`` naming their ROADMAP
-item (``mesh_model`` > 1, ``remat``, ``fusion.train_chunk`` > 1).
+item (``remat``, ``fusion.train_chunk`` > 1).
 """
 from __future__ import annotations
 
@@ -76,7 +86,8 @@ from ..eval.evaluator import (fusion_quality_eval, generate_fused,
                               segmentation_eval)
 from ..kernels import _build
 from ..models.network import JointPipeline, init_params
-from ..parallel.mesh import TP_REFUSAL, batch_shard, make_mesh, put_replicated
+from ..parallel.mesh import batch_shard, make_mesh, put_replicated
+from ..parallel.tensor import gather_state_dict, tensor_parallel
 from ..utils.logging import eta, setup_logger
 from . import checkpoint as ckpt
 from .optimizer import adamw_poly, adamw_poly_grouped
@@ -158,7 +169,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
         (cfg.fusion.train_chunk > 1, "fusion.train_chunk > 1: the lax.scan "
          "chunking of train steps is on ROADMAP queue 1's 'Do not port' "
          "list; the port runs one step per iteration"),
-        (cfg.mesh_model != 1, TP_REFUSAL),
         (cfg.remat or cfg.remat_seg, "remat: on ROADMAP queue 1's 'Do not "
          "port' list (the DRDB's autograd Function already saves only its "
          "inputs)"),
@@ -178,18 +188,13 @@ def refuse_under_dp(cfg: TrainConfig, ranks: int) -> None:
         # the JAX driver's rule: DP already multiplies the effective batch
         raise ValueError("fusion.grad_accum > 1 requires mesh_data == 1 "
                          "(use data parallelism OR accumulation)")
-    if ranks > 1 and cfg.streaming:
-        raise ValueError("streaming under data parallelism: every rank "
-                         "would write the same fused memmap; it is ROADMAP "
-                         "queue 1's \"Streaming under data parallelism\" "
-                         "item")
 
 
 class InteractiveTrainer:
     """Drives ``cfg.rounds`` rounds of fusion-phase + seg-phase training on
     the card, unless ``device="cpu"`` (``device=None`` means ``cuda`` and
-    raises when there is none). Under data parallelism each rank builds
-    one, on its own device, after joining the process group
+    raises when there is none). Under data or tensor parallelism each rank
+    builds one, on its own device, after joining the process group
     (``parallel.dist``)."""
 
     def __init__(self, cfg: TrainConfig, train_dataset, val_dataset,
@@ -213,6 +218,7 @@ class InteractiveTrainer:
                                          pretrained)
         place(self.model, self.dev).to(self.acc)
         put_replicated(self.mesh, self.model)
+        tensor_parallel(self.model, self.mesh)
         if cfg.streaming:
             from .streaming import StreamingFusionData
 
@@ -347,17 +353,26 @@ class InteractiveTrainer:
             "(val SSIM vs static guide: %.4f)", round_idx,
             len(self.train_data), len(self.val_data), ssim_val)
 
+    def _barrier(self):
+        comm = self.mesh.everyone
+        if comm is not None:
+            comm.barrier()
+
     def _regenerate_streaming(self, fuse_fn, data, out_dir, want_ssim):
-        """Each fused batch straight into the split's uint8 memmap; the
-        val SSIM against the static guide averaged over the batches,
-        weighted by their sizes (the images share one size, so this is
-        the SSIM of the whole set up to summation order)."""
+        """Each fused batch straight into the split's uint8 memmap (rank 0
+        writes; the others open it once it is whole); the val SSIM against
+        the static guide averaged over the batches, weighted by their
+        sizes (the images share one size, so this is the SSIM of the whole
+        set up to summation order)."""
         _, ir0, *_ = data[0]
-        fused_mm = data.ensure_fused(ir0.shape[0], ir0.shape[1])
+        hw = (ir0.shape[0], ir0.shape[1])
+        self._barrier()   # no rank still reads the memmap
+        fused_mm = data.ensure_fused(*hw) if self.writer else None
         stats = {"ssim_sum": 0.0, "n": 0}
 
         def sink(start, fused_np, guide_np):
-            fused_mm[start:start + len(fused_np)] = _to_uint8(fused_np)
+            if fused_mm is not None:
+                fused_mm[start:start + len(fused_np)] = _to_uint8(fused_np)
             if want_ssim:
                 q = fusion_quality_eval(fused_np, guide_np, device=self.dev)
                 stats["ssim_sum"] += q["ssim"] * len(fused_np)
@@ -365,7 +380,11 @@ class InteractiveTrainer:
 
         generate_fused(fuse_fn, data, batch_size=4, out_dir=out_dir,
                        sink=sink, device=self.dev, dtype=self.acc)
-        fused_mm.flush()
+        if fused_mm is not None:
+            fused_mm.flush()
+        self._barrier()
+        if fused_mm is None:
+            data.ensure_fused(*hw, write=False)
         return stats["ssim_sum"] / stats["n"] if stats["n"] else None
 
     def train_seg_phase(self, round_idx: int):
@@ -445,10 +464,12 @@ class InteractiveTrainer:
 
     def _save_phase(self, role: str, round_idx: int, state):
         """Mid-phase checkpoint of the whole train state and the best-mIoU
-        gate (rank 0 writes)."""
+        gate (every rank gathers a split state; rank 0 writes)."""
+        tree = ckpt.state_tree(state) if self.writer or state.splits \
+            else None
         if self.writer:
             ckpt.save_phase(self._phase_path(role, round_idx), state,
-                            self.best_miou)
+                            self.best_miou, tree)
 
     def _restore_phase(self, role: str, round_idx: int, state) -> int:
         """Restore ``state`` from this (role, round)'s mid-phase checkpoint
@@ -485,11 +506,13 @@ class InteractiveTrainer:
         return json.loads(path.read_text())
 
     def save_checkpoint(self, role: str):
-        """The role checkpoint of ``model.fusion`` or ``model.seg`` (rank 0
-        writes)."""
+        """The role checkpoint of ``model.fusion`` or ``model.seg`` (every
+        rank gathers a split module; rank 0 writes)."""
+        module = getattr(self.model, role)
+        sd = gather_state_dict(module)
         if self.writer:
             ckpt.save_role(Path(self.cfg.checkpoint_dir) /
-                           ROLE_FILES[role], getattr(self.model, role))
+                           ROLE_FILES[role], module, sd)
 
     def load_checkpoints(self):
         base = Path(self.cfg.checkpoint_dir)

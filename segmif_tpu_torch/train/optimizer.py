@@ -13,6 +13,10 @@ decay on every parameter (no mask), and the learning rate read at the
 update count *before* this update. The count, the schedule and the
 moments are device tensors, so an update never waits for the device.
 
+Under tensor parallelism each split leaf is the rank's piece and its
+moments are the piece's (AdamW is element-wise); the names, and so the
+groups, are those of the whole leaves.
+
 Parameter groups (``seg_param_labels``, by the port's state-dict names)
 mirror the reference's WeTr.get_param_groups: "encoder" (non-norm encoder
 params: lr, wd), "encoder_norm" (encoder norm scales and biases: lr, wd 0)

@@ -12,7 +12,10 @@ batch's statistics into them), the optimizer state and the step count on
 the device, and the same count on the host (``host_step``), from which
 the step seeds its random draws without reading the device.
 
-Each step updates its state in place.
+Each step updates its state in place. Under tensor parallelism the
+parameters are the rank's pieces of the split leaves (``splits``:
+``parallel.tensor.split_leaves`` of the module), and so are the AdamW
+moments.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..losses.dwa import DWAState, dwa_init
+from ..parallel.tensor import split_leaves
 
 
 def _step0(dev) -> torch.Tensor:
@@ -35,6 +39,7 @@ class FusionTrainState:
     opt_state: Any
     dwa: DWAState
     step: torch.Tensor                # int32 scalar
+    splits: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, fusion: nn.Module, tx) -> "FusionTrainState":
@@ -43,7 +48,8 @@ class FusionTrainState:
         params = dict(fusion.named_parameters())
         dev = next(iter(params.values())).device
         return cls(params=params, opt_state=tx.init(params),
-                   dwa=dwa_init(dev), step=_step0(dev))
+                   dwa=dwa_init(dev), step=_step0(dev),
+                   splits=split_leaves(fusion))
 
 
 @dataclasses.dataclass
@@ -53,6 +59,7 @@ class SegTrainState:
     opt_state: Any
     step: torch.Tensor                     # int32 scalar
     host_step: int = 0                     # the same count, on the host
+    splits: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, seg: nn.Module, tx) -> "SegTrainState":
@@ -63,4 +70,5 @@ class SegTrainState:
                  if n.rsplit(".", 1)[-1] in ("running_mean", "running_var")}
         dev = next(iter(params.values())).device
         return cls(params=params, batch_stats=stats,
-                   opt_state=tx.init(params), step=_step0(dev))
+                   opt_state=tx.init(params), step=_step0(dev),
+                   splits=split_leaves(seg))

@@ -49,6 +49,16 @@ step gives one device's (tests/test_parallel.py):
 ``grad_accum`` > 1 with a shard raises, as the JAX driver refuses
 accumulation under data parallelism.
 
+Tensor parallelism (``parallel.tensor``): the steps take a split model
+as they take a whole one. The shard's ``comm`` is then the data group,
+so the CE's global count, the BatchNorm statistics and the gradient and
+loss sums run over the data group only; the M ranks of a model group
+hold the same rows and draw the same masks; a split leaf's gradient is
+its piece's, and the whole leaves' gradients are broadcast from the
+group's rank 0 (``parallel.tensor.broadcast_whole``: on the card the
+group's backward passes are not bit for bit alike), so the whole leaves
+stay the same on every rank.
+
 ``make_fusion_train_chunk`` (K steps as one ``lax.scan``, a dispatch
 saving on the TPU) is not ported: the port runs the per-step loop, which
 ``tests/test_chunked_train.py`` pins as the same maths.
@@ -81,6 +91,7 @@ from ..losses.fusion_losses import fusion_loss_l1_grad, fusion_loss_mse_ssim
 from ..losses.seg_loss import cross_entropy
 from ..ops.color import rgb_to_ycrcb, ycrcb_to_rgb
 from ..ops.image import resize_bilinear
+from ..parallel.tensor import broadcast_whole
 from .state import FusionTrainState, SegTrainState
 
 
@@ -217,8 +228,9 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
                                                    fusion_scale, shard)
             grads, (total, loss1, loss2) = _sum_over_ranks(
                 shard, g, [total, loss1, loss2])
-        state.opt_state = tx.update(dict(zip(state.params, grads)),
-                                    state.opt_state, state.params)
+        grads = broadcast_whole(dict(zip(state.params, grads)),
+                                state.splits)
+        state.opt_state = tx.update(grads, state.opt_state, state.params)
         _, state.dwa, _ = dwa_combine(state.dwa, loss1, loss2, fusion_scale,
                                       seg_scale, dwa_temperature,
                                       dwa_warmup_steps)
@@ -278,7 +290,8 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         grads, (loss,) = _sum_over_ranks(shard, grads, [loss.detach()])
-        grads = dict(zip(state.params, grads))
+        grads = broadcast_whole(dict(zip(state.params, grads)),
+                                state.splits)
         state.opt_state = tx.update(grads, state.opt_state, state.params)
         state.step = state.step + 1
         state.host_step += 1

@@ -48,9 +48,13 @@ class StreamingFusionData:
             raise AttributeError("underlying dataset has no sample_paths")
         return fn()
 
-    def ensure_fused(self, h: int, w: int) -> np.memmap:
+    def ensure_fused(self, h: int, w: int, write: bool = True) -> np.memmap:
         """The [N, h, w, 3] uint8 memmap of the latest regenerated fused
-        images, created on first use (the writer flushes it)."""
+        images, created on first use (the writer flushes it). ``write``
+        False opens the file another process wrote, read-only."""
+        if self._fused is None and not write:
+            self._fused = np.memmap(self.cache_path, dtype=np.uint8,
+                                    mode="r", shape=(len(self), h, w, 3))
         if self._fused is None:
             self.cache_path.parent.mkdir(parents=True, exist_ok=True)
             mode = "r+" if self.cache_path.exists() else "w+"

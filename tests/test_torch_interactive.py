@@ -203,7 +203,7 @@ def test_cli_train_runs_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("change,match", [
     ({"mesh_data": 2}, "launch 2 ranks"),
-    ({"mesh_model": 2}, "Tensor parallelism"),
+    ({"mesh_model": 2}, "launch 2 ranks"),
     ({"remat": True}, "Do not port"),
     ({"remat_seg": True}, "Do not port"),
     ({"fusion.train_chunk": 2}, "Do not port"),

@@ -493,7 +493,7 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 13, mods\n"
         "assert 'segmif_tpu_torch.kernels.int8' in mods, mods\n"
         "assert {'segmif_tpu_torch.parallel.' + m for m in ('dist', "
-        "'mesh', 'spatial', 'dryrun')} <= set(mods), mods\n"
+        "'mesh', 'tensor', 'spatial', 'dryrun')} <= set(mods), mods\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

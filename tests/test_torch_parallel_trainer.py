@@ -14,20 +14,27 @@ gloo CPU ranks (mit_b0, synthetic 32x32 data, f64):
    first mid-phase checkpoint and resumed by new trainers ends where the
    uninterrupted 2-rank run ends, bit for bit;
  - ``cli.train --mesh_data 2 --device cpu`` spawns its two ranks and
-   trains; ``mesh_model 2`` raises naming the Tensor parallelism item.
+   trains; ``cli.train --mesh_model 2`` spawns two ranks, trains with the
+   model split over them, and writes role checkpoints in one process's
+   layout that the JAX package's converters load (the seg network's
+   logits within 2e-4 of the port's one-process network on the same
+   file).
 """
-import dataclasses
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import parallel_ranks as pr
+from segmif_tpu.models.network import \
+    SegmentationNetwork as JaxSegmentationNetwork
+from segmif_tpu.train.checkpoint import (load_torch_fusion_network,
+                                         load_torch_seg_network)
 from segmif_tpu_torch.cli import train as cli_train
+from segmif_tpu_torch.models.network import JointPipeline
 from segmif_tpu_torch.train.compare import exact_zero_grad
-from segmif_tpu_torch.train.interactive import InteractiveTrainer
-from test_torch_interactive import data, tiny_cfg
 from segmif_tpu_torch.parallel import dist
 from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
@@ -106,6 +113,25 @@ def test_cli_train_mesh_data_2(tmp_path):
 
 
 def test_mesh_model_refused(tmp_path):
-    cfg = dataclasses.replace(tiny_cfg(tmp_path), mesh_model=2)
-    with pytest.raises(ValueError, match="\"Tensor parallelism\" item"):
-        InteractiveTrainer(cfg, *data(), device="cpu")
+    """Once refused; now ``--mesh_model 2`` trains on 2 spawned ranks."""
+    result = cli_train.main([
+        "--synthetic", "4", "--synthetic_size", "32", "32", "--crop_size",
+        "32", "--backbone", "mit_b0", "--rounds", "1", "--fusion_iters", "2",
+        "--seg_iters", "2", "--checkpoint_dir", str(tmp_path), "--device",
+        "cpu", "--mesh_model", "2"])
+    assert 0.0 <= result["best_mIoU"] <= 1.0
+    assert "training complete" in (tmp_path / "train.log").read_text()
+    whole = JointPipeline("mit_b0", num_classes=9)
+    for role, name in (("fusion", "fusion_params.pth"),
+                       ("seg", "seg_params.pth")):
+        getattr(whole, role).load_state_dict(
+            torch.load(tmp_path / name, weights_only=True), strict=True)
+    params, stats = load_torch_seg_network(tmp_path / "seg_params.pth")
+    load_torch_fusion_network(tmp_path / "fusion_params.pth")
+    img = torch.rand((1, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(0))
+    with torch.no_grad():
+        logits = whole.seg(img)
+    want = JaxSegmentationNetwork("mit_b0", 9).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(img.numpy()))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=2e-4)

@@ -75,5 +75,5 @@ def test_dryrun_two_ranks(tmp_path):
                        workdir=str(tmp_path))
     assert line[0] == line[1]
     assert line[0].startswith("dryrun OK on 2 ranks (gloo on cpu")
-    assert "waits for the Tensor parallelism slice" in line[0]
+    assert "mesh data=2, model=1" in line[0]
     assert "spatial fused (1, 64, 64, 1)" in line[0]
