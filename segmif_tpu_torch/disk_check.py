@@ -85,19 +85,24 @@ def write_folder(root, n: int, size, seed: int, num_classes: int = 9,
     ds = SyntheticFusionDataset(n, tuple(size), num_classes, seed)
     names = [f"frame{i}.png" for i in range(n)]
     out = {k: [] for k in ("ir", "vis", "guide", "label", "label_file")}
-    for i, name in enumerate(names):
-        _, ir, vis, guide, label = ds[i]
-        lab = label.astype(np.uint8)
-        arrays = {"ir": ir[..., 0].astype(np.uint8),
-                  "vis": vis.astype(np.uint8),
-                  "guide": guide.astype(np.uint8), "label": label,
-                  "label_file": np.concatenate(
-                      [lab[..., None], encode_cmap(label)[..., 1:]], -1)
-                  if rgb_labels else lab}
-        for d, k in zip(DIRS, ("ir", "vis", "guide", "label_file")):
-            save_png(root / d / name, arrays[k])
-        for k, a in arrays.items():
-            out[k].append(a)
+    with ThreadPoolExecutor() as pool:   # PIL encodes without the GIL
+        saved = []
+        for i, name in enumerate(names):
+            _, ir, vis, guide, label = ds[i]
+            lab = label.astype(np.uint8)
+            arrays = {"ir": ir[..., 0].astype(np.uint8),
+                      "vis": vis.astype(np.uint8),
+                      "guide": guide.astype(np.uint8), "label": label,
+                      "label_file": np.concatenate(
+                          [lab[..., None], encode_cmap(label)[..., 1:]], -1)
+                      if rgb_labels else lab}
+            for d, k in zip(DIRS, ("ir", "vis", "guide", "label_file")):
+                saved.append(pool.submit(save_png, root / d / name,
+                                         arrays[k]))
+            for k, a in arrays.items():
+                out[k].append(a)
+        for f in saved:
+            f.result()
     written = {k: np.stack(v) for k, v in out.items()}
     written["names"] = names
     written["root"] = root

@@ -194,6 +194,16 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def tf32_big(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded to TF32 (10 mantissa bits; nearest, ties away from
+    zero) as the f32 kernels split their operands (``csrc/common.cuh``,
+    ``tf32_big``: the f32 bits plus 0x1000, the low 13 bits cleared), in
+    ``w``'s dtype. ``w - tf32_big(w)`` is exact, so the two halves sum to
+    ``w`` again."""
+    bits = w.float().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32).to(w.dtype)
+
+
 def plain_vjp(plain: Callable, saved: Sequence[torch.Tensor],
               needs: Sequence[bool], cotangents) -> tuple:
     """The backward of a kernel's autograd.Function: the gradients of

@@ -70,9 +70,10 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the last dim contiguous) and raises on a shape or dtype it does not
     take; CPU tensors take ``sr_attention_ref``, and so does a CPU call
     that needs a gradient, through autograd. Both stream K/V through
-    shared memory, so any M is taken: bf16 on tensor cores (its rows must
-    start on 16 bytes), f32 on the CUDA cores. When a gradient is needed
-    on the card the kernel runs inside ``_SrAttentionFn``."""
+    shared memory, so any M is taken, on the tensor cores: bf16 as it is,
+    f32 as 3xTF32 (f32-accurate products); rows must start on 16 bytes.
+    When a gradient is needed on the card the kernel runs inside
+    ``_SrAttentionFn``."""
     if _build.needs_grad(q, k, v):
         if q.device.type == "cpu":
             return sr_attention_ref(q, k, v, scale)
@@ -105,14 +106,14 @@ def _check_sr(q, k, v) -> None:
     if d not in (32, 64):
         raise ValueError(
             f"sr_attention: head dim {d} (the kernel takes 32 or 64)")
-    if q.dtype == torch.bfloat16 and any(
-            any(st % 8 for st, sz in zip(t.stride()[:3], t.shape[:3])
-                if sz > 1) for t in (q, k, v)):
-        raise ValueError(_BF16_ROWS)
+    per_row = 16 // q.element_size()
+    if any(any(st % per_row for st, sz in zip(t.stride()[:3], t.shape[:3])
+               if sz > 1) for t in (q, k, v)):
+        raise ValueError(_ROWS)
 
 
-_BF16_ROWS = ("sr_attention: bf16 rows must start on 16 bytes (pointers "
-              "and strides)")
+_ROWS = ("sr_attention: rows must start on 16 bytes (pointers and "
+         "strides): the kernel copies them 16 bytes at a time")
 
 
 @torch.library.custom_op("segmif::sr_attention", mutates_args=(),
@@ -121,9 +122,8 @@ def sr_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """One launch of ``segmif_sr_attention`` on the current stream; the
     output is allocated here."""
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError(_BF16_ROWS)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(_ROWS)
     b, n, h, d = q.shape
     m = k.shape[1]
     lib = _build.library()

@@ -119,6 +119,35 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 3xTF32: an f32 value a = big + small, big rounded to TF32 (10 mantissa
+// bits; nearest, ties away from zero, as cvt.rna, by integer add and mask
+// so that big is an f32 with its low 13 bits zero) and small = a - big,
+// exact in f32. The tensor cores read small as TF32 (its low 13 bits
+// ignored), so big*big + big*small + small*big carries a product to about
+// 2^-21 of it. Both halves as the 32-bit operands of a tf32 mma.
+__device__ __forceinline__ float tf32_big(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xffffe000u);
+}
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  const float b = tf32_big(a);
+  big = __float_as_uint(b);
+  small = __float_as_uint(a - b);
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), f32 accumulators. Lane
+// (g, t) = (lane / 4, lane % 4) holds a0 = A[g][t], a1 = A[g + 8][t],
+// a2 = A[g][t + 4], a3 = A[g + 8][t + 4], b0 = B[t][g], b1 = B[t + 4][g],
+// and d as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two f32 values rounded to bf16 and packed as one 32-bit fragment
 // register (lo in the low half: the lower column of an mma fragment).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -23,7 +23,8 @@
 //    + bb) over 128-pixel tiles; x and r_i are read through their pixel
 //    strides (the buffer's slices), K = 224, N = 64.
 //
-// The growth conv in bf16 (growth_wgmma_kernel, the serving dtype):
+// The growth conv (growth_kernel, one pipeline for both types; in bf16,
+// GrowthBf16, the serving dtype):
 //  - wgmma.mma_async m64n32k16 (f32 accumulators in registers), A and B
 //    straight from shared memory through K-major descriptors, no ldmatrix.
 //    An M tile is 8 image rows x 8 pixels. The halo of a 32-channel chunk
@@ -49,8 +50,35 @@
 //  - Epilogue: bias, bf16, relu into a [8][16][32] shared-memory box per
 //    warpgroup, written by one TMA store (clipped at the image border)
 //    that runs while the warpgroup goes on to the next tile.
-// The f32 growth (growth_conv_kernel) runs on CUDA cores (FMA, no TF32):
-// the 20x20 halo and the weights double buffered with cp.async.
+// The f32 growth (GrowthTf32, what compute_dtype float32 runs) is the
+// same pipeline on wgmma.mma_async m64n32k8 .tf32 as 3xTF32: each f32
+// operand a = big + small, both TF32 (common.cuh, tf32_big), and each
+// product big*big + big*small + small*big in f32 accumulators, about 2^-21
+// of the product. On the H100 it reads 0.021 of the f32 limit; x rounded
+// to TF32 (conv 1's small*big product dropped) reads 5.5x it.
+//  - tf32 wgmma reads A and B K-major from shared memory only, and TMA
+//    lands raw f32: when a halo chunk lands, the 256 consumer threads split
+//    it in place (big over the raw values, small beside them), then
+//    fence.proxy.async and one barrier. The weights arrive split, packed
+//    on the host ([big][small] per chunk).
+//  - A 32-channel f32 chunk would be 51 KB of halo per half and 37 KB of
+//    weights per half: no two stages fit in 227 KB. So a chunk is 16
+//    channels: a pixel's 64 bytes take the bf16 kernel's 64-byte swizzle,
+//    descriptors and tap offsets unchanged, and a k8 step is half a row
+//    (32 bytes), as bf16's k16. The weights no longer fit resident (up to
+//    12 chunks x 37 KB): each stage carries its chunk's weights beside
+//    the halo, one bulk copy, so a stage is 88 KB and two fit.
+//  - Per 16-channel chunk and M tile, 9 taps x 2 k8 steps x 3 products,
+//    the small*big and big*small ones first, into a fresh accumulator
+//    folded into the tile's sums in f32 once done: the tensor cores add
+//    with truncation, and a chain of up to 648 wgmma on one running sum
+//    drifted by about an ulp of it per wgmma (0.144 of the f32 limit
+//    against 0.021 so; an f32 net whose trunk amplifies the DRDBs
+//    50-fold failed the card test against the CPU). The chunk's first
+//    wgmma starts part with scale-d 0: zeroing it instead, between
+//    wgmmas, made ptxas serialise them all. The producer keeps the next
+//    chunk in flight while a chunk's products run; the split waits for
+//    them. The epilogue stores f32 boxes of [8][16][32] by TMA.
 //
 // The tail in bf16 (tail_kernel_bf16) moves 576 bytes per pixel for 28
 // KFLOP: bytes bound it (0.42 ms at [8, 64, 480, 640]). So it is a
@@ -80,6 +108,11 @@
 // Each m64n32k16 reads 2 KB of A and 1 KB of B from shared memory for
 // 64 KFLOP: at 128 B per clock an SM's shared memory caps the tensor
 // cores near two thirds of their rate (about 1.4 ms here).
+// In f32, 3xTF32 triples the tensor work at half bf16's rate: 5.49 ms
+// at the TF32 peak; each m64n32k8 again reads 3 KB for 32 KFLOP, the same
+// two-thirds cap (about 8.2 ms), and the f32 bytes of five launches take
+// about 2.35 ms. Measured on the H100 (700 W): 12.3 ms, against 29.6 ms
+// for the CUDA-core kernel it replaced and 37.2 ms for cuDNN's f32 convs.
 
 #include "common.cuh"
 
@@ -93,7 +126,6 @@ constexpr int RCH = G * NCONV;       // channels of the growth buffer (160)
 constexpr int KC = 32;               // input channels per staged chunk
 constexpr int TH = 16, TW = 16;      // output tile of a growth block
 constexpr int HALO_H = TH + 4, HALO_W = TW + 4;  // dilation 2, reach 2
-constexpr int HALO_PIX = HALO_H * HALO_W;
 constexpr int kThreads = 256;        // 8 warps
 constexpr int KT = C + RCH;          // tail contraction (224)
 constexpr int TP = 128;              // pixels per tail block
@@ -116,179 +148,234 @@ __device__ __forceinline__ void wgmma_m64n32k16(float d[16], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// ------------------------------------------------------ f32 growth conv
+// d (64 x 32 f32) = A (64 x 8) B (8 x 32) + (accumulate ? d : 0), both
+// tf32 (f32 in shared memory, the low 13 bits ignored), K-major, through
+// descriptors.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float d[16], uint64_t a,
+                                                    uint64_t b,
+                                                    int accumulate = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
-// Shared-memory geometry. Rows (one pixel's 32 channels of a chunk, or
-// one weight row) are padded by one 16-byte granule.
-struct Geo {
-  static constexpr int RS = KC + 4;            // padded row
-  static constexpr int GPR = KC / 4;           // granules per row
-  static constexpr int HALO = HALO_PIX * RS;   // [20*20][RS]
-  static constexpr int WGT = 9 * KC * RS;      // [9 taps][32][RS]
-  static constexpr int STAGE = HALO + WGT;
-  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);  // 2 stages
+// --------------------------------------------------- growth on wgmma
+
+// The growth pipeline's two element types, as policies of growth_kernel:
+// what a stage holds, the chunk width and the epilogue's element. bf16
+// keeps the conv's weights resident; f32 (3xTF32) streams a chunk's split
+// weights beside its halo.
+constexpr int GCONSUMERS = 2;                     // warpgroups, 8 rows each
+constexpr int GTHREADS = 128 * GCONSUMERS + 32;   // + one producer warp
+
+struct GrowthBf16 {
+  using T = bf16;
+  static constexpr bool kTf32 = false;
+  static constexpr int KCH = KC;                    // input channels a chunk
+  static constexpr int PIX = KCH * 2;               // a pixel's chunk, bytes
+  static constexpr int HALO = HALO_H * HALO_W * PIX;  // 25,600
+  static constexpr int WCHUNK = 9 * KCH * G * 2;    // a chunk's weights
+  static constexpr int STAGE = HALO;
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_TX = HALO;             // bytes landing a stage
+  static constexpr int W_OFF = STAGES * STAGE;      // the resident weights
+  static constexpr int MAX_CHUNKS = 2 + NCONV - 1;  // conv 5: x's 2, r1..r4
+  static constexpr int O_OFF = W_OFF + MAX_CHUNKS * WCHUNK;
 };
 
-// Stage chunk `chunk` (input channels [32 chunk, 32 chunk + 32)) of the
-// tile at (y0, x0) with its halo, and that chunk's weights. Chunks 0-1
-// are x's channels; chunk 2 + i is r_{i+1} in the growth buffer.
-__device__ __forceinline__ void load_chunk(float* stage, const float* x,
-                                           int64_t x_ps, const float* rs,
-                                           const float* w, int chunk, int b,
-                                           int y0, int x0, int h, int wd) {
-  const float* src = chunk < 2 ? x + chunk * KC : rs + (chunk - 2) * KC;
-  const int64_t ps = chunk < 2 ? x_ps : RCH;
-  for (int i = threadIdx.x; i < HALO_PIX * Geo::GPR; i += kThreads) {
-    const int p = i / Geo::GPR, q = i % Geo::GPR;
-    const int iy = y0 - 2 + p / HALO_W, ix = x0 - 2 + p % HALO_W;
-    const bool ok = iy >= 0 && iy < h && ix >= 0 && ix < wd;
-    const float* g =
-        ok ? src + ((int64_t(b) * h + iy) * wd + ix) * ps + q * 4 : src;
-    cp_async16(stage + p * Geo::RS + q * 4, g, ok);
-  }
-  const float* wc = w + int64_t(chunk) * 9 * KC * KC;
-  float* ws = stage + Geo::HALO;
-  for (int i = threadIdx.x; i < 9 * KC * Geo::GPR; i += kThreads) {
-    const int r = i / Geo::GPR, q = i % Geo::GPR;
-    cp_async16(ws + r * Geo::RS + q * 4, wc + r * KC + q * 4, true);
-  }
+struct GrowthTf32 {
+  using T = float;
+  static constexpr bool kTf32 = true;
+  static constexpr int KCH = KC / 2;
+  static constexpr int PIX = KCH * 4;
+  static constexpr int HALO = HALO_H * HALO_W * PIX;  // one halo half, 25,600
+  static constexpr int WHALF = 9 * KCH * G * 4;       // one weight half
+  static constexpr int WCHUNK = 2 * WHALF;            // big and small
+  // a stage: [halo big (TMA, split in place)][halo small][weights big][small]
+  static constexpr int STAGE = 2 * HALO + WCHUNK;     // 88,064
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_TX = HALO + WCHUNK;
+  static constexpr int O_OFF = STAGES * STAGE;
+};
+
+// a warpgroup's 8 output rows, and the shared memory of growth_kernel<P>
+template <class P>
+__host__ __device__ constexpr int growth_out() {
+  return 8 * TW * G * int(sizeof(typename P::T));
+}
+template <class P>
+__host__ __device__ constexpr int growth_bar_off() {
+  return P::O_OFF + GCONSUMERS * growth_out<P>();
+}
+template <class P>
+constexpr size_t growth_smem() {  // + alignment, + full, empty and weights
+  return 1024 + growth_bar_off<P>() + 8 * (2 * P::STAGES + 1);
+}
+static_assert(GrowthBf16::STAGE % 1024 == 0 &&
+                  GrowthBf16::WCHUNK % 128 == 0 &&
+                  GrowthTf32::HALO % 512 == 0 &&
+                  GrowthTf32::WHALF % 512 == 0 &&
+                  GrowthTf32::STAGE % 1024 == 0,
+              "swizzle and TMA alignment");
+static_assert(growth_smem<GrowthBf16>() <= 227 * 1024 &&
+                  growth_smem<GrowthTf32>() <= 227 * 1024,
+              "shared memory of one block");
+
+// Two output channels into the epilogue's box, in the output's type.
+__device__ __forceinline__ void st_shared_pair(uint32_t o, float a, float b,
+                                               bf16) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(o),
+               "r"(*reinterpret_cast<const uint32_t*>(&v)));
+}
+__device__ __forceinline__ void st_shared_pair(uint32_t o, float a, float b,
+                                               float) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(o), "f"(a),
+               "f"(b));
 }
 
-// f32 chunk product on CUDA cores. Thread: 8 output channels (8 tx) of 4
-// pixels of one row (columns tx' + 4j), so a warp's 8 pixel groups read
-// distinct banks. Weights in shared memory are [tap][k][n].
-__device__ __forceinline__ void growth_chunk_fma(const float* stage,
-                                                 float acc[4][8]) {
-  const float* halo = stage;
-  const float* ws = stage + Geo::HALO;
-  const int tx = threadIdx.x & 3, tp = threadIdx.x >> 2;
-  const int row = tp >> 2, col = tp & 3;
-#pragma unroll 1
+// One bf16 chunk of a tile into acc (issued): 9 taps x 2 k16 steps per M
+// tile, A at the tap's start in the halo, B in the resident weights.
+__device__ __forceinline__ void bf16_chunk(float (&acc)[2][16], uint32_t a0,
+                                           uint32_t b0, uint64_t da,
+                                           uint64_t db) {
+  using P = GrowthBf16;
+  wgmma_fence();
+#pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
-    const float* hrow = halo + ((row + 2 * ky) * HALO_W + col + 2 * kx) *
-                                   Geo::RS;
-    const float* wrow = ws + tap * KC * Geo::RS + 8 * tx;
-#pragma unroll 4
-    for (int ci = 0; ci < KC; ++ci) {
-      const float4 w0 = *reinterpret_cast<const float4*>(wrow + ci * Geo::RS);
-      const float4 w1 =
-          *reinterpret_cast<const float4*>(wrow + ci * Geo::RS + 4);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a = hrow[4 * j * Geo::RS + ci];
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t bd = desc_at(db, b0 + (tap * 4 + 2 * kk) * G * 16);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[j][n] = fmaf(a, wv[n], acc[j][n]);
-      }
+      for (int mt = 0; mt < 2; ++mt)
+        wgmma_m64n32k16(
+            acc[mt],
+            desc_at(da, a0 + (2 * ky * HALO_W + 8 * mt + 2 * kx) * P::PIX +
+                            32 * kk),
+            bd);
     }
   }
+  wgmma_commit();
 }
 
-// One f32 growth conv: rs[..., out_off:out_off+32] = relu(conv(feat) +
-// bias), feat = [x, rs[..., :32 (nchunks - 2)]].
-// grid (ceil(W/16), ceil(H/16), B).
-__global__ void __launch_bounds__(kThreads)
-    growth_conv_kernel(const float* __restrict__ x, int64_t x_ps, float* rs,
-                       const float* __restrict__ w,
-                       const float* __restrict__ bias, int nchunks,
-                       int out_off, int h, int wd) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  float acc[4][8];  // [pixel][channel]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  load_chunk(smem, x, x_ps, rs, w, 0, b, y0, x0, h, wd);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks)
-      load_chunk(smem + ((c + 1) & 1) * Geo::STAGE, x, x_ps, rs, w, c + 1, b,
-                 y0, x0, h, wd);
-    cp_async_commit();  // possibly empty: keeps the wait count uniform
-    cp_async_wait<1>();
-    __syncthreads();  // chunk c has landed for every thread
-    growth_chunk_fma(smem + (c & 1) * Geo::STAGE, acc);
-    __syncthreads();  // stage c & 1 is free for chunk c + 2
+// One f32 chunk of a tile into ``part`` (issued, not awaited): split its
+// halo in place (both warpgroups together: big over the raw f32 values,
+// small beside them; the swizzle moves 16-byte granules, so the
+// elementwise split keeps the layout), then every tap's small*big and
+// big*small products before the big*big ones, so that the tensor cores'
+// truncating adds meet a small running sum first.
+__device__ __forceinline__ void tf32_chunk(float (&part)[2][16],
+                                           uint8_t* stage_p, uint32_t a0,
+                                           uint32_t b0, uint64_t da,
+                                           uint64_t db) {
+  using P = GrowthTf32;
+  float4* hb = reinterpret_cast<float4*>(stage_p);
+  float4* hs = reinterpret_cast<float4*>(stage_p + P::HALO);
+  for (int i = threadIdx.x; i < P::HALO / 16; i += 128 * GCONSUMERS) {
+    const float4 a = hb[i];
+    const float4 big = make_float4(tf32_big(a.x), tf32_big(a.y),
+                                   tf32_big(a.z), tf32_big(a.w));
+    hb[i] = big;
+    hs[i] = make_float4(a.x - big.x, a.y - big.y, a.z - big.z, a.w - big.w);
   }
-
-  const int tx = threadIdx.x & 3, tp = threadIdx.x >> 2;
-  const int iy = y0 + (tp >> 2);
+  fence_async_smem();  // the split, seen by the wgmma (async proxy)
+  bar_sync(3, 128 * GCONSUMERS);
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int ix = x0 + (tp & 3) + 4 * j;
-    if (iy >= h || ix >= wd) continue;
-    float* o = rs + ((int64_t(b) * h + iy) * wd + ix) * RCH + out_off + 8 * tx;
-    float v[8];
+  for (int pass = 0; pass < 2; ++pass)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      v[n] = fmaxf(acc[j][n] + bias[8 * tx + n], 0.f);
-    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t boff = (tap * 4 + 2 * kk) * G * 16;
+        const uint64_t bbig = desc_at(db, b0 + boff);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t aoff =
+              (2 * ky * HALO_W + 8 * mt + 2 * kx) * P::PIX + 32 * kk;
+          const uint64_t abig = desc_at(da, a0 + aoff);
+          if (pass == 0) {  // the chunk's first product starts part anew
+            wgmma_m64n32k8_tf32(part[mt], desc_at(da, a0 + P::HALO + aoff),
+                                bbig, tap + kk > 0);
+            wgmma_m64n32k8_tf32(part[mt], abig,
+                                desc_at(db, b0 + P::WHALF + boff));
+          } else {
+            wgmma_m64n32k8_tf32(part[mt], abig, bbig);
+          }
+        }
+      }
+    }
+  wgmma_commit();
 }
 
-// ------------------------------------------------- bf16 growth on wgmma
+// acc += part in f32 (round to nearest) once part's products are done.
+// part is only read here: the next chunk's first wgmma ignores its old
+// value (scale-d 0), so no instruction writes a wgmma operand between
+// wgmmas and ptxas need not serialise them.
+__device__ __forceinline__ void fold_tf32(float (&acc)[2][16],
+                                          float (&part)[2][16]) {
+  fence_acc(part[0]);
+  fence_acc(part[1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[mt][i] += part[mt][i];
+}
 
-namespace wg {
-constexpr int ROW = HALO_W;                     // halo row in smem, pixels
-constexpr int PIX = KC * 2;                     // a pixel's chunk, bytes
-constexpr int STAGE = HALO_H * ROW * PIX;       // a 32-channel chunk
-constexpr int STAGES = 4;
-constexpr int WCHUNK = 9 * KC * G * 2;          // a chunk's weights, bytes
-constexpr int MAX_CHUNKS = 2 + NCONV - 1;       // conv 5: x's 2, r1..r4
-constexpr int CONSUMERS = 2;                    // warpgroups, 8 rows each
-constexpr int THREADS = 128 * CONSUMERS + 32;   // + one producer warp
-constexpr int OUT = 8 * TW * G * 2;             // a warpgroup's 8 output rows
-constexpr int W_OFF = STAGES * STAGE;
-constexpr int O_OFF = W_OFF + MAX_CHUNKS * WCHUNK;
-constexpr int BAR_OFF = O_OFF + CONSUMERS * OUT;
-constexpr size_t SMEM = BAR_OFF + 8 * (2 * STAGES + 1);
-static_assert(STAGE % 1024 == 0 && WCHUNK % 128 == 0, "TMA alignment");
-}  // namespace wg
-
-// One bf16 growth conv, as growth_conv_kernel, over tiles t = blockIdx.x,
-// blockIdx.x + gridDim.x, ... (grid: at most one block per SM). w: this
-// conv's weights, [chunk][tap][granule][n = 32][8]; xmap, rmap: the halo
-// maps over x and the growth buffer, omap: the output map over the
-// buffer (halo_map).
-__global__ void __launch_bounds__(wg::THREADS, 1)
-    growth_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                        const __grid_constant__ CUtensorMap rmap,
-                        const __grid_constant__ CUtensorMap omap,
-                        const bf16* __restrict__ w,
-                        const float* __restrict__ bias, int nchunks,
-                        int out_off, int b, int h, int wd) {
-  using namespace wg;
+// One growth conv, rs[..., out_off:out_off+32] = relu(conv(feat) + bias),
+// feat = [x, rs[..., :32 t]] in chunks of P::KCH channels, over tiles
+// t = blockIdx.x, blockIdx.x + gridDim.x, ... (grid: at most one block per
+// SM). w: this conv's packed weights (drdb.py, pack_growth_weights); xmap,
+// rmap: the halo maps over x and the growth buffer, omap: the output map
+// over the buffer (tile_map).
+template <class P>
+__global__ void __launch_bounds__(GTHREADS, 1)
+    growth_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap rmap,
+                  const __grid_constant__ CUtensorMap omap,
+                  const uint8_t* __restrict__ w,
+                  const float* __restrict__ bias, int nchunks, int out_off,
+                  int b, int h, int wd) {
+  constexpr int ES = int(sizeof(typename P::T));
+  constexpr int XCHUNKS = C / P::KCH;           // x's chunks
   extern __shared__ __align__(128) uint8_t smem_b[];
-  const uint32_t s0 = smem_u32(smem_b);
-  const uint32_t ws = s0 + W_OFF;
-  const uint32_t full = s0 + BAR_OFF;        // full[s]: stage s has landed
-  const uint32_t empty = full + 8 * STAGES;  // empty[s]: stage s is read
-  const uint32_t wbar = empty + 8 * STAGES;  // the weights have landed
+  const uint32_t raw = smem_u32(smem_b);
+  const uint32_t s0 = (raw + 1023) & ~1023u;   // swizzle atoms on 1 KB
+  uint8_t* const base = smem_b + (s0 - raw);
+  const uint32_t full = s0 + growth_bar_off<P>();  // full[s]: stage s landed
+  const uint32_t empty = full + 8 * P::STAGES;     // empty[s]: stage s read
+  const uint32_t wbar = empty + 8 * P::STAGES;     // bf16: weights landed
   const int tiles_x = (wd + TW - 1) / TW, tiles_y = (h + TH - 1) / TH;
   const int ntiles = tiles_x * tiles_y * b;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < P::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * CONSUMERS);  // one arrival per warp
+      mbar_init(empty + 8 * s, 4 * GCONSUMERS);  // one arrival per warp
     }
     mbar_init(wbar, 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == 4 * CONSUMERS) {
+  if (warp == 4 * GCONSUMERS) {
     // producer: one thread keeps the ring full
     if (lane != 0) return;
-    mbar_expect_tx(wbar, nchunks * WCHUNK);
-    for (int c = 0; c < nchunks; ++c)
-      bulk_load(ws + c * WCHUNK, reinterpret_cast<const uint8_t*>(w) +
-                                     c * WCHUNK, WCHUNK, wbar);
+    if constexpr (!P::kTf32) {
+      mbar_expect_tx(wbar, nchunks * P::WCHUNK);
+      for (int c = 0; c < nchunks; ++c)
+        bulk_load(s0 + P::W_OFF + c * P::WCHUNK, w + c * P::WCHUNK,
+                  P::WCHUNK, wbar);
+    }
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -296,12 +383,15 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       const int bi = tile / (tiles_x * tiles_y);
       for (int c = 0; c < nchunks; ++c) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
-        mbar_expect_tx(full + 8 * stage, STAGE);
-        const CUtensorMap* map = c < 2 ? &xmap : &rmap;
-        const int ch = KC * (c < 2 ? c : c - 2);
-        tma_load_4d(s0 + stage * STAGE, map, ch, tx * TW - 2, ty * TH - 2,
-                    bi, full + 8 * stage);
-        if (++stage == STAGES) {
+        const uint32_t dst = s0 + stage * P::STAGE, bar = full + 8 * stage;
+        mbar_expect_tx(bar, P::STAGE_TX);
+        const CUtensorMap* map = c < XCHUNKS ? &xmap : &rmap;
+        const int ch = P::KCH * (c < XCHUNKS ? c : c - XCHUNKS);
+        tma_load_4d(dst, map, ch, tx * TW - 2, ty * TH - 2, bi, bar);
+        if constexpr (P::kTf32)  // the chunk's weights beside its halo
+          bulk_load(dst + 2 * P::HALO, w + int64_t(c) * P::WCHUNK,
+                    P::WCHUNK, bar);
+        if (++stage == P::STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -321,14 +411,27 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     bv[2 * i + 1] = bias[8 * i + 2 * t4 + 1];
   }
   // A: 64-byte swizzle, 8-row groups one halo row apart (the swizzled
-  // layout has no leading offset to set). B: no swizzle, the next granule
-  // 32 rows on, 8-row groups 8 rows apart.
-  const uint64_t da = smem_desc(16, ROW * PIX, 2);
+  // layout has no leading offset to set). B: no swizzle, the next k
+  // granule 32 rows on, 8-row groups 8 rows apart.
+  const uint64_t da = smem_desc(16, HALO_W * P::PIX, 2);
   const uint64_t db = smem_desc(G * 16, 8 * 16, 0);
+  // acc: the tile's sums in f32. f32: each chunk's products go into a
+  // fresh accumulator, part (its first wgmma ignores the old value),
+  // folded into acc once they are done. A second part, to overlap a
+  // chunk's products with the next chunk's split, spilled more (288
+  // threads get at most 168 registers) and ran slower on the H100.
   float acc[2][16];
+  [[maybe_unused]] float part[2][16];
+  if constexpr (P::kTf32) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) part[mt][i] = 0.f;
+  } else {
+    mbar_wait(wbar, 0);
+  }
   int stage = 0;
   uint32_t phase = 0;
-  mbar_wait(wbar, 0);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -337,61 +440,54 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     int prev = 0;
     for (int c = 0; c < nchunks; ++c) {
       mbar_wait(full + 8 * stage, phase);
-      __syncwarp();
-      wgmma_fence();
-      const uint32_t a0 = s0 + stage * STAGE + 8 * wgi * ROW * PIX;
-      const uint32_t b0 = ws + c * WCHUNK;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const uint64_t bd = desc_at(db, b0 + (tap * 4 + 2 * kk) * G * 16);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            wgmma_m64n32k16(
-                acc[mt],
-                desc_at(da, a0 + (2 * ky * ROW + 8 * mt + 2 * kx) * PIX +
-                                32 * kk),
-                bd);
+      const uint32_t a0 = s0 + stage * P::STAGE + 8 * wgi * HALO_W * P::PIX;
+      if constexpr (P::kTf32) {
+        tf32_chunk(part, base + stage * P::STAGE, a0,
+                   s0 + stage * P::STAGE + 2 * P::HALO, da, db);
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage is read
+        fold_tf32(acc, part);
+      } else {
+        __syncwarp();
+        bf16_chunk(acc, a0, s0 + P::W_OFF + c * P::WCHUNK, da, db);
+        if (c > 0) {  // chunk c - 1's products are done: release its stage
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
         }
+        prev = stage;
       }
-      wgmma_commit();
-      if (c > 0) {  // chunk c - 1's products are done: release its stage
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(empty + 8 * prev);
-      }
-      prev = stage;
-      if (++stage == STAGES) {
+      if (++stage == P::STAGES) {
         stage = 0;
         phase ^= 1;
       }
     }
-    wgmma_wait<0>();
-    fence_acc(acc[0]);
-    fence_acc(acc[1]);
-    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    if constexpr (!P::kTf32) {
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+    }
 
-    // epilogue: bias, bf16, relu into this warpgroup's [8][16][32] output
-    // rows in shared memory, then one TMA store (clipped at the image
-    // border) that runs while the warpgroup goes on to the next tile
-    const uint32_t out = s0 + O_OFF + wgi * OUT;
+    // epilogue: bias, relu (rounded to T) into this warpgroup's [8][16][32]
+    // output rows in shared memory, then one TMA store (clipped at the
+    // image border) that runs while the warpgroup goes on to the next tile
+    const uint32_t out = s0 + P::O_OFF + wgi * growth_out<P>();
     if (threadIdx.x % 128 == 0) bulk_wait<true>();  // the last store read it
     bar_sync(1 + wgi, 128);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const uint32_t o =
-            out + ((2 * q + hh) * TW + 8 * mt + (lane >> 2)) * G * 2 + 4 * t4;
+        const uint32_t o = out +
+                           ((2 * q + hh) * TW + 8 * mt + (lane >> 2)) * G * ES +
+                           2 * ES * t4;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const __nv_bfloat162 v = __floats2bfloat162_rn(
-              fmaxf(acc[mt][4 * i + 2 * hh] + bv[2 * i], 0.f),
-              fmaxf(acc[mt][4 * i + 2 * hh + 1] + bv[2 * i + 1], 0.f));
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(o + 16 * i),
-                       "r"(*reinterpret_cast<const uint32_t*>(&v)));
-        }
+        for (int i = 0; i < 4; ++i)
+          st_shared_pair(o + 8 * ES * i,
+                         fmaxf(acc[mt][4 * i + 2 * hh] + bv[2 * i], 0.f),
+                         fmaxf(acc[mt][4 * i + 2 * hh + 1] + bv[2 * i + 1],
+                               0.f),
+                         typename P::T());
       }
     fence_async_smem();
     bar_sync(1 + wgi, 128);
@@ -661,63 +757,54 @@ __global__ void __launch_bounds__(kThreads) tail_kernel_f32(TailArgs args) {
   }
 }
 
-int growth_f32(const void* x, int64_t x_ps, void* rs, const void* w,
-               const float* bias, int b, int h, int wd, cudaStream_t stream) {
-  cudaError_t err = allow_smem(growth_conv_kernel, Geo::SMEM);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b);
-  const float* wt = static_cast<const float*>(w);
-  for (int t = 0; t < NCONV; ++t) {
-    const int nchunks = 2 + t;  // (64 + 32 t) / 32
-    growth_conv_kernel<<<grid, kThreads, Geo::SMEM, stream>>>(
-        static_cast<const float*>(x), x_ps, static_cast<float*>(rs), wt,
-        bias + G * t, nchunks, G * t, h, wd);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    wt += int64_t(nchunks) * 9 * KC * KC;
-  }
-  return 0;
-}
-
-// A 4-D TMA map over a channels_last bf16 tensor [b][h][wd][channels] at
-// pixel stride ps (elements), boxes of 32 channels x bw x bh pixels: with
-// the 64-byte swizzle, a 20 x 20 halo chunk as the wgmma A operand reads
-// it; without, an output box of 16 x 8 pixels.
-bool tile_map(CUtensorMap* map, const void* base, int64_t ps, int channels,
-              int b, int h, int wd, int bw, int bh, bool swizzle) {
-  const cuuint64_t bytes = cuuint64_t(ps) * sizeof(bf16);
+// A 4-D TMA map over a channels_last tensor [b][h][wd][channels] of f32
+// or bf16 at pixel stride ps (elements), boxes of bc channels x bw x bh
+// pixels: with the 64-byte swizzle (bc channels are 64 bytes), a 20 x 20
+// halo chunk as the wgmma A operand reads it; without, an output box of
+// 16 x 8 pixels.
+bool tile_map(CUtensorMap* map, bool f32, const void* base, int64_t ps,
+              int channels, int b, int h, int wd, int bc, int bw, int bh,
+              bool swizzle) {
+  const cuuint64_t bytes = cuuint64_t(ps) * (f32 ? 4 : 2);
   const cuuint64_t dims[4] = {cuuint64_t(channels), cuuint64_t(wd),
                               cuuint64_t(h), cuuint64_t(b)};
   const cuuint64_t strides[3] = {bytes, bytes * wd, bytes * wd * h};
-  const cuuint32_t box[4] = {KC, cuuint32_t(bw), cuuint32_t(bh), 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                    strides, box,
+  const cuuint32_t box[4] = {cuuint32_t(bc), cuuint32_t(bw), cuuint32_t(bh),
+                             1};
+  return encode_map(map,
+                    f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    4, base, dims, strides, box,
                     swizzle ? CU_TENSOR_MAP_SWIZZLE_64B
                             : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// The bf16 chain: three maps per call (the halos of x and of the growth
-// buffer, the buffer's output tiles) serve all five launches.
-int growth_bf16(const void* x, int64_t x_ps, void* rs, const void* w,
-                const float* bias, int b, int h, int wd,
-                cudaStream_t stream) {
+// The growth chain in P's type: three maps per call (the halos of x and
+// of the growth buffer, the buffer's output tiles) serve all five
+// launches; conv t reads (64 + 32 t) / P::KCH chunks.
+template <class P>
+int growth(const void* x, int64_t x_ps, void* rs, const void* w,
+           const float* bias, int b, int h, int wd, cudaStream_t stream) {
+  constexpr bool f32 = P::kTf32;
   CUtensorMap xmap, rmap, omap;
-  if (!tile_map(&xmap, x, x_ps, C, b, h, wd, wg::ROW, HALO_H, true) ||
-      !tile_map(&rmap, rs, RCH, RCH, b, h, wd, wg::ROW, HALO_H, true) ||
-      !tile_map(&omap, rs, RCH, RCH, b, h, wd, TW, 8, false))
+  if (!tile_map(&xmap, f32, x, x_ps, C, b, h, wd, P::KCH, HALO_W, HALO_H,
+                true) ||
+      !tile_map(&rmap, f32, rs, RCH, RCH, b, h, wd, P::KCH, HALO_W, HALO_H,
+                true) ||
+      !tile_map(&omap, f32, rs, RCH, RCH, b, h, wd, G, TW, 8, false))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(growth_wgmma_kernel, wg::SMEM);
+  cudaError_t err = allow_smem(growth_kernel<P>, growth_smem<P>());
   if (err != cudaSuccess) return int(err);
   const int tiles = ((wd + TW - 1) / TW) * ((h + TH - 1) / TH) * b;
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  const bf16* wt = static_cast<const bf16*>(w);
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
   for (int t = 0; t < NCONV; ++t) {
-    const int nchunks = 2 + t;
-    growth_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM, stream>>>(
-        xmap, rmap, omap, wt, bias + G * t, nchunks, G * t, b, h, wd);
+    const int nchunks = (C + G * t) / P::KCH;
+    growth_kernel<P><<<grid, GTHREADS, growth_smem<P>(), stream>>>(
+        xmap, rmap, omap, wp, bias + G * t, nchunks, G * t, b, h, wd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
-    wt += int64_t(nchunks) * 9 * KC * G;
+    wp += int64_t(nchunks) * P::WCHUNK;
   }
   return 0;
 }
@@ -782,10 +869,11 @@ extern "C" {
 
 // The growth chain. x: [B,H,W,64] with pixel stride x_ps (elements);
 // rs: [B,H,W,160] contiguous, receives r1..r5; w: the five convs'
-// weights packed per 32-channel input chunk, [chunk][tap][k granule of 8]
-// [n][8] for bf16 (the wgmma B operand) and [chunk][tap][k][n] for f32
-// (20 chunks of 9 x 32 x 32 in all); bias: f32 [160]. bf16 needs x_ps a
-// multiple of 8 and x 16-byte aligned (TMA). Returns cudaGetLastError(),
+// weights packed per input chunk as the wgmma B operand: bf16 per 32
+// channels, [chunk][tap][k granule of 8][n][8] (20 chunks of 9 x 32 x 32
+// in all); f32 per 16 channels, [chunk][big, small][tap][k granule of 4]
+// [n][4] (40 chunks of 2 x 9 x 16 x 32); bias: f32 [160]. Needs x 16-byte
+// aligned and x_ps a multiple of 16 bytes (TMA). Returns cudaGetLastError(),
 // or cudaErrorInvalidValue if the tensor maps cannot be made.
 int segmif_drdb_growth(const void* x, int64_t x_ps, void* rs, const void* w,
                        const void* bias, int b, int h, int wd, int dtype,
@@ -793,8 +881,10 @@ int segmif_drdb_growth(const void* x, int64_t x_ps, void* rs, const void* w,
   using namespace segmif;
   auto st = static_cast<cudaStream_t>(stream);
   auto bf = static_cast<const float*>(bias);
-  if (dtype == kF32) return growth_f32(x, x_ps, rs, w, bf, b, h, wd, st);
-  if (dtype == kBF16) return growth_bf16(x, x_ps, rs, w, bf, b, h, wd, st);
+  if (dtype == kF32)
+    return growth<GrowthTf32>(x, x_ps, rs, w, bf, b, h, wd, st);
+  if (dtype == kBF16)
+    return growth<GrowthBf16>(x, x_ps, rs, w, bf, b, h, wd, st);
   return int(cudaErrorInvalidValue);
 }
 

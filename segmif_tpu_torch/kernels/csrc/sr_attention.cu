@@ -12,12 +12,14 @@
 // the kv projection. out [B,N,H,D] contiguous. D is 32 or 64. At 480x640
 // every mit_b3 stage has M = 300 and D = 64; at 1080p, M = 1980.
 //
-// What bounds it on the H100: the bytes (q, k, v and out, a few MB at
-// mit_b3's shapes) over the memory rate, about 0.026 ms for the four
+// What bounds it on the H100: in bf16 the bytes (q, k, v and out, a few
+// MB at mit_b3's shapes) over the memory rate, about 0.026 ms for the four
 // stage shapes; the 4*N*M*D FLOP take less at the bf16 tensor-core peak.
-// In practice the mma.sync rate, the exponentials and the per-tile softmax
-// bookkeeping bound it, and at the small stage-4 grid (320 blocks) the
-// latency of five dependent key tiles per block.
+// In f32, 3xTF32 makes it 3 x 4*N*M*D TF32 FLOP, 0.139 ms at the TF32
+// peak. In practice the issue of instructions bounds both: the mma.sync,
+// the exponentials and the per-tile softmax bookkeeping, in f32 also the
+// split of every K and V value each warp loads; at the small stage-4 grid
+// (320 blocks) the latency of five dependent key tiles per block.
 //
 // bf16 (the serving dtype): the FlashAttention-2 structure on mma.sync.
 //  - One block per (64 queries, b*h), four warps of 16 queries, three
@@ -40,42 +42,55 @@
 //  - The output is divided by the row sum, rounded to bf16 once, staged in
 //    the warp's Q rows and stored in 16-byte rows.
 //
-// f32 stays on the CUDA cores in f32 FMA (TF32 or a bf16 split would not
-// hold the f32 tolerance, and f32 is not the serving dtype): one block per
-// (128 queries, b*h) with Q staged once; K and V stream through a
-// two-stage cp.async ring of 64-key tiles (rows of D+4 floats), with the
-// online softmax of the bf16 kernel per query (one warp, eight queries,
-// two keys per lane), so any M is taken, as the TPU kernel takes it.
+// f32 (what compute_dtype float32 runs: the f32 trainer, forward and
+// checks): the same FlashAttention-2 structure on mma.sync m16n8k8 .tf32
+// as 3xTF32 (common.cuh, split_tf32): each f32 operand a = big + small,
+// both TF32, and every product as big*big + big*small + small*big in f32
+// accumulators, about 2^-21 of the product. One TF32 product (2^-11) does
+// not hold the f32 tolerance of 1e-5: on the H100, Q rounded to TF32 (the
+// small*big product dropped) reads 37.5x the limit at mit_b3's stage 2,
+// where this kernel reads 0.25 of it and SDPA's own f32 path 0.22.
+//  - One block per (64 queries, b*h), four warps of 16 queries, two blocks
+//    per SM. Q is staged once (cp.async); its A fragments stay in
+//    registers as f32 and are split at each k8 step (holding both halves
+//    made ptxas spill at D = 64).
+//  - K and V stream in tiles of 64 keys through a two-stage cp.async ring
+//    of f32 rows of D + 4 floats: the fragment loads of K (key g, dim t)
+//    and of V (key 2t, dim g) fall in 32 distinct banks. Each warp splits
+//    the K and V values it loads. Any M >= 1; keys past M masked to -inf.
+//  - S = Q K^T from three products per k8 step; the online softmax as in
+//    bf16 (scale * log2(e) folded into one multiply, exp2f, registers).
+//  - Sums: the tensor cores add a product into their accumulator with
+//    truncation, so a chain of mma on one accumulator drifts by about an
+//    ulp of the running sum per mma (measured: within 0.81 of the f32
+//    limit at M = 1980 so). Each k8 step's three products go into a fresh
+//    accumulator, added to the running S or O in f32 (round to nearest).
+//  - P V: the m16n8k8 tf32 A fragment takes columns t and t + 4 where the
+//    S accumulators hold columns 2t and 2t + 1. A product sums over its k
+//    in any order, so k = t stands for key 2t and k = t + 4 for key
+//    2t + 1, in P's fragment and in V's rows alike: P is split straight
+//    from the S accumulators, with no shuffle and no shared-memory trip.
+//  - The output is divided by the row sum and stored as f32 pairs.
 
 #include "common.cuh"
 
 namespace segmif {
 namespace {
 
-// ------------------------------------------------- f32, CUDA cores
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kQTile = 16 * kMmaWarps;  // queries per block
+constexpr int kKTile = 64;              // keys per streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kQueriesPerBlock = 128;
-constexpr int kQueriesPerWarp = kQueriesPerBlock / kWarps;
-constexpr int kKeyTile = 64;  // keys per streamed tile: two per lane
+// ------------------------------------------- f32, tensor cores, 3xTF32
 
-template <int D> struct F32Geo {
-  static constexpr int S = D + 4;                // padded K/V row, floats
-  static constexpr int KV = kKeyTile * S;        // one K or V tile
-  static constexpr size_t SMEM =
-      sizeof(float) * (size_t(kQueriesPerBlock) * D + 2 * 2 * KV +
-                       size_t(kWarps) * kKeyTile);
+template <int D> struct TfGeo {
+  static constexpr int RS = D + 4;        // padded f32 row (floats)
+  static constexpr int CPR = D / 4;       // 16-byte chunks per row
+  static constexpr int KV = kKTile * RS;  // one K or V tile
+  static constexpr size_t SMEM = sizeof(float) * (kQTile * RS + 2 * 2 * KV);
 };
-
-// 4-byte async copy (any 4-byte aligned source); with valid == false the
-// destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 // Keys [tile * 64, tile * 64 + 64) of K and V into one ring stage; rows at
 // or past m are zero-filled (nothing is read for them).
@@ -83,145 +98,196 @@ template <int D>
 __device__ __forceinline__ void load_kv_f32(float* stage, const float* kb,
                                             const float* vb, int64_t skm,
                                             int64_t svm, int tile, int m) {
-  using Gf = F32Geo<D>;
-  for (int i = threadIdx.x; i < kKeyTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int j = tile * kKeyTile + r;
+  using Gt = TfGeo<D>;
+  for (int i = threadIdx.x; i < kKTile * Gt::CPR; i += kMmaThreads) {
+    const int r = i / Gt::CPR, c = i % Gt::CPR;
+    const int j = tile * kKTile + r;
     const bool ok = j < m;
     const int64_t jj = ok ? j : 0;
-    cp_async4(stage + r * Gf::S + d, kb + jj * skm + d, ok);
-    cp_async4(stage + Gf::KV + r * Gf::S + d, vb + jj * svm + d, ok);
+    cp_async16(stage + r * Gt::RS + c * 4, kb + jj * skm + c * 4, ok);
+    cp_async16(stage + Gt::KV + r * Gt::RS + c * 4, vb + jj * svm + c * 4,
+               ok);
   }
 }
 
-// One block per (128 queries, b*h); K and V stream through a two-stage
-// cp.async ring in tiles of 64 keys, so shared memory does not depend on
-// M and any M >= 1 is taken. Warp w owns queries w, w + 16, ... of the
-// block; for each, per tile, lane l computes the logits of keys l and
-// l + 32, then the online softmax (running max and sum; the output
-// rescaled by exp(old max - new max)) and out[d] for its D / 32 dims.
+// Lane (g, t4) of a warp holds rows g and g + 8 of its 16 queries; S and O
+// accumulator element c of an n8 tile is row g + 8 (c / 2), column
+// 2 t4 + c % 2 (as in the bf16 kernel).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    sr_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
-                        int n, int m, int h_count, int64_t sqb, int64_t sqn,
-                        int64_t sqh, int64_t skb, int64_t skm, int64_t skh,
-                        int64_t svb, int64_t svm, int64_t svh, float scale) {
-  using Gf = F32Geo<D>;
-  constexpr int S = Gf::S;
-  constexpr int DPL = D / 32;  // output dims per lane
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);    // [128][D]
-  float* ring = qs + kQueriesPerBlock * D;        // [2][K, V][64][S]
-  float* ps = ring + 2 * 2 * Gf::KV;              // [kWarps][64]
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    sr_attention_kernel_tf32(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ out, int n, int m,
+                             int h_count, int64_t sqb, int64_t sqn,
+                             int64_t sqh, int64_t skb, int64_t skm,
+                             int64_t skh, int64_t svb, int64_t svm,
+                             int64_t svh, float scale_log2) {
+  using Gt = TfGeo<D>;
+  constexpr int RS = Gt::RS, CPR = Gt::CPR;
+  constexpr int DK = D / 8;       // k8 steps over the head dim
+  constexpr int DN = D / 8;       // n8 tiles of the output
+  constexpr int KN = kKTile / 8;  // n8 tiles of a logit tile
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [kQTile][RS]
+  float* ring = qs + kQTile * RS;                 // [2][K, V][kKTile][RS]
 
   const int bh = blockIdx.y;
-  const int b = bh / h_count;
-  const int h = bh % h_count;
-  const int q0 = blockIdx.x * kQueriesPerBlock;
+  const int b = bh / h_count, h = bh % h_count;
+  const int q0 = blockIdx.x * kQTile;
   const float* qb = q + b * sqb + h * sqh;
   const float* kb = k + b * skb + h * skh;
   const float* vb = v + b * svb + h * svh;
-  for (int i = threadIdx.x; i < kQueriesPerBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    qs[i] = q0 + r < n ? qb[int64_t(q0 + r) * sqn + d] : 0.f;
+  for (int i = threadIdx.x; i < kQTile * CPR; i += kMmaThreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = q0 + r < n;
+    cp_async16(qs + r * RS + c * 4,
+               qb + int64_t(ok ? q0 + r : 0) * sqn + c * 4, ok);
   }
   load_kv_f32<D>(ring, kb, vb, skm, svm, 0, m);
   cp_async_commit();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* p = ps + warp * kKeyTile;
-  float mrow[kQueriesPerWarp], lrow[kQueriesPerWarp];
-  float o[kQueriesPerWarp][DPL];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float qf[DK][4];  // Q's A fragments, split at each use
+  float o[DN][4];
 #pragma unroll
-  for (int u = 0; u < kQueriesPerWarp; ++u) {
-    mrow[u] = -INFINITY;
-    lrow[u] = 0.f;
+  for (int i = 0; i < DN; ++i)
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) o[u][t] = 0.f;
-  }
+    for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
 
-  const int tiles = (m + kKeyTile - 1) / kKeyTile;
+  const int tiles = (m + kKTile - 1) / kKTile;
   for (int tile = 0; tile < tiles; ++tile) {
     if (tile + 1 < tiles) {
-      load_kv_f32<D>(ring + ((tile + 1) & 1) * 2 * Gf::KV, kb, vb, skm, svm,
+      load_kv_f32<D>(ring + ((tile + 1) & 1) * 2 * Gt::KV, kb, vb, skm, svm,
                      tile + 1, m);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile `tile` (and Q) have landed for every thread
-    const float* ks = ring + (tile & 1) * 2 * Gf::KV;
-    const float* vs = ks + Gf::KV;
-    const bool valid0 = tile * kKeyTile + lane < m;
-    const bool valid1 = tile * kKeyTile + lane + 32 < m;
+    __syncthreads();
+    if (tile == 0) {
+      const float* qw = qs + warp * 16 * RS;
 #pragma unroll
-    for (int u = 0; u < kQueriesPerWarp; ++u) {
-      const int r = warp + kWarps * u;
-      if (q0 + r >= n) break;  // warp-uniform; later u are past n too
-      const float* qrow = qs + r * D;
-      float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 qq = *reinterpret_cast<const float4*>(qrow + d);
-        const float4 k0 = *reinterpret_cast<const float4*>(ks + lane * S + d);
-        const float4 k1 =
-            *reinterpret_cast<const float4*>(ks + (lane + 32) * S + d);
-        acc0 = fmaf(qq.x, k0.x, acc0);
-        acc0 = fmaf(qq.y, k0.y, acc0);
-        acc0 = fmaf(qq.z, k0.z, acc0);
-        acc0 = fmaf(qq.w, k0.w, acc0);
-        acc1 = fmaf(qq.x, k1.x, acc1);
-        acc1 = fmaf(qq.y, k1.y, acc1);
-        acc1 = fmaf(qq.z, k1.z, acc1);
-        acc1 = fmaf(qq.w, k1.w, acc1);
+      for (int kk = 0; kk < DK; ++kk) {
+        qf[kk][0] = qw[g * RS + 8 * kk + t4];
+        qf[kk][1] = qw[(g + 8) * RS + 8 * kk + t4];
+        qf[kk][2] = qw[g * RS + 8 * kk + t4 + 4];
+        qf[kk][3] = qw[(g + 8) * RS + 8 * kk + t4 + 4];
       }
-      const float l0 = valid0 ? acc0 * scale : -INFINITY;
-      const float l1 = valid1 ? acc1 * scale : -INFINITY;
-      // key 0 is in tile 0, so the running max is finite from then on
-      const float mx = fmaxf(mrow[u], warp_max(fmaxf(l0, l1)));
-      const float alpha = expf(mrow[u] - mx);
-      const float e0 = expf(l0 - mx), e1 = expf(l1 - mx);
-      p[lane] = e0;
-      p[lane + 32] = e1;
-      lrow[u] = lrow[u] * alpha + warp_sum(e0 + e1);
-      mrow[u] = mx;
-      __syncwarp();
-      // out[d] = out[d] alpha + sum_j p_j v[j, d], lane owns dims lane*DPL..
-      const float* vcol = vs + lane * DPL;
-      float o0[DPL], o1[DPL];
+    }
+    const float* ks = ring + (tile & 1) * 2 * Gt::KV;
+    const float* vs = ks + Gt::KV;
+
+    // S = Q K^T for this warp's 16 queries and the tile's 64 keys: B is
+    // K^T, b0 = K[key g][dim t], b1 = K[key g][dim t + 4]
+    float s[KN][4];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        o0[t] = o[u][t] * alpha;
-        o1[t] = 0.f;
+    for (int i = 0; i < KN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t qbig[4], qsmall[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) split_tf32(qf[kk][f], qbig[f], qsmall[f]);
+#pragma unroll
+      for (int nt = 0; nt < KN; ++nt) {
+        const float* kr = ks + (nt * 8 + g) * RS + 8 * kk + t4;
+        uint32_t b0, b0s, b1, b1s;
+        split_tf32(kr[0], b0, b0s);
+        split_tf32(kr[4], b1, b1s);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, qsmall, b0, b1);
+        mma_tf32(part, qbig, b0s, b1s);
+        mma_tf32(part, qbig, b0, b1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[nt][c] += part[c];
       }
-#pragma unroll 8
-      for (int j = 0; j < kKeyTile; j += 2) {
-        const float pa = p[j], pb = p[j + 1];
+    }
+
+    // scaled logits in log2 units; keys past m masked to -inf
+    const bool ragged = (tile + 1) * kKTile > m;
+    float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
-        for (int t = 0; t < DPL; ++t) {
-          o0[t] = fmaf(pa, vcol[j * S + t], o0[t]);
-          o1[t] = fmaf(pb, vcol[(j + 1) * S + t], o1[t]);
-        }
+    for (int i = 0; i < KN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[i][c] * scale_log2;
+        if (ragged && tile * kKTile + i * 8 + 2 * t4 + (c & 1) >= m)
+          x = -INFINITY;
+        s[i][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
+    float alpha[2];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) o[u][t] = o0[t] + o1[t];
-      __syncwarp();  // p is rewritten by the next query
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key 0 is in tile 0, so mx is finite from the first tile on
+      alpha[r] = exp2f(mrow[r] - mx[r]);
+      mrow[r] = mx[r];
+      lrow[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][c] *= alpha[c >> 1];
+#pragma unroll
+    for (int i = 0; i < KN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f(s[i][c] - mx[c >> 1]);
+        s[i][c] = p;
+        lrow[c >> 1] += p;  // this lane's columns; the quad sums at the end
+      }
+
+    // O += P V over the tile's eight 8-key groups; k = t is key 2t and
+    // k = t + 4 key 2t + 1 of the group: a = (P[g][2t], P[g + 8][2t],
+    // P[g][2t + 1], P[g + 8][2t + 1]), b0 = V[2t][dim g], b1 = V[2t + 1][g]
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      uint32_t pbig[4], psmall[4];
+      split_tf32(s[j][0], pbig[0], psmall[0]);
+      split_tf32(s[j][2], pbig[1], psmall[1]);
+      split_tf32(s[j][1], pbig[2], psmall[2]);
+      split_tf32(s[j][3], pbig[3], psmall[3]);
+      const float* vr = vs + (j * 8 + 2 * t4) * RS + g;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        uint32_t b0, b0s, b1, b1s;
+        split_tf32(vr[dn * 8], b0, b0s);
+        split_tf32(vr[RS + dn * 8], b1, b1s);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, psmall, b0, b1);
+        mma_tf32(part, pbig, b0s, b1s);
+        mma_tf32(part, pbig, b0, b1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[dn][c] += part[c];
+      }
     }
     __syncthreads();  // the stage is refilled two tiles on
   }
 
+  float inv[2];
 #pragma unroll
-  for (int u = 0; u < kQueriesPerWarp; ++u) {
-    const int qi = q0 + warp + kWarps * u;
-    if (qi >= n) break;
-    const float inv = 1.f / lrow[u];
-    float* op = out + ((int64_t(b) * n + qi) * h_count + h) * D + lane * DPL;
+  for (int r = 0; r < 2; ++r) {
+    float l = lrow[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+  }
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) op[t] = o[u][t] * inv;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= n) continue;
+    float* op = out + ((int64_t(b) * n + qi) * h_count + h) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<float2*>(op + dn * 8) =
+          make_float2(o[dn][2 * r] * inv[r], o[dn][2 * r + 1] * inv[r]);
   }
 }
 
@@ -231,25 +297,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
                int64_t skb, int64_t skm, int64_t skh, int64_t svb,
                int64_t svm, int64_t svh, float scale, cudaStream_t stream) {
   if (m < 1) return int(cudaErrorInvalidValue);
-  auto kern = sr_attention_kernel<D>;
-  cudaError_t err = allow_smem(kern, F32Geo<D>::SMEM);
+  auto kern = sr_attention_kernel_tf32<D>;
+  cudaError_t err = allow_smem(kern, TfGeo<D>::SMEM);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, b * h);
-  kern<<<grid, kThreads, F32Geo<D>::SMEM, stream>>>(
+  const dim3 grid((n + kQTile - 1) / kQTile, b * h);
+  kern<<<grid, kMmaThreads, TfGeo<D>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, m, h, sqb,
-      sqn, sqh, skb, skm, skh, svb, svm, svh, scale);
+      sqn, sqh, skb, skm, skh, svb, svm, svh, scale * kLog2e);
   return int(cudaGetLastError());
 }
 
 // ------------------------------------------- bf16, tensor cores
 
 using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kQTile = 16 * kMmaWarps;  // queries per block
-constexpr int kKTile = 64;              // keys per streamed tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D> struct MmaGeo {
   static constexpr int RS = D + 8;       // padded bf16 row

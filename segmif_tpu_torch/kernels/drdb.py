@@ -43,7 +43,7 @@ Conv = Tuple[torch.Tensor, torch.Tensor]   # (OIHW weight, bias)
 C = 64          # trunk channels
 G = 32          # growth per conv
 NCONV = 5
-KC = 32         # input channels per chunk the growth kernel stages
+KC = 32         # input channels per bf16 chunk (f32: 16)
 
 
 def drdb_chain(x: torch.Tensor, dconvs: Sequence[Conv],
@@ -114,21 +114,40 @@ def _check_dtype_device(x: torch.Tensor, ts: Sequence[torch.Tensor],
             raise ValueError(f"{what}: tensors on {x.device} and {t.device}")
 
 
+def _growth_layout(dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(input channels per chunk, k granule, halves) of the growth
+    kernel's packing: 16, 4 and 2 (big and small) for f32; 32, 8 and 1 for
+    bf16 (and f64, which only the CPU versions read)."""
+    return (KC // 2, 4, 2) if dtype == torch.float32 else (KC, 8, 1)
+
+
+def growth_numel(dtype: torch.dtype) -> int:
+    """Elements of ``pack_growth_weights`` for ``dtype``: the five convs'
+    weights once, or a big and a small half in f32."""
+    return _growth_layout(dtype)[2] * 20 * 9 * KC * G
+
+
 def pack_growth_weights(dconvs: Sequence[Conv],
                         dtype: torch.dtype) -> torch.Tensor:
-    """The five convs' OIHW weights, per 32-channel input chunk, as the
-    growth kernel stages them: [chunk][tap][k granule of 8][n][8] for bf16
-    (the wgmma B operand: 8 x 8 core matrices of 8 output channels by 8
-    input channels, K-major) and [chunk][tap][k][n] for f32. Flat, 20
-    chunks of 9 x 32 x 32."""
+    """The five convs' OIHW weights, per input chunk, as the growth
+    kernel stages them: the wgmma B operand, K-major core matrices of 8
+    output channels by 16 bytes of input channels. bf16: per 32 channels,
+    [chunk][tap][k granule of 8][n][8]. f32: per 16 channels,
+    [chunk][big, small][tap][k granule of 4][n][4], the 3xTF32 halves
+    (``_build.tf32_big``; the kernel reads small as TF32). f64 as bf16.
+    Flat."""
+    kc, gr, _ = _growth_layout(dtype)
     parts = []
     for w, _ in dconvs:
         o, cin = w.shape[:2]
-        # [n, chunk, granule, e, tap]: input channel 32 chunk + 8 granule + e
-        wk = w.to(dtype).reshape(o, cin // KC, KC // 8, 8, 9)
-        order = ((1, 4, 2, 0, 3) if dtype == torch.bfloat16
-                 else (1, 4, 2, 3, 0))
-        parts.append(wk.permute(*order).reshape(-1))
+        # [n, chunk, granule, e, tap]: input channel kc chunk + gr granule
+        # + e -> [chunk][tap][granule][n][e]
+        wk = w.to(dtype).reshape(o, cin // kc, kc // gr, gr, 9).permute(
+            1, 4, 2, 0, 3)
+        if dtype == torch.float32:
+            big = _build.tf32_big(wk)
+            wk = torch.stack([big, wk - big], dim=1)
+        parts.append(wk.reshape(-1))
     return torch.cat(parts).contiguous()
 
 
@@ -160,18 +179,18 @@ def pack_tail(wb: torch.Tensor, bb: torch.Tensor,
 
 def unpack_growth(wpk: Packed, dtype: torch.dtype) -> list:
     """Inverse of ``pack_growth`` for activations of ``dtype``: the five
-    (OIHW weight, bias), weights in ``dtype`` and biases as packed."""
+    (OIHW weight, bias), weights in ``dtype`` (f32's halves summed, which
+    is exact) and biases as packed."""
     w, b = wpk
-    order = (1, 4, 2, 0, 3) if dtype == torch.bfloat16 else (1, 4, 2, 3, 0)
-    inverse = tuple(order.index(i) for i in range(5))
+    kc, gr, halves = _growth_layout(dtype)
     dconvs, at = [], 0
     for t in range(NCONV):
         cin = C + G * t
-        shape = (G, cin // KC, KC // 8, 8, 9)
-        part = w[at:at + G * cin * 9].reshape([shape[i] for i in order])
-        at += G * cin * 9
-        dconvs.append((part.permute(*inverse).reshape(G, cin, 3, 3),
-                       b[G * t:G * (t + 1)]))
+        size = halves * G * cin * 9
+        part = w[at:at + size].reshape(cin // kc, halves, 9, kc // gr, G, gr)
+        at += size
+        dconvs.append((part.sum(1).permute(3, 0, 2, 4, 1).reshape(
+            G, cin, 3, 3), b[G * t:G * (t + 1)]))
     return dconvs
 
 
@@ -222,8 +241,8 @@ def drdb_growth(x: torch.Tensor, dconvs: Sequence[Conv],
     if wpk is None:
         wpk = pack_growth(dconvs, x.dtype)
     if x.is_cuda:
-        _check_packed(wpk, 20 * 9 * KC * G, G * NCONV, x, "drdb_growth",
-                      address=False)
+        _check_packed(wpk, growth_numel(x.dtype), G * NCONV, x,
+                      "drdb_growth", address=False)
     buf = torch.ops.segmif.drdb_growth(x, *wpk)
     view = buf.permute(0, 3, 1, 2)
     return tuple(view[:, G * t:G * (t + 1)] for t in range(NCONV))
@@ -236,7 +255,8 @@ def drdb_growth_op(x: torch.Tensor, wpk: torch.Tensor,
     """Five launches of the growth kernel (``segmif_drdb_growth``) on the
     current stream, into the [B, H, W, 160] buffer allocated here."""
     x_ps = _pixel_stride(x, C, "drdb_growth x")
-    _check_packed((wpk, bias), 20 * 9 * KC * G, G * NCONV, x, "drdb_growth")
+    _check_packed((wpk, bias), growth_numel(x.dtype), G * NCONV, x,
+                  "drdb_growth")
     bsz, _, h, w_ = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):

@@ -32,7 +32,7 @@ CLASSES = (
                            "int8_tail_kernel")),
     ("sr-attention kernel", ("sr_attention_kernel",)),
     ("FFM kernels", ("ffm_",)),
-    ("DRDB growth kernel", ("growth_conv_kernel", "growth_wgmma_kernel")),
+    ("DRDB growth kernel", ("growth_",)),  # growth_kernel<...>
     ("DRDB tail kernel", ("tail_kernel",)),
     ("LayerNorm", ("layer_norm",)),
     ("bilinear resize", ("upsample_bilinear",)),

@@ -9,9 +9,12 @@ This file imports no JAX: the machine with the card has none.
 Tolerances (both sides compute in f32; TF32 is off for the plain side):
  - sr-attention and FFM apply, per element: |got - ref| <= atol + rtol *
    |ref|, and in bf16 at most a share of the elements differ at all.
-   f32: reduction order only, atol 1e-5 (attention) / 1e-4 (FFM apply,
-   whose LayerNorm scales errors by 1/std), rtol 0. bf16 attention: rtol
-   2^-7 (one bf16 step of the output, so any one-step difference passes:
+   f32: reduction order (and, for sr-attention, 3xTF32 products to about
+   2^-21 of each), atol 1e-5 (attention) / 1e-4 (FFM apply, whose
+   LayerNorm scales errors by 1/std), rtol 0. The 3xTF32 kernels run on
+   Q or x rounded to TF32 (a dropped small*big product) must fail the f32
+   limits: test_f32_check_catches_a_dropped_small_big_product. bf16
+   attention: rtol 2^-7 (one bf16 step of the output, so any one-step difference passes:
    the kernel's P V is f32-accurate to about 2^-17, and the two sides
    round f32 values that differ in their last bits), atol 2^-14 (outputs
    near zero, where sums of terms of order 1 cancel); chip_smoke.py reads
@@ -239,11 +242,13 @@ def test_sr_attention_and_apply_checks_catch_a_fault(cuda, fault):
     (1, 130, 65, 1, 32),       # one key past a whole 64-key tile, D = 32
     (2, 1000, 383, 2, 64),     # one key more than the f32 kernel once held
     (2, 4000, 1980, 1, 64),    # the 1080p stage-1 key count (31 tiles)
+    (1, 1500, 2040, 5, 64),    # mit_b5 stage 3 at 1080p: five heads
+    (1, 300, 1980, 2, 32),     # D = 32 over 31 key tiles
 ])
 def test_sr_attention_f32_takes_any_m(cuda, b, n, m, h, d):
-    """The f32 kernel streams K/V in 64-key tiles with an online softmax,
-    so M has no limit; held to the plain version within the unchanged f32
-    tolerance."""
+    """The f32 kernel (3xTF32 on mma.sync) streams K/V in 64-key tiles
+    with an online softmax, so M has no limit; held to the plain version
+    within the unchanged f32 tolerance."""
     q, k, v = _sr_inputs(19, b, n, m, h, d, torch.float32, cuda)
     with torch.inference_mode():
         got = sr_attention(q, k, v, d ** -0.5)
@@ -451,6 +456,72 @@ def test_drdb_growth_bf16_any_shape_and_channel_slice(cuda, b, h, w, sliced):
     for g, e in zip(got, want):
         assert g.shape == (b, 32, h, w)
         assert _within(g, e, GROWTH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,h,w,sliced", [(1, 17, 33, False),
+                                           (2, 5, 7, False),
+                                           (2, 17, 33, True),
+                                           (2, 100, 172, True)])
+def test_drdb_growth_f32_any_shape_and_channel_slice(cuda, b, h, w, sliced):
+    """The f32 growth (3xTF32 on wgmma, 16x16 tiles, 16-channel TMA halo
+    chunks) at H x W that are not multiples of the tile, and with x a
+    channel slice (channels 16-79) of a wider channels_last tensor, read
+    through its pixel stride of 96; the unchanged f32 limit."""
+    gen = torch.Generator().manual_seed(25)
+    x, dconvs, _ = _drdb_inputs(gen, b, h, w, torch.float32, cuda)
+    if sliced:
+        wide = _randn(gen, (b, h, w, 96), torch.float32, cuda)
+        wide[..., 16:80] = x.permute(0, 2, 3, 1)
+        x = wide.permute(0, 3, 1, 2)[:, 16:80]
+        assert x.stride(3) == 96
+    with torch.inference_mode():
+        got = drdb_growth(x, dconvs)
+        want = drdb_growth_ref(x, dconvs)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == (b, 32, h, w)
+        assert _within(g, e, GROWTH_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("kernel", ["sr_attention", "drdb_growth"])
+def test_f32_check_catches_a_dropped_small_big_product(cuda, kernel):
+    """Without its small*big product a 3xTF32 kernel multiplies A's TF32
+    half alone: the same as the kernel run on A rounded to TF32 (Q for
+    sr-attention's logits, x for the first growth conv). That run fails
+    the f32 limit against the plain version on the true inputs; the true
+    run holds it."""
+    with torch.inference_mode():
+        if kernel == "sr_attention":
+            q, k, v = _sr_inputs(26, 2, 4800, 300, 2, 64, torch.float32,
+                                 cuda)
+            want = sr_attention_ref(q, k, v, 0.125)
+            good = sr_attention(q, k, v, 0.125)
+            bad = sr_attention(_build.tf32_big(q), k, v, 0.125)
+            held = [_close(t, want, SR_TOL[torch.float32])
+                    for t in (good, bad)]
+        else:
+            x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(27),
+                                        2, 100, 172, torch.float32, cuda)
+            want = drdb_growth_ref(x, dconvs)[0]
+            good = drdb_growth(x, dconvs)[0]
+            bad = drdb_growth(_build.tf32_big(x), dconvs)[0]
+            held = [_within(t, want, GROWTH_TOL[torch.float32])
+                    for t in (good, bad)]
+    torch.cuda.synchronize()
+    assert held == [True, False]
+
+
+def test_f32_kernels_repeat_bit_for_bit(cuda):
+    """Two calls of each 3xTF32 kernel on the same inputs give the same
+    bits: no atomics, a fixed order of sums."""
+    q, k, v = _sr_inputs(28, 2, 1000, 383, 2, 64, torch.float32, cuda)
+    x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(29), 2, 40,
+                                56, torch.float32, cuda)
+    with torch.inference_mode():
+        assert torch.equal(sr_attention(q, k, v, 0.125),
+                           sr_attention(q, k, v, 0.125))
+        assert all(torch.equal(a, b) for a, b in zip(
+            drdb_growth(x, dconvs), drdb_growth(x, dconvs)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -268,36 +268,42 @@ def _bf16_exact(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
     """The growth kernel's schedule, written out in torch: per conv, per
-    32-channel input chunk and per tap, the zero-padded input window times
-    that chunk's packed [32, 32] weights. Holds ``pack_growth_weights``'
-    layouts ([tap][k granule][n][8] for bf16, [tap][k][n] for f32) to the
-    plain chain (f32 arithmetic on bf16-exact weights; 3e-5 as above)."""
+    input chunk (32 channels in bf16, 16 in f32) and per tap, the
+    zero-padded input window times that chunk's packed [kc, 32] weights
+    (f32: the big and small halves summed). Holds ``pack_growth_weights``'
+    layouts ([tap][k granule][n][8] for bf16, [big, small][tap][k granule]
+    [n][4] for f32) to the plain chain (f32 arithmetic on bf16-exact
+    weights; 3e-5 as above). The 3xTF32 products themselves:
+    tests/test_torch_tf32x3.py."""
     rng = np.random.default_rng(9)
     x = _t(rng.uniform(0, 1, (1, 11, 14, C)).astype(np.float32))
     dconvs, _ = _port_convs(_drdb_params(rng))
     dconvs = [(_bf16_exact(w), b) for w, b in dconvs]
     wpk = tdrdb.pack_growth_weights(dconvs, dtype).float()
-    assert wpk.numel() == 20 * 9 * 32 * 32
+    assert wpk.numel() == tdrdb.growth_numel(dtype)
+    kc, gr = (32, 8) if dtype == torch.bfloat16 else (16, 4)
+    halves = 1 if dtype == torch.bfloat16 else 2
     bias = torch.cat([b for _, b in dconvs])
     feat, off, got = x, 0, []
     h, wd = x.shape[1:3]
     for t in range(5):
         xp = F.pad(feat, (0, 0, 2, 2, 2, 2))
         acc = torch.zeros(x.shape[:3] + (32,))
-        for c in range(2 + t):
-            wc = wpk[off:off + 9 * 32 * 32].reshape(9, 32, 32)
-            off += 9 * 32 * 32
-            if dtype == torch.bfloat16:                   # -> [tap][k][n]
-                wc = wc.reshape(9, 4, 32, 8).permute(0, 1, 3, 2).reshape(
-                    9, 32, 32)
+        for c in range((64 + 32 * t) // kc):
+            size = halves * 9 * kc * 32
+            wc = wpk[off:off + size].reshape(halves, 9, kc // gr, 32, gr)
+            off += size
+            # -> [tap][k][n]
+            wc = wc.sum(0).permute(0, 1, 3, 2).reshape(9, kc, 32)
             for tap in range(9):
                 ky, kx = divmod(tap, 3)
                 win = xp[:, 2 * ky:2 * ky + h, 2 * kx:2 * kx + wd,
-                         32 * c:32 * c + 32]
+                         kc * c:kc * c + kc]
                 acc += win @ wc[tap]
         r = torch.relu(acc + bias[32 * t:32 * t + 32])
         got.append(r)
         feat = torch.cat([feat, r], -1)
+    assert off == wpk.numel()
     want = tdrdb.drdb_growth_ref(x.permute(0, 3, 1, 2), dconvs)
     for g, e in zip(got, want):
         np.testing.assert_allclose(g.numpy(), e.permute(0, 2, 3, 1).numpy(),
@@ -307,30 +313,38 @@ def test_drdb_growth_packing_as_the_kernel_reads_it(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_drdb_growth_packing_by_index_formula(dtype):
     """Every element of ``pack_growth_weights`` read back by its flat index
-    equals the OIHW weight it stands for. Conv t, chunk c, tap (ky, kx),
-    output n, input channel k = 32 c + 8 gr + e sits at base_t + 9216 c +
-    1024 tap + 256 gr + 8 n + e in bf16 ([chunk][tap][gr][n][8], the wgmma
-    B operand) and at base_t + 9216 c + 1024 tap + 32 k' + n (k' = k - 32
-    c) in f32, where base_t counts the earlier convs' chunks."""
+    equals the OIHW weight it stands for. Conv t, tap (ky, kx), output n,
+    input channel k: in bf16 (chunks of 32, k = 32 c + 8 gr + e) at
+    base_t + 9216 c + 1024 tap + 256 gr + 8 n + e ([chunk][tap][gr][n][8],
+    the wgmma B operand); in f32 (chunks of 16, k = 16 c + 4 gr + e) the
+    big half at base_t + 9216 c + 512 tap + 128 gr + 4 n + e and the small
+    half 4608 on ([chunk][big, small][tap][gr][n][4]), the two summing to
+    the weight; base_t counts the earlier convs' chunks."""
     rng = np.random.default_rng(11)
     dconvs, _ = _port_convs(_drdb_params(rng))
-    dconvs = [(_bf16_exact(w), b) for w, b in dconvs]
+    if dtype == torch.bfloat16:
+        dconvs = [(_bf16_exact(w), b) for w, b in dconvs]
     wpk = tdrdb.pack_growth_weights(dconvs, dtype).float().numpy()
-    assert wpk.shape == (20 * 9 * 32 * 32,)
+    assert wpk.shape == (tdrdb.growth_numel(dtype),)
     base = 0
     for t, (w, _) in enumerate(dconvs):
         w = w.numpy()                            # [32, 64 + 32 t, 3, 3]
         n, k, ky, kx = np.meshgrid(np.arange(32), np.arange(w.shape[1]),
                                    np.arange(3), np.arange(3), indexing="ij")
-        c, kc = k // 32, k % 32
         tap = 3 * ky + kx
         if dtype == torch.bfloat16:
+            c, kc = k // 32, k % 32
             flat = base + 9216 * c + 1024 * tap + 256 * (kc // 8) + 8 * n \
                 + kc % 8
+            np.testing.assert_array_equal(wpk[flat], w)
         else:
-            flat = base + 9216 * c + 1024 * tap + 32 * kc + n
-        np.testing.assert_array_equal(wpk[flat], w)
-        base += 9216 * (2 + t)
+            c, kc = k // 16, k % 16
+            flat = base + 9216 * c + 512 * tap + 128 * (kc // 4) + 4 * n \
+                + kc % 4
+            np.testing.assert_array_equal(wpk[flat] + wpk[flat + 4608], w)
+            bits = wpk[flat].view(np.int32)
+            assert not (bits & 0x1FFF).any()     # big: a TF32 value
+        base += 9216 * (2 + t) * (1 if dtype == torch.bfloat16 else 2)
     assert base == wpk.size
 
 
@@ -365,7 +379,10 @@ def test_drdb_kernel_weights_repack_only_when_a_weight_changes(
     block.load_state_dict(sd)
     second = block.kernel_weights(torch.float32)
     assert second is not first and len(calls) == 2
-    assert second[0][0][9216 * 5] == sd["Dcov3.weight"][0, 0, 0, 0]
+    # conv 3's first element: f32 chunks of 16 channels, big and small
+    # halves 4608 apart (test_drdb_growth_packing_by_index_formula)
+    assert (second[0][0][9216 * 10] + second[0][0][9216 * 10 + 4608]
+            == sd["Dcov3.weight"][0, 0, 0, 0])
     assert block.kernel_weights(torch.float32) is second
 
     with torch.no_grad():
