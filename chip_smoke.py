@@ -22,25 +22,28 @@ before the last line):
     the device (held by a sleep kernel while the host enqueues the timed
     calls), with each kernel's bound (the larger of its operations over the
     card's peak for their type and its bytes over the memory rate; the f32
-    sr-attention and DRDB growth, 3xTF32 on the tensor cores, also with
-    the 3xTF32 bound, 3 x their operations at the TF32 peak) and, for
-    sr-attention, the time of ``F.scaled_dot_product_attention`` on the
-    same inputs laid out [B, H, N, D] and, for information, SDPA's own f32
-    error against the plain version; sr-attention and FFM apply held per
-    element, with planted faults (scale x 1.01, the last key row dropped;
-    be zeroed, M1 and M3 swapped, LayerNorm gamma + 0.01; in f32 Q rounded
-    to TF32, which is what a dropped small*big product gives) that must
-    fail those checks, two f32 calls bit for bit, and f32 and bf16
-    sr-attention at the 1080p stage-1 shape (M = 1980) beside SDPA; FFM
-    grams also at B = 8 with
-    N = 1 and 40, with planted faults (y1's bias zeroed, y1 and y2
-    swapped); the DRDB growth chain, tail and whole block (against
+    sr-attention, DRDB growth, DRDB tail and FFM apply, 3xTF32 on the
+    tensor cores, also with the 3xTF32 bound, 3 x their operations at the
+    TF32 peak) and, for sr-attention, the time of
+    ``F.scaled_dot_product_attention`` on the same inputs laid out [B, H,
+    N, D] and, for information, SDPA's own f32 error against the plain
+    version; sr-attention and FFM apply held per element, with planted
+    faults (scale x 1.01, the last key row dropped; be zeroed, M1 and M3
+    swapped, LayerNorm gamma + 0.01, in both dtypes; in f32 Q, or the
+    apply's s, rounded to TF32, which is what a dropped small*big product
+    gives) that must fail those checks, two f32 calls bit for bit, and f32
+    and bf16 sr-attention at the 1080p stage-1 shape (M = 1980) beside
+    SDPA; FFM apply also at B = 8 with N = 1, 40 and 4097 in both dtypes,
+    grams at N = 1 and 40 in bf16, with planted faults (y1's bias zeroed,
+    y1 and y2 swapped); the DRDB growth chain, tail and whole block (against
     ``drdb_chain``), held per element, also at an odd 100x172, with the
     block's peak device memory, the growth's five-launch traffic floor
-    and cuDNN's five convs on prebuilt concatenations beside it, growth
-    and tail in f32 and bf16 at 17x33, 5x7 and on a channel slice of x,
-    the f32 growth twice bit for bit and run on x rounded to TF32 (conv 1's
-    small*big product dropped), which must fail; the int8 DRDB
+    and cuDNN's five convs on prebuilt concatenations beside it, one 1x1
+    conv on a prebuilt concatenation beside the tail (f32 and bf16),
+    growth and tail in f32 and bf16 at 17x33, 5x7 and on a channel slice
+    of x, the f32 growth twice bit for bit and run on x rounded to TF32
+    (conv 1's small*big product dropped), the f32 tail on r1..r5 and on
+    its bottleneck rounded to TF32, each of which must fail; the int8 DRDB
     kernels held bit for bit against ``drdb_int8_ref`` (the int8 buffer
     and the output) at the main-path shape, 100x172 and 5x7, with the
     int8 block's peak memory; at 100x172, faults planted in the DRDB
@@ -771,27 +774,54 @@ def kernel_checks(dev):
         print(f"{label}: {verdict(ratio, err, diff, tol)}; kernel {ms:.4f} "
               f"ms, plain {pms:.4f} ms", flush=True)
         check(ok, f"ffm_apply {dname} error {err}")
-        if dtype == torch.bfloat16:
-            lnp_bad = lnp + torch.tensor([0.01, 0.0], device=dev)[:, None]
-            for name, bad in (
-                    ("be zeroed", (mats, be * 0, lnp)),
-                    ("M1 and M3 swapped", (mats[:, [0, 3, 2, 1]], be, lnp)),
-                    ("LayerNorm gamma + 0.01", (mats, be, lnp_bad))):
-                fault_fails(label, name,
-                            crosspath_apply_rows(x1, x2, s, wp, bp, *bad),
-                            want, tol)
+        lnp_bad = lnp + torch.tensor([0.01, 0.0], device=dev)[:, None]
+        faults = [("be zeroed", (x1, x2, s, wp, bp, mats, be * 0, lnp)),
+                  ("M1 and M3 swapped",
+                   (x1, x2, s, wp, bp, mats[:, [0, 3, 2, 1]], be, lnp)),
+                  ("LayerNorm gamma + 0.01",
+                   (x1, x2, s, wp, bp, mats, be, lnp_bad))]
+        if dtype == torch.float32:
+            # what a dropped small*big product of y3's projection gives:
+            # s's small half lost, i.e. s rounded to TF32
+            faults.append(("y3's small*big product dropped (s rounded to "
+                           "TF32)", (x1, x2, tf32_big(s), wp, bp, mats, be,
+                                     lnp)))
+        for name, bad in faults:
+            fault_fails(label, name, crosspath_apply_rows(*bad), want, tol)
         res["ffm_apply"]["max_abs_err"] = max(res["ffm_apply"]["max_abs_err"],
                                               err)
         # three 64-wide projections and four [64, 64] context products
-        bnd = bound(7 * 2 * BATCH * n * c * c, "f32" if dtype ==
-                    torch.float32 else "bf16", nbytes(*args, *got))
+        ops = 7 * 2 * BATCH * n * c * c
         if dtype == torch.bfloat16:
-            res["ffm_apply"].update(ms=ms, plain_ms=pms, **bnd)
+            res["ffm_apply"].update(ms=ms, plain_ms=pms, **bound(
+                ops, "bf16", nbytes(*args, *got)))
         else:
-            print(f"ffm_apply float32: f32 bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']}, at the f32 peak)", flush=True)
-        del x1, x2, s, got, want, args
+            fma = bound(ops, "f32", nbytes(*args, *got))
+            tf3 = bound(ops, "tf32x3", nbytes(*args, *got))
+            res["ffm_apply"].update(f32_ms=ms, f32_bound_ms=tf3["bound_ms"])
+            print(f"ffm_apply float32: f32 bounds: 3xTF32 "
+                  f"{tf3['bound_ms']:.4f} ms ({tf3['bound_by']}; 3 x the "
+                  f"operations at the TF32 peak, "
+                  f"{3 * ops / PEAK_OPS['tf32'] * 1e3:.4f} ms), FMA "
+                  f"{fma['bound_ms']:.4f} ms ({fma['bound_by']}, at the "
+                  f"CUDA cores' f32 peak)", flush=True)
+        del x1, x2, s, got, want, args, faults
         torch.cuda.empty_cache()
+    # the apply with fewer tokens than one 16-token tile per warp, and with
+    # a ragged last tile, both dtypes
+    for dtype, n in itertools.product((torch.float32, torch.bfloat16),
+                                      (1, 40, 4097)):
+        dname = str(dtype).split(".")[1]
+        args = (*(randn((BATCH, n, c), dtype) for _ in range(3)), wp, bp,
+                mats, be, lnp)
+        tol = APPLY_TOL[dname]
+        ratio, err, diff, ok = held(crosspath_apply_rows(*args),
+                                    crosspath_apply_rows_ref(*args), tol)
+        print(f"ffm_apply {dname} B={BATCH} N={n}: "
+              f"{verdict(ratio, err, diff, tol)}", flush=True)
+        check(ok, f"ffm_apply {dname} N={n} error {err}")
+        res["ffm_apply"]["max_abs_err"] = max(res["ffm_apply"]["max_abs_err"],
+                                              err)
     # bf16 grams with fewer tokens than one 16-token tile per warp
     rtol, why = GRAM_RTOL["bfloat16"]
     for n in (1, 40):
@@ -971,6 +1001,20 @@ def drdb_checks(dev):
                 res["drdb_growth"].update(f32_ms=gms,
                                           f32_bound_ms=tf3["bound_ms"],
                                           f32_library_ms=lib)
+                ttf3 = bound(2 * npix * 224 * 64, "tf32x3",
+                             nbytes(x, *rs, wb, bb, out))
+                tlib = cudnn_tail_ms(x, rs, wb, bb)
+                res["drdb_tail"].update(f32_ms=tms,
+                                        f32_bound_ms=ttf3["bound_ms"],
+                                        f32_library_ms=tlib)
+                print(f"drdb_tail {shape}: kernel {tms:.4f} ms; 3xTF32 "
+                      f"bound {ttf3['bound_ms']:.4f} ms ({ttf3['bound_by']};"
+                      f" 3 x the operations at the TF32 peak "
+                      f"{3 * 2 * npix * 224 * 64 / PEAK_OPS['tf32'] * 1e3:.4f}"
+                      f" ms), FMA {tail_bound['bound_ms']:.4f} ms "
+                      f"({tail_bound['bound_by']}); one 1x1 F.conv2d on a "
+                      f"prebuilt concatenation (f32, no relu, no residual) "
+                      f"{tlib:.4f} ms", flush=True)
                 print(f"drdb {shape}: f32 bounds (at the f32 peak) growth "
                       f"{growth_bound['bound_ms']:.4f} ms "
                       f"({growth_bound['bound_by']}), tail "
@@ -996,6 +1040,10 @@ def drdb_checks(dev):
             if timed and dtype == torch.bfloat16:
                 res["drdb_growth"]["library_ms"] = cudnn_growth_ms(
                     x, rs, dconvs)
+                res["drdb_tail"]["library_ms"] = cudnn_tail_ms(x, rs, wb, bb)
+                print(f"drdb_tail {shape}: one 1x1 F.conv2d on a prebuilt "
+                      f"concatenation (bf16, no relu, no residual) "
+                      f"{res['drdb_tail']['library_ms']:.4f} ms", flush=True)
                 floor = floor_bytes(npix)
                 print(f"drdb_growth {shape}: bound "
                       f"{growth_bound['bound_ms']:.4f} ms "
@@ -1024,6 +1072,25 @@ def drdb_checks(dev):
                       f"fails, as it must)", flush=True)
                 check(ratio > 1.0, f"{shape}: the growth check passes a "
                                    "kernel run without small*big")
+                # the tail's: r1..r5 rounded to TF32 (x is its residual
+                # too, so rounding it would show in the sum, not the
+                # product), and its B, the bottleneck, rounded
+                rs = drdb_growth(x, dconvs)
+                want = drdb_tail_ref(x, rs, wb, bb)
+                for name, bad in (
+                        ("small*big product of r1..r5 dropped (r rounded "
+                         "to TF32)", ([tf32_big(r) for r in rs], wb)),
+                        ("big*small product of the bottleneck dropped (wb "
+                         "rounded to TF32)", (rs, tf32_big(wb)))):
+                    ratio, err = worst(drdb_tail(x, bad[0], bad[1], bb),
+                                       want, tols["tail"], x)
+                    print(f"planted fault, {shape}, the tail's {name}: "
+                          f"max_abs_err {err:.3e}, worst error/limit "
+                          f"{ratio:.3f} (the tail check fails, as it must)",
+                          flush=True)
+                    check(ratio > 1.0, f"{shape}: the tail check passes a "
+                                       f"kernel run with its {name}")
+                del rs, want
             if timed and dtype == torch.bfloat16:
                 for name, fn in (("drdb_block", drdb_block),
                                  ("drdb_chain", drdb_chain)):
@@ -1070,6 +1137,20 @@ def floor_bytes(npix: int) -> int:
     """What five bf16 growth launches must move: each conv reads its input
     (64 + 32 t channels) and writes its 32, 2 bytes each (f32: twice)."""
     return npix * (sum(64 + 32 * t for t in range(5)) + 160) * 2
+
+
+def cudnn_tail_ms(x, rs, wb, bb) -> float:
+    """The tail's library yardstick: one 1x1 ``F.conv2d`` (with bias) in
+    x's dtype and channels_last on the concatenation [x, r1..r5] built
+    beforehand (so without the relu and the residual the tail also
+    does). Timed here only; the port never calls it on the card path."""
+    import torch
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    feat = torch.cat([x, *rs], 1).contiguous(memory_format=cl)
+    w = wb.contiguous(memory_format=cl)
+    return time_fn(lambda: F.conv2d(feat, w, bb))
 
 
 def cudnn_growth_ms(x, rs, dconvs) -> float:
@@ -2737,15 +2818,20 @@ def stretch_kernel_checks(dev):
             ms, pms = time_pair(lambda: crosspath_apply_rows(*args),
                                 lambda: crosspath_apply_rows_ref(*args),
                                 iters=3)
-            bnd = bound(7 * 2 * b * n * c * c, kind, nbytes(*args, *got))
+            aops = 7 * 2 * b * n * c * c
+            bnd = bound(aops, "bf16" if kind == "bf16" else "tf32x3",
+                        nbytes(*args, *got))
+            fma = fma_bound(dtype, aops, nbytes(*args, *got))
             print(f"stretch ffm_apply {dname} B={b} N={n} C={c}: "
                   f"{verdict(ratio, err, diff, tol)}; kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']})", flush=True)
+                  f"({bnd['bound_by']}{', 3xTF32' if fma else ''})"
+                  + (f", FMA {fma['fma_bound_ms']:.4f} ms" if fma else ""),
+                  flush=True)
             check(ok, f"stretch ffm_apply {dname} B={b} error {err}")
             rows[f"ffm_apply {dname} B={b} N={n}"] = {
                 "ms": ms, "plain_ms": pms, "library_ms": None,
-                "max_abs_err": err, **bnd}
+                "max_abs_err": err, **bnd, **fma}
             del x1, x2, s, got, want, args
             torch.cuda.empty_cache()
     cl = torch.channels_last
@@ -2773,15 +2859,22 @@ def stretch_kernel_checks(dev):
             gops = 2 * npix * 9 * 32 * (64 + 96 + 128 + 160 + 192)
             gb = bound(gops, "tf32x3" if kind == "f32" else kind,
                        nbytes(x, *rs, *(t for cv in dconvs for t in cv)))
-            tb = bound(2 * npix * 224 * 64, kind, nbytes(x, *rs, wb, bb, out))
+            tops = 2 * npix * 224 * 64
+            tb = bound(tops, "tf32x3" if kind == "f32" else kind,
+                       nbytes(x, *rs, wb, bb, out))
             rows[f"drdb_growth {shape}"] = {
                 "ms": gms, "plain_ms": gpms, "library_ms": None,
                 "max_abs_err": gerr, **gb, **fma_bound(
                     dtype, gops, nbytes(x, *rs, *(t for cv in dconvs
                                                   for t in cv)))}
+            tfma = fma_bound(dtype, tops, nbytes(x, *rs, wb, bb, out))
             rows[f"drdb_tail {shape}"] = {
                 "ms": tms, "plain_ms": tpms, "library_ms": None,
-                "max_abs_err": terr, **tb}
+                "max_abs_err": terr, **tb, **tfma}
+            print(f"stretch drdb_tail {shape}: bound {tb['bound_ms']:.4f} ms"
+                  f" ({tb['bound_by']}{', 3xTF32' if tfma else ''})"
+                  + (f", FMA {tfma['fma_bound_ms']:.4f} ms" if tfma else ""),
+                  flush=True)
             del rs, out
             _, berr, bms, bpms = compare(
                 f"stretch drdb_block {shape} vs drdb_chain",

@@ -20,8 +20,8 @@
 //    M = output pixels (a 16x16 tile), N = 32, K = 9 x cin, the input
 //    tile plus a 2 px halo (20x20 pixels) staged in chunks of 32 channels.
 //  segmif_drdb_tail: out = x + relu(round(x Wb[0:64] + sum_i r_i Wb_i)
-//    + bb) over 128-pixel tiles; x and r_i are read through their pixel
-//    strides (the buffer's slices), K = 224, N = 64.
+//    + bb) over 128-pixel tiles (64 in f32); x and r_i are read through
+//    their pixel strides (the buffer's slices), K = 224, N = 64.
 //
 // The growth conv (growth_kernel, one pipeline for both types; in bf16,
 // GrowthBf16, the serving dtype):
@@ -87,17 +87,20 @@
 // through their pixel strides) in flight while eight warps run the
 // product on mma.sync and write their outputs over the x box in shared
 // memory, which one TMA store writes out. The f32 tail (tail_kernel_f32)
-// stages a 128-pixel tile and the whole bottleneck per block.
+// is the same pipeline on 64-pixel tiles with two groups of consumer warps
+// on alternate tiles, its product on mma.sync m16n8k8 .tf32 as 3xTF32.
 //
 // Precision: the tail's bf16 product runs on mma.sync m16n8k16 (f32
-// accumulation, operands by ldmatrix). Rounding follows the plain chain:
+// accumulation, operands by ldmatrix); its f32 product as 3xTF32 (each
+// product to about 2^-21 of it, each 32-channel chunk's twelve mma into a
+// fresh accumulator added in f32). Rounding follows the plain chain:
 // a conv's f32 accumulator plus bias is rounded to the working type
 // before the relu; the tail rounds its accumulator, then adds the bias,
 // applies relu and adds x, each in the working type
 // (pallas_drdb_tail.py:59-63).
 //
 // Borders: each conv zero-pads at the true image border (TMA's zero
-// fill, or cp.async with a source size of 0 in f32), and outputs outside
+// fill), and outputs outside
 // the image (or past the last pixel, in the tail) are not stored. Any
 // H x W is taken.
 //
@@ -113,6 +116,13 @@
 // two-thirds cap (about 8.2 ms), and the f32 bytes of five launches take
 // about 2.35 ms. Measured on the H100 (700 W): 12.3 ms, against 29.6 ms
 // for the CUDA-core kernel it replaced and 37.2 ms for cuDNN's f32 convs.
+// The f32 tail moves 1,152 bytes per pixel (0.845 ms at [8, 64, 480,
+// 640]) for 28 KFLOP, 3 x that as 3xTF32 (0.43 ms at the TF32 peak):
+// bytes bound it, as in bf16. Each k8 step's splits (8 A and 8 B values
+// per lane for 24 mma.sync a warp) make the issue of instructions its
+// other limit. Measured on the H100 (700 W): 1.17-1.26 ms, against 3.46
+// for the CUDA-core kernel it replaced and 4.32 for cuDNN's f32 1x1 conv
+// on a concatenation built beforehand.
 
 #include "common.cuh"
 
@@ -126,9 +136,8 @@ constexpr int RCH = G * NCONV;       // channels of the growth buffer (160)
 constexpr int KC = 32;               // input channels per staged chunk
 constexpr int TH = 16, TW = 16;      // output tile of a growth block
 constexpr int HALO_H = TH + 4, HALO_W = TW + 4;  // dilation 2, reach 2
-constexpr int kThreads = 256;        // 8 warps
 constexpr int KT = C + RCH;          // tail contraction (224)
-constexpr int TP = 128;              // pixels per tail block
+constexpr int TP = 128;              // pixels per bf16 tail tile
 
 using bf16 = __nv_bfloat16;
 
@@ -673,88 +682,234 @@ __global__ void __launch_bounds__(tl::THREADS, 1)
   if (threadIdx.x == 0) bulk_wait<false>();
 }
 
-// f32 tail on CUDA cores: one block per 128 pixels stages their 224
-// channels (x and r1..r5 side by side, no concat in device memory) and
-// the whole bottleneck [224][64] (rows padded by one granule), then each
-// thread computes 4 pixels x 8 channels.
-namespace tf {
-constexpr int ARS = KT + 4;                   // [128 pixels][ARS]
-constexpr int GPP = KT / 4;                   // granules per pixel
-constexpr int WRS = C + 4;                    // [224][WRS]
-constexpr int A = TP * ARS;
-constexpr size_t SMEM = (A + KT * WRS) * sizeof(float);
+// f32 tail (what compute_dtype float32 runs): tail_kernel_bf16's pipeline
+// on mma.sync m16n8k8 .tf32 as 3xTF32 (common.cuh, split_tf32).
+//  - One block per SM walks 64-pixel tiles (an f32 128-pixel stage, 112 KB,
+//    leaves no room for a ring beside the bottleneck). A producer thread
+//    keeps a 3-stage ring full with TMA: x's 64 channels as two [64 px][32
+//    ch] boxes, each r_i's 32 as one, all through their pixel strides under
+//    the 128-byte swizzle (a box row is 128 bytes).
+//  - Two groups of four consumer warps take alternate tiles, so one
+//    group's loads and epilogue overlap the other's products. A warp owns
+//    32 pixels (two m16 tiles) x 32 outputs: per k8 step it reads and
+//    splits its A fragments (4 floats a tile) from the swizzled boxes and
+//    each B fragment (2 floats) once for both tiles, from the bottleneck,
+//    loaded raw once per block as [n][k] rows whose 16-byte granule c sits
+//    at c ^ (n % 8); both reads are free of bank conflicts. (16 pixels x
+//    64 outputs a warp ran 1.75 ms on the H100; 16 x 32 with 16 warps, at
+//    ptxas's 96 registers for 544 threads, 1.36-1.39; this, 1.18.)
+//  - Three products per k8 step, small*big and big*small first; each
+//    32-channel chunk's twelve into a fresh accumulator added to the f32
+//    sum (the tensor cores add with truncation, see the growth above), the
+//    first chunk's into the sum itself. A fresh accumulator per 16
+//    channels ran 15-20 % slower: its zeroing and adding cost issue slots.
+//  - Epilogue in f32 (bias, relu, residual) over the x boxes, once the
+//    warps sharing the pixels are done reading them; two TMA stores
+//    (clipped at the last pixel) write the boxes out before the stage is
+//    freed.
+namespace tf {                             // tiles of TP / 2 = 64 pixels
+constexpr int TPX = TP / 2;
+constexpr int BOX = TPX * 32 * 4;          // one [64 px][32 ch] f32 box
+constexpr int NBOX = C / 32 + NCONV;       // x's two boxes, r1..r5
+constexpr int STAGE = NBOX * BOX;          // 57,344
+constexpr int STAGES = 3;
+constexpr int MT = 2;                      // m16 tiles of a warp
+constexpr int NSPLIT = 2;                  // warps sharing a pixel's outputs
+constexpr int NTW = 8 / NSPLIT;            // n8 tiles of a warp
+constexpr int MW = TPX / 16 / MT;          // warps along a tile's pixels
+constexpr int GWARPS = MW * NSPLIT;        // warps of a consumer group
+constexpr int GROUPS = 2;
+constexpr int FOLD = 4;                    // k8 steps per fresh accumulator
+constexpr int WARPS = GWARPS * GROUPS;
+constexpr int THREADS = 32 * WARPS + 32;   // + one producer warp
+constexpr int WROW = KT * 4;               // a bottleneck row, bytes
+constexpr int W_OFF = STAGES * STAGE;
+constexpr int BAR_OFF = W_OFF + C * WROW;
+constexpr size_t SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;  // + alignment
+static_assert(BOX % 1024 == 0 && SMEM <= 227 * 1024 && (KT / 8) % FOLD == 0,
+              "f32 tail layout");
 }  // namespace tf
 
-struct TailArgs {
-  const float* x;
-  const float* r[NCONV];
-  const float* wb;    // [224][64]
-  const float* bb;    // [64]
-  float* out;         // [npix][64]
-  int64_t x_ps, r_ps, npix;
-};
+__device__ __forceinline__ float lds_f32(const uint8_t* p) {
+  return *reinterpret_cast<const float*>(p);
+}
 
-// grid ceil(npix / 128)
-__global__ void __launch_bounds__(kThreads) tail_kernel_f32(TailArgs args) {
-  extern __shared__ float4 smem4[];
-  float* sa = reinterpret_cast<float*>(smem4);
-  float* sw = sa + tf::A;
-  const int64_t p0 = int64_t(blockIdx.x) * TP;
-
-  for (int i = threadIdx.x; i < TP * tf::GPP; i += kThreads) {
-    const int p = i / tf::GPP, e = (i % tf::GPP) * 4;
-    const int64_t pix = p0 + p;
-    const bool ok = pix < args.npix;
-    const float* g;
-    if (e < C) {
-      g = args.x + (ok ? pix * args.x_ps + e : 0);
-    } else {
-      const int k = e - C;
-      g = args.r[k / G] + (ok ? pix * args.r_ps + k % G : 0);
+// out = x + relu(acc + bb) over tiles t = blockIdx.x, blockIdx.x +
+// gridDim.x, ... (grid: at most one block per SM). maps: x [npix][64] (two
+// 32-channel boxes) and r1..r5 [npix][32] at their pixel strides (loads),
+// out [npix][64] (store); wb: f32 [64][224]; bb: f32 [64].
+__global__ void __launch_bounds__(tf::THREADS, 1)
+    tail_kernel_f32(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap r1map,
+                    const __grid_constant__ CUtensorMap r2map,
+                    const __grid_constant__ CUtensorMap r3map,
+                    const __grid_constant__ CUtensorMap r4map,
+                    const __grid_constant__ CUtensorMap r5map,
+                    const __grid_constant__ CUtensorMap omap,
+                    const float* __restrict__ wb,
+                    const float* __restrict__ bb, int64_t npix) {
+  using namespace tf;
+  extern __shared__ __align__(128) uint8_t smem_b[];
+  const uint32_t raw = smem_u32(smem_b);
+  const uint32_t s0 = (raw + 1023) & ~1023u;  // swizzle atoms on 1 KB
+  uint8_t* base = smem_b + (s0 - raw);
+  const uint32_t full = s0 + BAR_OFF;         // full[s]: stage s landed
+  const uint32_t empty = full + 8 * STAGES;   // empty[s]: stage s stored
+  const int ntiles = int((npix + TPX - 1) / TPX);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
     }
-    cp_async16(sa + p * tf::ARS + e, g, ok);
+    mbar_init_fence();
   }
-  constexpr int WG = C / 4;
-  for (int i = threadIdx.x; i < KT * WG; i += kThreads) {
-    const int r = i / WG, e = (i % WG) * 4;
-    cp_async16(sw + r * tf::WRS + e, args.wb + r * C + e, true);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  const int tx = threadIdx.x & 7, tp = threadIdx.x >> 3;
-  float acc[4][8];
+  if (warp == WARPS) {
+    // producer: one thread keeps the ring full, the block's i-th tile in
+    // stage i % STAGES
+    if (lane != 0) return;
+    const CUtensorMap* rmaps[NCONV] = {&r1map, &r2map, &r3map, &r4map,
+                                       &r5map};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      const uint32_t dst = s0 + stage * STAGE, bar = full + 8 * stage;
+      mbar_expect_tx(bar, STAGE);
+      tma_load_2d(dst, &xmap, 0, tile * TPX, bar);
+      tma_load_2d(dst + BOX, &xmap, 32, tile * TPX, bar);
+      for (int i = 0; i < NCONV; ++i)
+        tma_load_2d(dst + (2 + i) * BOX, rmaps[i], 0, tile * TPX, bar);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: the bottleneck once, raw, granule c of row n at c ^ (n % 8)
+  constexpr int WG = KT / 4;  // 16-byte granules per row
+  for (int i = threadIdx.x; i < C * WG; i += 32 * WARPS) {
+    const int n = i / WG, c = i % WG;
+    cp_async16(base + W_OFF + n * WROW + ((c ^ (n & 7)) << 4),
+               wb + n * KT + c * 4, true);
+  }
+  cp_async_commit();
+  // lane (g, t4) of warp lw of a group holds, of each of its m16 tiles
+  // m = MT mw + i, pixels 16 m + g and + 8 (both at row % 8 = g in the
+  // swizzle) and, of its n8 tile nt (of the whole 8: j = NTW nh + nt),
+  // outputs 8 j + 2 t4, + 1; as B it reads row n = 8 j + g
+  const int grp = warp / GWARPS, lw = warp % GWARPS;
+  const int mw = lw % MW, nh = lw / MW;
+  const int g = lane >> 2, t4 = lane & 3;
+  float bv[2 * NTW];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int nt = 0; nt < NTW; ++nt) {
+    bv[2 * nt] = bb[(NTW * nh + nt) * 8 + 2 * t4];
+    bv[2 * nt + 1] = bb[(NTW * nh + nt) * 8 + 2 * t4 + 1];
+  }
+  cp_async_wait<0>();
+  bar_sync(1, 32 * WARPS);
+
+  const int p0 = 16 * MT * mw + g;
+  const uint8_t* wrow = base + W_OFF + (8 * NTW * nh + g) * WROW + 4 * t4;
+  for (int i = grp; blockIdx.x + i * gridDim.x < ntiles; i += GROUPS) {
+    const int tile = blockIdx.x + i * gridDim.x, stage = i % STAGES;
+    mbar_wait(full + 8 * stage, (i / STAGES) & 1);
+    uint8_t* const box = base + stage * STAGE;
+    const uint8_t* arow = box + p0 * 128 + 4 * t4;
+    // chunk kc, k8 steps FOLD kc ... FOLD kc + FOLD - 1, into sum (zeroed
+    // here): the first chunk's into acc itself, the others' into a fresh
+    // part added to acc
+    auto chunk = [&](int kc, float(&sum)[MT][NTW][4]) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[j][n] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < KT; ++k) {
-    const float* wr = sw + k * tf::WRS + 8 * tx;
-    const float4 w0 = *reinterpret_cast<const float4*>(wr);
-    const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
-    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = sa[(tp + 32 * j) * tf::ARS + k];
+        for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) acc[j][n] = fmaf(a, wv[n], acc[j][n]);
+          for (int c = 0; c < 4; ++c) sum[m][nt][c] = 0.f;
+#pragma unroll
+      for (int h = 0; h < FOLD; ++h) {
+        // k8 step s: channels 8 s + t4 (a0, a1) and + 4 (a2, a3), in box
+        // s / 4 (x: 0, 1; r_i: 2 + i) at granules 2 (s % 4) and + 1
+        const int s = FOLD * kc + h, c0 = 2 * (s % 4);
+        uint32_t abig[MT][4], asmall[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const uint8_t* ab = arow + (s / 4) * BOX + m * 2048;
+          split_tf32(lds_f32(ab + ((c0 ^ g) << 4)), abig[m][0],
+                     asmall[m][0]);
+          split_tf32(lds_f32(ab + 1024 + ((c0 ^ g) << 4)), abig[m][1],
+                     asmall[m][1]);
+          split_tf32(lds_f32(ab + (((c0 + 1) ^ g) << 4)), abig[m][2],
+                     asmall[m][2]);
+          split_tf32(lds_f32(ab + 1024 + (((c0 + 1) ^ g) << 4)), abig[m][3],
+                     asmall[m][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          // b0 = W[n][8 s + t4], b1 = W[n][8 s + t4 + 4]: granules 2 s,
+          // 2 s + 1 of row n; split once for the warp's m16 tiles
+          const uint8_t* br = wrow + nt * 8 * WROW;
+          uint32_t b0, b0s, b1, b1s;
+          split_tf32(lds_f32(br + (((2 * s) ^ g) << 4)), b0, b0s);
+          split_tf32(lds_f32(br + (((2 * s + 1) ^ g) << 4)), b1, b1s);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_tf32(sum[m][nt], asmall[m], b0, b1);
+            mma_tf32(sum[m][nt], abig[m], b0s, b1s);
+            mma_tf32(sum[m][nt], abig[m], b0, b1);
+          }
+        }
+      }
+    };
+    float acc[MT][NTW][4];
+    chunk(0, acc);
+#pragma unroll
+    for (int kc = 1; kc < KT / 8 / FOLD; ++kc) {
+      float part[MT][NTW][4];
+      chunk(kc, part);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][nt][c] += part[m][nt][c];
+    }
+    // epilogue into the x boxes: pixel p's channels n = 8 j + 2 t4, + 1
+    // (j = NTW nh + nt), in box j / 4 at granule 2 (j % 4) + t4 / 2, once
+    // the other warps of the pixels are done reading x
+    bar_sync(2 + grp, 32 * GWARPS);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint8_t* row =
+            box + (p0 + 16 * m + 8 * half) * 128 + 8 * (t4 & 1);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const int j = NTW * nh + nt;
+          auto* xo = reinterpret_cast<float2*>(
+              row + (j / 4) * BOX + (((2 * (j % 4) + (t4 >> 1)) ^ g) << 4));
+          const float2 xv = *xo;
+          *xo = make_float2(
+              xv.x + fmaxf(acc[m][nt][2 * half] + bv[2 * nt], 0.f),
+              xv.y + fmaxf(acc[m][nt][2 * half + 1] + bv[2 * nt + 1], 0.f));
+        }
+      }
+    fence_async_smem();
+    bar_sync(2 + grp, 32 * GWARPS);  // the group has read the stage, written
+    if (lw == 0 && lane == 0) {
+      tma_store_2d(&omap, s0 + stage * STAGE, 0, tile * TPX);
+      tma_store_2d(&omap, s0 + stage * STAGE + BOX, 32, tile * TPX);
+      bulk_wait<true>();  // the stores have read the boxes: free the stage
+      mbar_arrive(empty + 8 * stage);
     }
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int p = tp + 32 * j;
-    if (p0 + p >= args.npix) continue;
-    const float* xs = sa + p * tf::ARS;
-    float v[8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      v[n] = xs[8 * tx + n] + fmaxf(acc[j][n] + args.bb[8 * tx + n], 0.f);
-    float* o = args.out + (p0 + p) * C + 8 * tx;
-    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
+  if (lw == 0 && lane == 0) bulk_wait<false>();
 }
 
 // A 4-D TMA map over a channels_last tensor [b][h][wd][channels] of f32
@@ -809,30 +964,42 @@ int growth(const void* x, int64_t x_ps, void* rs, const void* w,
   return 0;
 }
 
-// A 2-D TMA map over `channels` bf16 channels of npix pixels at pixel
-// stride ps (elements), boxes of all the channels x 128 pixels under the
+// A 2-D TMA map over `channels` channels of npix pixels at pixel stride ps
+// (elements). bf16: boxes of all the channels x 128 pixels under the
 // swizzle whose span is the box's row (128 bytes for 64 channels, 64 for
-// 32).
-bool pixel_map(CUtensorMap* map, const void* base, int64_t ps, int channels,
-               int64_t npix) {
+// 32). f32: boxes of 32 channels (128 bytes) x 64 pixels, 128-byte swizzle.
+bool pixel_map(CUtensorMap* map, bool f32, const void* base, int64_t ps,
+               int channels, int64_t npix) {
   const cuuint64_t dims[2] = {cuuint64_t(channels), cuuint64_t(npix)};
-  const cuuint64_t strides[1] = {cuuint64_t(ps) * sizeof(bf16)};
-  const cuuint32_t box[2] = {cuuint32_t(channels), TP};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
-                    strides, box,
-                    channels == C ? CU_TENSOR_MAP_SWIZZLE_128B
-                                  : CU_TENSOR_MAP_SWIZZLE_64B);
+  const cuuint64_t strides[1] = {cuuint64_t(ps) * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {cuuint32_t(f32 ? 32 : channels),
+                             cuuint32_t(f32 ? tf::TPX : TP)};
+  return encode_map(map,
+                    f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    2, base, dims, strides, box,
+                    f32 || channels == C ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The maps of one tail launch (x, r1..r5, out) in either type.
+bool tail_maps(bool f32, const void* x, int64_t x_ps,
+               const void* const r[NCONV], int64_t r_ps, void* out,
+               int64_t npix, CUtensorMap* xmap, CUtensorMap* rmaps,
+               CUtensorMap* omap) {
+  bool ok = pixel_map(xmap, f32, x, x_ps, C, npix) &&
+            pixel_map(omap, f32, out, C, C, npix);
+  for (int i = 0; i < NCONV; ++i)
+    ok = ok && pixel_map(&rmaps[i], f32, r[i], r_ps, G, npix);
+  return ok;
 }
 
 int tail_bf16(const void* x, int64_t x_ps, const void* const r[NCONV],
               int64_t r_ps, const void* wb, const float* bb, void* out,
               int64_t npix, cudaStream_t stream) {
   CUtensorMap xmap, rmaps[NCONV], omap;
-  bool ok = pixel_map(&xmap, x, x_ps, C, npix) &&
-            pixel_map(&omap, out, C, C, npix);
-  for (int i = 0; i < NCONV; ++i)
-    ok = ok && pixel_map(&rmaps[i], r[i], r_ps, G, npix);
-  if (!ok) return int(cudaErrorInvalidValue);
+  if (!tail_maps(false, x, x_ps, r, r_ps, out, npix, &xmap, rmaps, &omap))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(tail_kernel_bf16, tl::SMEM);
   if (err != cudaSuccess) return int(err);
   const int64_t tiles = (npix + TP - 1) / TP;
@@ -846,19 +1013,16 @@ int tail_bf16(const void* x, int64_t x_ps, const void* const r[NCONV],
 int tail_f32(const void* x, int64_t x_ps, const void* const r[NCONV],
              int64_t r_ps, const void* wb, const float* bb, void* out,
              int64_t npix, cudaStream_t stream) {
+  CUtensorMap xmap, rmaps[NCONV], omap;
+  if (!tail_maps(true, x, x_ps, r, r_ps, out, npix, &xmap, rmaps, &omap))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(tail_kernel_f32, tf::SMEM);
   if (err != cudaSuccess) return int(err);
-  TailArgs a;
-  a.x = static_cast<const float*>(x);
-  for (int i = 0; i < NCONV; ++i) a.r[i] = static_cast<const float*>(r[i]);
-  a.wb = static_cast<const float*>(wb);
-  a.bb = bb;
-  a.out = static_cast<float*>(out);
-  a.x_ps = x_ps;
-  a.r_ps = r_ps;
-  a.npix = npix;
-  const int64_t blocks = (npix + TP - 1) / TP;
-  tail_kernel_f32<<<unsigned(blocks), kThreads, tf::SMEM, stream>>>(a);
+  const int64_t tiles = (npix + tf::TPX - 1) / tf::TPX;
+  const int grid = int(tiles < sm_count() ? tiles : sm_count());
+  tail_kernel_f32<<<grid, tf::THREADS, tf::SMEM, stream>>>(
+      xmap, rmaps[0], rmaps[1], rmaps[2], rmaps[3], rmaps[4], omap,
+      static_cast<const float*>(wb), bb, npix);
   return int(cudaGetLastError());
 }
 
@@ -889,9 +1053,9 @@ int segmif_drdb_growth(const void* x, int64_t x_ps, void* rs, const void* w,
 }
 
 // The tail. x: [npix][64] at pixel stride x_ps; r1..r5: [npix][32] at
-// pixel stride r_ps; wb: the bottleneck packed [64][224] (bf16) or
-// [224][64] (f32); bb: f32 [64]; out: [npix][64] contiguous. bf16 needs
-// every pointer 16-byte aligned and x_ps, r_ps multiples of 8 (TMA).
+// pixel stride r_ps; wb: the bottleneck packed [64][224] ([n][k]) in the
+// input type; bb: f32 [64]; out: [npix][64] contiguous. Needs every
+// pointer 16-byte aligned and x_ps, r_ps multiples of 16 bytes (TMA).
 int segmif_drdb_tail(const void* x, int64_t x_ps, const void* r1,
                      const void* r2, const void* r3, const void* r4,
                      const void* r5, int64_t r_ps, const void* wb,

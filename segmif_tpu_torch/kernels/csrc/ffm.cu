@@ -26,16 +26,20 @@
 // read once per pass and the two outputs written once (about 5 x B x N x
 // 64 elements); the arithmetic is 3 x 2 x 64 x 64 FMA per token in pass A
 // and 7 x 64 x 64 in pass B: below the bf16 ridge, so on tensor cores the
-// bytes are the bound. On CUDA cores in f32 the arithmetic is.
+// bytes are the bound. On CUDA cores in f32 (pass A) the arithmetic is;
+// f32 pass B as 3xTF32 (three TF32 products per f32 product, 0.86 ms at
+// the TF32 peak at [8, 307200, 64]) is bound by its bytes again, 1,280 a
+// token (0.94 ms), and in practice by the issue of instructions: per k8
+// step and n8 tile one 8-byte B read, two splits and three mma.sync.
 //
-// Passes A and B in f32: 256 threads per block, token tiles of 64; a
-// thread owns a 4x4 output micro-tile (4 tokens x 4 channels, or 4x4 of a
-// gram) so each shared-memory read feeds 4 FMAs. Tiles and weights are
-// staged in shared memory as f32 (rows padded to 68 floats). The TPU
-// kernel carries the gram accumulator across a sequential grid; GPU blocks
-// run in parallel and in no order, so pass A writes one partial gram per
-// (image, token chunk) and a second kernel sums the partials in chunk
-// order. No atomics: results are the same from run to run.
+// Pass A in f32: 256 threads per block, token tiles of 64; a thread owns
+// a 4x4 micro-tile of a projection or of a gram, so each shared-memory
+// read feeds 4 FMAs. Tiles and weights are staged in shared memory as f32
+// (rows padded to 68 floats). The TPU kernel carries the gram accumulator
+// across a sequential grid; GPU blocks run in parallel and in no order,
+// so pass A writes one partial gram per (image, token chunk) and a second
+// kernel sums the partials in chunk order. No atomics: results are the
+// same from run to run.
 //
 // Pass A in bf16 (ffm_grams_mma_kernel): both products on tensor cores
 // (mma.sync m16n8k16, f32 accumulation), one projection per block (grid
@@ -64,6 +68,28 @@
 //    E[t^2] - mu^2; a row's 64 channels lie on the four lanes of a quad, so
 //    two shuffles reduce it. The bf16 rows are staged in the consumed input
 //    tile and stored 16 bytes a lane.
+//
+// Pass B in f32 (ffm_apply_tf32_kernel; what compute_dtype float32 runs):
+// the bf16 kernel's structure on mma.sync m16n8k8 .tf32 as 3xTF32
+// (common.cuh, split_tf32), each f32 product to about 2^-21 of it.
+//  - Grid, warps and chunks as in bf16; the seven matrices raw f32 (112
+//    KB, [n][k] with a granule swizzle), each value split as it is read.
+//  - Per warp a three-slot cp.async ring (s, x1, x2), each slot refilled
+//    with the next tile's input once this tile is done with it.
+//  - Chaining: an m16n8k8 tf32 A fragment holds columns t and t + 4 where
+//    the accumulator holds 2t and 2t + 1. A product sums over its k in any
+//    order, so k = t stands for column 2t and k = t + 4 for 2t + 1, in A's
+//    fragment and in the matrix's rows alike (as sr_attention.cu's P V):
+//    y3, u1 and u2 feed their context products straight from the
+//    accumulators, and each B fragment is one 8-byte read.
+//  - Each product's 24 mma per n8 tile (8 k8 steps, 3 each) go into a
+//    fresh accumulator added to the running f32 sum (the tensor cores add
+//    with truncation, so the two context products of an output are not
+//    chained on one; a fresh accumulator per 2 k8 steps ran 1.34x as long
+//    on the H100, its zeroing and adding costing issue slots). The
+//    residual is read from the staged tile at the accumulator's places;
+//    LayerNorm as in bf16; the rows are written over the consumed tile and
+//    stored 16 bytes a lane.
 
 #include "common.cuh"
 
@@ -201,118 +227,6 @@ __global__ void ffm_grams_reduce_kernel(const float* __restrict__ partial,
   float acc = 0.f;
   for (int c = 0; c < n_chunks; ++c) acc += p[int64_t(c) * 3 * C * C];
   grams[int64_t(b) * 3 * C * C + e] = acc;
-}
-
-// ---------------------------------------------------------------- pass B
-
-// o = a @ m0 + c @ m1 + be for this thread's micro-tile, then residual x
-// and LayerNorm, written to out rows [n0, n0 + valid).
-__device__ __forceinline__ void apply_branch(
-    const float* a, const float* c, const float* m0, const float* m1,
-    const float* be, const float* gamma, const float* beta, const float* x,
-    float* __restrict__ out, int valid) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < C; ++kk) {
-    const float4 w0 = *reinterpret_cast<const float4*>(m0 + kk * C + 4 * tx);
-    const float4 w1 = *reinterpret_cast<const float4*>(m1 + kk * C + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float av = a[(4 * ty + i) * RS + kk];
-      const float cv = c[(4 * ty + i) * RS + kk];
-      acc[i][0] = fmaf(cv, w1.x, fmaf(av, w0.x, acc[i][0]));
-      acc[i][1] = fmaf(cv, w1.y, fmaf(av, w0.y, acc[i][1]));
-      acc[i][2] = fmaf(cv, w1.z, fmaf(av, w0.z, acc[i][2]));
-      acc[i][3] = fmaf(cv, w1.w, fmaf(av, w0.w, acc[i][3]));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
-    float t[4];
-    float sum = 0.f, sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      t[j] = x[row * RS + 4 * tx + j] + (acc[i][j] + be[4 * tx + j]);
-      sum += t[j];
-      sq += t[j] * t[j];
-    }
-    // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    const float mu = sum * (1.f / C);
-    const float var = fmaxf(sq * (1.f / C) - mu * mu, 0.f);
-    const float rstd = rsqrtf(var + 1e-5f);
-    if (row < valid) {
-      float* op = out + int64_t(row) * C + 4 * tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        op[j] = (t[j] - mu) * rstd * gamma[4 * tx + j] + beta[4 * tx + j];
-    }
-  }
-}
-
-// f32 only. grid (n_chunks, B). w: [3][C][C] (the y3, u1, u2 column
-// halves), bias: [3][C], mats: [B][4][C][C], be: [2][C], lnp: [2][2][C].
-__global__ void __launch_bounds__(kThreads)
-    ffm_apply_kernel(const float* __restrict__ x1,
-                     const float* __restrict__ x2,
-                     const float* __restrict__ s, const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ mats,
-                     const float* __restrict__ be,
-                     const float* __restrict__ lnp, float* __restrict__ o1,
-                     float* __restrict__ o2, int n, int chunk) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3][C][C]
-  float* ms = ws + 3 * C * C;                   // [4][C][C]
-  float* bs = ms + 4 * C * C;                   // [3][C]
-  float* bes = bs + 3 * C;                      // [2][C]
-  float* ls = bes + 2 * C;                      // [2][2][C]
-  float* xs = ls + 4 * C;                       // [TILE][RS] input tile
-  float* ys = xs + TILE * RS;                   // [TILE][RS] y3
-  float* us = ys + TILE * RS;                   // [TILE][RS] u1 / u2
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < 3 * C * C; i += kThreads) ws[i] = w[i];
-  for (int i = threadIdx.x; i < 4 * C * C; i += kThreads)
-    ms[i] = mats[int64_t(b) * 4 * C * C + i];
-  for (int i = threadIdx.x; i < 3 * C; i += kThreads) bs[i] = bias[i];
-  for (int i = threadIdx.x; i < 2 * C; i += kThreads) bes[i] = be[i];
-  for (int i = threadIdx.x; i < 4 * C; i += kThreads) ls[i] = lnp[i];
-
-  const int64_t img = int64_t(b) * n * C;
-  const int n_begin = blockIdx.x * chunk;
-  const int n_end = min(n, n_begin + chunk);
-  for (int n0 = n_begin; n0 < n_end; n0 += TILE) {
-    const int valid = n_end - n0;
-    load_tile(s + img, n0, n_end, xs);
-    __syncthreads();
-    project(xs, ws, bs, ys, valid);  // y3
-    __syncthreads();
-    load_tile(x1 + img, n0, n_end, xs);
-    __syncthreads();
-    project(xs, ws + C * C, bs + C, us, valid);  // u1
-    __syncthreads();
-    apply_branch(ys, us, ms, ms + C * C, bes, ls, ls + C, xs,
-                 o1 + img + int64_t(n0) * C, valid);
-    __syncthreads();
-    load_tile(x2 + img, n0, n_end, xs);
-    __syncthreads();
-    project(xs, ws + 2 * C * C, bs + 2 * C, us, valid);  // u2
-    __syncthreads();
-    apply_branch(ys, us, ms + 2 * C * C, ms + 3 * C * C, bes + C,
-                 ls + 2 * C, ls + 3 * C, xs, o2 + img + int64_t(n0) * C,
-                 valid);
-    __syncthreads();
-  }
 }
 
 // ------------------------------------------------ pass B, bf16, mma.sync
@@ -524,6 +438,277 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
+// ------------------------------------------------ pass B, f32, 3xTF32
+
+constexpr int FMAT = C * C;          // one [64][64] f32 matrix (floats)
+constexpr int FTILE = WT * C;        // one 16-token f32 tile (floats)
+constexpr size_t kApplyTf32Smem =
+    sizeof(float) * (7 * FMAT + kMmaWarps * 3 * FTILE + 9 * C);
+
+// Float index of element (row, col) of a [rows][64] f32 array whose 16-byte
+// granule c of row r sits at c ^ 2 (r % 4): the 8-byte fragment reads of
+// four rows (a half-warp) then fall in 32 distinct banks.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * C + ((((col >> 2) ^ (2 * (row & 3))) << 2) | (col & 3));
+}
+
+// acc[8][4] += A (16 x 64) @ M, M a [k][n] matrix staged as [n][k] (swz),
+// A given per k8 step j by afrag(j, a) as the four floats a0 = A[g][8j +
+// 2t], a1 = A[g + 8][8j + 2t], a2 = A[g][8j + 2t + 1], a3 = A[g + 8][8j +
+// 2t + 1]: mma k = t stands for column 8j + 2t and k = t + 4 for 8j + 2t +
+// 1, in A's fragment and in M's rows alike (b0 = M[8j + 2t][n], b1 =
+// M[8j + 2t + 1][n], one 8-byte read). 3xTF32, both operands split in
+// registers (A's eight steps once, each B value as it is read); each n8
+// tile's 24 products into a fresh accumulator added to acc in f32.
+template <class AF>
+__device__ __forceinline__ void mma3_64(float acc[8][4], AF afrag,
+                                        const float* m) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  uint32_t ab[8][4], as[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float a[4];
+    afrag(j, a);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) split_tf32(a[f], ab[j][f], as[j][f]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bv = *reinterpret_cast<const float2*>(
+          m + swz(8 * nt + g, 8 * j + 2 * t4));
+      uint32_t b0, b0s, b1, b1s;
+      split_tf32(bv.x, b0, b0s);
+      split_tf32(bv.y, b1, b1s);
+      mma_tf32(part, as[j], b0, b1);
+      mma_tf32(part, ab[j], b0s, b1s);
+      mma_tf32(part, ab[j], b0, b1);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] += part[c];
+  }
+}
+
+// y = relu(tile @ w + bias) for this warp's 16 tokens, in the accumulator
+// layout (y[nt][c]: row g + 8 (c / 2), column 8 nt + 2 t + c % 2), which
+// is the A fragment of the next product as mma3_64 reads it.
+__device__ __forceinline__ void project_tf32(float y[8][4], const float* tile,
+                                             const float* w,
+                                             const float* bias) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+  mma3_64(acc, [&](int j, float a[4]) {
+    const float2 lo = *reinterpret_cast<const float2*>(
+        tile + swz(g, 8 * j + 2 * t4));
+    const float2 hi = *reinterpret_cast<const float2*>(
+        tile + swz(g + 8, 8 * j + 2 * t4));
+    a[0] = lo.x;
+    a[1] = hi.x;
+    a[2] = lo.y;
+    a[3] = hi.y;
+  }, w);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt +
+                                                       2 * t4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      y[nt][c] = fmaxf(acc[nt][c] + ((c & 1) ? bb.y : bb.x), 0.f);
+  }
+}
+
+// acc += y @ m, y in the accumulator layout (project_tf32's output)
+__device__ __forceinline__ void chain_tf32(float acc[8][4],
+                                           const float y[8][4],
+                                           const float* m) {
+  mma3_64(acc, [&](int j, float a[4]) {
+    a[0] = y[j][0];
+    a[1] = y[j][2];
+    a[2] = y[j][1];
+    a[3] = y[j][3];
+  }, m);
+}
+
+// out rows = LayerNorm(x + (acc + be)) * gamma + beta for this warp's 16
+// tokens: the residual x read from the staged input tile at the
+// accumulator's places, the rows written over it, then stored to out rows
+// [row0, row0 + 16) below n_end, 16 bytes a lane. be, gamma, beta: [C].
+__device__ __forceinline__ void ln_store_tf32(const float acc[8][4],
+                                              float* tile, const float* be,
+                                              const float* gamma,
+                                              const float* beta,
+                                              float* __restrict__ out,
+                                              int row0, int n_end) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float t[8][4], sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int col = 8 * nt + 2 * t4;
+      const float2 xv = *reinterpret_cast<const float2*>(
+          tile + swz(g + 8 * r, col));
+      t[nt][2 * r] = xv.x + (acc[nt][2 * r] + be[col]);
+      t[nt][2 * r + 1] = xv.y + (acc[nt][2 * r + 1] + be[col + 1]);
+#pragma unroll
+      for (int c = 2 * r; c < 2 * r + 2; ++c) {
+        sum[r] += t[nt][c];
+        sq[r] += t[nt][c] * t[nt][c];
+      }
+    }
+  float mu[2], rstd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+      sq[r] += __shfl_xor_sync(0xffffffffu, sq[r], o);
+    }
+    mu[r] = sum[r] * (1.f / C);
+    const float var = fmaxf(sq[r] * (1.f / C) - mu[r] * mu[r], 0.f);
+    rstd[r] = rsqrtf(var + 1e-5f);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int col = 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(tile + swz(g + 8 * r, col)) = make_float2(
+          (t[nt][2 * r] - mu[r]) * rstd[r] * gamma[col] + beta[col],
+          (t[nt][2 * r + 1] - mu[r]) * rstd[r] * gamma[col + 1] +
+              beta[col + 1]);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < WT * 16 / 32; ++it) {
+    const int r = 2 * it + (lane >> 4), c = lane & 15;
+    if (row0 + r < n_end)
+      *reinterpret_cast<float4*>(out + int64_t(row0 + r) * C + 4 * c) =
+          *reinterpret_cast<const float4*>(tile + swz(r, 4 * c));
+  }
+}
+
+// grid (n_chunks, B), 8 warps. w: f32 [3][C][C] [k][n] (y3, u1, u2
+// halves); bias [3][C]; mats [B][4][C][C] [k][n]; be [2][C]; lnp
+// [2][2][C]; all f32.
+//  - The seven matrices are staged once per block as [n][k] (swz), 112
+//    KB: split into big and small halves they would not fit, so every B
+//    value is split as it is read (mma3_64).
+//  - Each warp walks its own 16-token tiles through a private ring of
+//    three slots (s, x1, x2; 12 KB a warp): a slot is refilled with the
+//    next tile's input as soon as this tile is done with it (s after y3,
+//    x_i after output i is stored), so loads run under two thirds of a
+//    tile's products, with no block barrier in the token loop.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    ffm_apply_tf32_kernel(const float* __restrict__ x1,
+                          const float* __restrict__ x2,
+                          const float* __restrict__ s,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ mats,
+                          const float* __restrict__ be,
+                          const float* __restrict__ lnp,
+                          float* __restrict__ o1, float* __restrict__ o2,
+                          int n, int chunk) {
+  extern __shared__ float4 smem_f4[];
+  float* ms = reinterpret_cast<float*>(smem_f4);  // [7][C][C], [n][k]
+  float* rings = ms + 7 * FMAT;                   // [warps][3][WT][C]
+  float* prm = rings + kMmaWarps * 3 * FTILE;     // bias, be, lnp
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t img = int64_t(b) * n * C;
+  const int n_begin = blockIdx.x * chunk;
+  const int n_end = min(n, n_begin + chunk);
+  float* ring = rings + warp * 3 * FTILE;
+  const float* src[3] = {s + img, x1 + img, x2 + img};
+  // input q (s, x1, x2) of this warp's tile at row0 into slot q; rows past
+  // n_end are zero-filled
+  auto load = [&](int q, int row0) {
+#pragma unroll
+    for (int it = 0; it < WT * 16 / 32; ++it) {
+      const int r = 2 * it + (lane >> 4), c = lane & 15;
+      const bool ok = row0 + r < n_end;
+      cp_async16(ring + q * FTILE + swz(r, 4 * c),
+                 src[q] + int64_t(ok ? row0 + r : 0) * C + 4 * c, ok);
+    }
+  };
+  constexpr int STEP = WT * kMmaWarps;
+  int row0 = n_begin + WT * warp;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    if (row0 < n_end) load(q, row0);
+    cp_async_commit();
+  }
+  // the matrices transposed into [n][k]: lanes walk k, so that their
+  // shared-memory writes fall in distinct banks
+  for (int i = threadIdx.x; i < 7 * FMAT / 4; i += kMmaThreads) {
+    const int mtx = i / (FMAT / 4), n4 = (i / C) % (C / 4), k = i % C;
+    const float* m = mtx < 3 ? w + mtx * FMAT
+                             : mats + (int64_t(b) * 4 + mtx - 3) * FMAT;
+    const float4 v = *reinterpret_cast<const float4*>(m + k * C + 4 * n4);
+    float* d = ms + mtx * FMAT;
+    d[swz(4 * n4, k)] = v.x;
+    d[swz(4 * n4 + 1, k)] = v.y;
+    d[swz(4 * n4 + 2, k)] = v.z;
+    d[swz(4 * n4 + 3, k)] = v.w;
+  }
+  for (int i = threadIdx.x; i < 9 * C; i += kMmaThreads)
+    prm[i] = i < 3 * C ? bias[i] : i < 5 * C ? be[i - 3 * C] : lnp[i - 5 * C];
+  __syncthreads();  // matrices and params of every thread
+
+  // cp.async groups are committed in the order s, x1, x2 of each tile, one
+  // per slot refill: the slot needed next is always the third newest
+  float* const ts = ring;
+  float* const tx1 = ring + FTILE;
+  float* const tx2 = ring + 2 * FTILE;
+  for (; row0 < n_end; row0 += STEP) {
+    const int next = row0 + STEP;
+    float y3[8][4], u[8][4], acc[8][4];
+    cp_async_wait<2>();
+    __syncwarp();
+    project_tf32(y3, ts, ms, prm);
+    __syncwarp();  // every lane has read s
+    if (next < n_end) load(0, next);
+    cp_async_commit();
+    // output 1: y3 M0 + u1 M1 + be1, residual x1, LayerNorm 1
+    cp_async_wait<2>();
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+    chain_tf32(acc, y3, ms + 3 * FMAT);
+    project_tf32(u, tx1, ms + FMAT, prm + C);
+    chain_tf32(acc, u, ms + 4 * FMAT);
+    ln_store_tf32(acc, tx1, prm + 3 * C, prm + 5 * C, prm + 6 * C, o1 + img,
+                  row0, n_end);
+    __syncwarp();  // every lane has stored its rows from x1's slot
+    if (next < n_end) load(1, next);
+    cp_async_commit();
+    // output 2: y3 M2 + u2 M3 + be2, residual x2, LayerNorm 2
+    cp_async_wait<2>();
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+    chain_tf32(acc, y3, ms + 5 * FMAT);
+    project_tf32(u, tx2, ms + 2 * FMAT, prm + 2 * C);
+    chain_tf32(acc, u, ms + 6 * FMAT);
+    ln_store_tf32(acc, tx2, prm + 4 * C, prm + 7 * C, prm + 8 * C, o2 + img,
+                  row0, n_end);
+    __syncwarp();
+    if (next < n_end) load(2, next);
+    cp_async_commit();
+  }
+}
+
 // ------------------------------------------------ pass A, bf16, mma.sync
 
 constexpr int kGramWarps = 8;
@@ -687,8 +872,6 @@ __global__ void __launch_bounds__(kGramThreads, 1)
 
 constexpr size_t kGramsSmem =
     sizeof(float) * (3 * C * C + 3 * C + 2 * TILE * RS);
-constexpr size_t kApplySmem =
-    sizeof(float) * (7 * C * C + 9 * C + 3 * TILE * RS);
 
 int grams_f32(const void* x1, const void* x2, const void* s, const float* w,
               const float* bias, float* partial, int b, int n, int chunk,
@@ -726,12 +909,12 @@ int apply_f32(const void* x1, const void* x2, const void* s, const void* w,
               const void* bias, const void* mats, const void* be,
               const void* lnp, void* o1, void* o2, int b, int n, int chunk,
               cudaStream_t stream) {
-  auto kern = ffm_apply_kernel;
-  cudaError_t err = allow_smem(kern, kApplySmem);
+  cudaError_t err = allow_smem(ffm_apply_tf32_kernel, kApplyTf32Smem);
   if (err != cudaSuccess) return int(err);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int n_chunks = (n + chunk - 1) / chunk;
-  kern<<<dim3(n_chunks, b), kThreads, kApplySmem, stream>>>(
+  ffm_apply_tf32_kernel<<<dim3(n_chunks, b), kMmaThreads, kApplyTf32Smem,
+                          stream>>>(
       f(x1), f(x2), f(s), f(w), f(bias), f(mats), f(be), f(lnp),
       static_cast<float*>(o1), static_cast<float*>(o2), n, chunk);
   return int(cudaGetLastError());

@@ -152,10 +152,13 @@ def pack_growth_weights(dconvs: Sequence[Conv],
 
 
 def pack_tail_weights(wb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The bottleneck [64, 224, 1, 1] as the tail kernel stages it:
-    [n][k] for bf16, [k][n] for f32."""
-    w = wb.to(dtype).reshape(wb.shape[0], wb.shape[1])
-    return (w if dtype == torch.bfloat16 else w.t()).contiguous()
+    """The bottleneck [64, 224, 1, 1] as the tail kernel stages it: [n][k]
+    rows in ``dtype``, for every dtype (bf16 feeds ldmatrix, f32 the
+    3xTF32 split, which the kernel makes as it reads each value). Always a
+    copy: ``DRDB.kernel_weights`` keeps it, and a view of a weight that an
+    optimizer then updates in place could not be deep-copied."""
+    w = wb.reshape(wb.shape[0], wb.shape[1])
+    return w.to(dtype, copy=True).contiguous()
 
 
 Packed = Tuple[torch.Tensor, torch.Tensor]   # (packed weights, bias)
@@ -198,8 +201,6 @@ def unpack_tail(wpk: Packed, dtype: torch.dtype) -> Conv:
     """Inverse of ``pack_tail``: (the [64, 224, 1, 1] bottleneck in
     ``dtype``, the bias as packed)."""
     w, b = wpk
-    w = w.reshape(C, C + G * NCONV) if dtype == torch.bfloat16 else \
-        w.reshape(C + G * NCONV, C).t()
     return w.reshape(C, C + G * NCONV, 1, 1).contiguous(), b
 
 

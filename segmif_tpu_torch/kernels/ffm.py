@@ -271,27 +271,24 @@ def crosspath_apply_rows_ref(x1, x2, s, wp, bp, mats, be, lnp):
     return _apply_plain(x1, x2, s, w, b, mats, be, lnp)
 
 
-def _apply_chunk(n: int, bsz: int, dtype: torch.dtype,
-                 device: torch.device) -> int:
-    """Tokens per block of pass B, a multiple of 64. bf16 (one 8-warp block
-    per SM, by shared memory): each image's tokens split so that the grid
-    is four whole waves of SMs, or as near as the tiles allow. f32: up to
-    16 tiles a block, about 8 blocks per SM."""
+def _apply_chunk(n: int, bsz: int, device: torch.device) -> int:
+    """Tokens per block of pass B, a multiple of 64. One 8-warp block per
+    SM in either dtype (by shared memory): each image's tokens split so
+    that the grid is four whole waves of SMs, or as near as the tiles
+    allow."""
     tiles = math.ceil(n / _TILE)
-    sms = _sm_count(device)
-    if dtype == torch.bfloat16:
-        per_image = min(tiles, math.ceil(4 * sms / bsz))
-        return math.ceil(tiles / per_image) * _TILE
-    return min(16, max(1, math.ceil(tiles * bsz / (8 * sms)))) * _TILE
+    per_image = min(tiles, math.ceil(4 * _sm_count(device) / bsz))
+    return math.ceil(tiles / per_image) * _TILE
 
 
 def crosspath_apply_rows(x1, x2, s, wp, bp, mats, be, lnp):
     """Pass B, through the operator ``segmif::ffm_apply``
     (``ffm_apply_op``). CPU tensors take the plain version (through
     autograd when a gradient is needed); CUDA tensors launch
-    ``segmif_ffm_apply``: in bf16 the tensor-core kernel (weights and
-    contexts as bf16, the seven products chained in registers), in f32
-    the CUDA-core kernel."""
+    ``segmif_ffm_apply``: the seven products on the tensor cores, chained
+    in registers, in bf16 (weights and contexts as bf16) or in f32 as
+    3xTF32 (each f32 operand split into two TF32 halves, each product
+    big*big + big*small + small*big)."""
     args = (x1, x2, s, wp, bp, mats, be, lnp)
     if x1.device.type == "cpu" and _build.needs_grad(*args):
         return crosspath_apply_rows_ref(*args)
@@ -336,7 +333,7 @@ def ffm_apply_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
             x1.data_ptr(), x2.data_ptr(), s.data_ptr(), w.data_ptr(),
             b.data_ptr(), mats.data_ptr(), be.data_ptr(), lnp.data_ptr(),
             o1.data_ptr(), o2.data_ptr(), bsz, n,
-            _apply_chunk(n, bsz, dt, dev), _build.DTYPE_CODES[dt], stream)
+            _apply_chunk(n, bsz, dev), _build.DTYPE_CODES[dt], stream)
     _build.check(err, "crosspath_apply_rows")
     crosspath_apply_rows.launches += 1
     return o1, o2

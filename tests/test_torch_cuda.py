@@ -12,8 +12,12 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    f32: reduction order (and, for sr-attention, 3xTF32 products to about
    2^-21 of each), atol 1e-5 (attention) / 1e-4 (FFM apply, whose
    LayerNorm scales errors by 1/std), rtol 0. The 3xTF32 kernels run on
-   Q or x rounded to TF32 (a dropped small*big product) must fail the f32
-   limits: test_f32_check_catches_a_dropped_small_big_product. bf16
+   an A operand rounded to TF32 (a dropped small*big product: Q, x, the
+   tail's r1..r5, the apply's s) must fail the f32 limits:
+   test_f32_check_catches_a_dropped_small_big_product; the f32 tail and
+   apply hold theirs on seeds 0-4 at the main-path shapes:
+   test_f32_tail_and_apply_limits_hold_over_seeds; f32 apply faults fail
+   them: test_f32_apply_check_catches_a_fault. bf16
    attention: rtol 2^-7 (one bf16 step of the output, so any one-step difference passes:
    the kernel's P V is f32-accurate to about 2^-17, and the two sides
    round f32 values that differ in their last bits), atol 2^-14 (outputs
@@ -354,6 +358,50 @@ def test_bf16_limits_hold_over_seeds(cuda, seed):
             assert _close(got, want, APPLY_TOL[bf])
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_f32_tail_and_apply_limits_hold_over_seeds(cuda, seed):
+    """The f32 DRDB tail and FFM apply (3xTF32 on mma.sync) hold their
+    unchanged f32 limits on seeds 0-4 at the main-path shapes (the tail
+    at [8, 64, 480, 640] on a growth buffer's slices, the apply at
+    [8, 307200, 64])."""
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(seed)
+    with torch.inference_mode():
+        x, _, (wb, bb) = _drdb_inputs(g, 8, 480, 640, f32, cuda)
+        buf = torch.relu(_randn(g, (8, 480, 640, 160), f32, cuda))
+        rs = [buf.permute(0, 3, 1, 2)[:, 32 * i:32 * (i + 1)]
+              for i in range(5)]
+        assert _within(drdb_tail(x, rs, wb, bb), drdb_tail_ref(x, rs, wb, bb),
+                       TAIL_TOL[f32], x)
+        del x, buf, rs
+        xs, wp, bp, mats, be, lnp = _ffm_inputs(g, 8, 307200, f32, cuda)
+        for got, want in zip(
+                crosspath_apply_rows(*xs, wp, bp, mats, be, lnp),
+                crosspath_apply_rows_ref(*xs, wp, bp, mats, be, lnp)):
+            assert _close(got, want, APPLY_TOL[f32])
+
+
+@pytest.mark.parametrize("fault", ["be_zeroed", "m1_m3_swapped",
+                                   "gamma_plus_0.01"])
+def test_f32_apply_check_catches_a_fault(cuda, fault):
+    """The f32 apply run with a fault planted in its arguments fails the
+    f32 limit against the plain version on the true ones."""
+    g = torch.Generator().manual_seed(30)
+    xs, wp, bp, mats, be, lnp = _ffm_inputs(g, 2, 4097, torch.float32,
+                                            cuda)
+    with torch.inference_mode():
+        want = crosspath_apply_rows_ref(*xs, wp, bp, mats, be, lnp)[0]
+        if fault == "be_zeroed":
+            be = be * 0
+        elif fault == "m1_m3_swapped":
+            mats = mats[:, [0, 3, 2, 1]]
+        else:
+            lnp = lnp + torch.tensor([0.01, 0.0], device=cuda)[:, None]
+        got = crosspath_apply_rows(*xs, wp, bp, mats, be, lnp)[0]
+    torch.cuda.synchronize()
+    assert not _close(got, want, APPLY_TOL[torch.float32])
+
+
 def test_ffm_refuses_what_it_does_not_take(cuda):
     g = torch.Generator().manual_seed(4)
     (x1, x2, s), wp, bp, mats, be, lnp = _ffm_inputs(g, 1, 128,
@@ -483,13 +531,16 @@ def test_drdb_growth_f32_any_shape_and_channel_slice(cuda, b, h, w, sliced):
         assert _within(g, e, GROWTH_TOL[torch.float32])
 
 
-@pytest.mark.parametrize("kernel", ["sr_attention", "drdb_growth"])
+@pytest.mark.parametrize("kernel", ["sr_attention", "drdb_growth",
+                                    "drdb_tail", "ffm_apply"])
 def test_f32_check_catches_a_dropped_small_big_product(cuda, kernel):
     """Without its small*big product a 3xTF32 kernel multiplies A's TF32
     half alone: the same as the kernel run on A rounded to TF32 (Q for
-    sr-attention's logits, x for the first growth conv). That run fails
-    the f32 limit against the plain version on the true inputs; the true
-    run holds it."""
+    sr-attention's logits, x for the first growth conv, s for the apply's
+    y3; for the tail, whose x is also its residual, B: the bottleneck
+    rounded, its big*small product dropped). That run fails the f32 limit
+    against the plain version on the true inputs; the true run holds
+    it."""
     with torch.inference_mode():
         if kernel == "sr_attention":
             q, k, v = _sr_inputs(26, 2, 4800, 300, 2, 64, torch.float32,
@@ -499,14 +550,34 @@ def test_f32_check_catches_a_dropped_small_big_product(cuda, kernel):
             bad = sr_attention(_build.tf32_big(q), k, v, 0.125)
             held = [_close(t, want, SR_TOL[torch.float32])
                     for t in (good, bad)]
-        else:
-            x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(27),
-                                        2, 100, 172, torch.float32, cuda)
-            want = drdb_growth_ref(x, dconvs)[0]
-            good = drdb_growth(x, dconvs)[0]
-            bad = drdb_growth(_build.tf32_big(x), dconvs)[0]
-            held = [_within(t, want, GROWTH_TOL[torch.float32])
+        elif kernel == "ffm_apply":
+            (x1, x2, s), *ws = _ffm_inputs(torch.Generator().manual_seed(31),
+                                           2, 4097, torch.float32, cuda)
+            want = crosspath_apply_rows_ref(x1, x2, s, *ws)[0]
+            good = crosspath_apply_rows(x1, x2, s, *ws)[0]
+            bad = crosspath_apply_rows(x1, x2, _build.tf32_big(s), *ws)[0]
+            held = [_close(t, want, APPLY_TOL[torch.float32])
                     for t in (good, bad)]
+        else:
+            x, dconvs, (wb, bb) = _drdb_inputs(
+                torch.Generator().manual_seed(27), 2, 100, 172,
+                torch.float32, cuda)
+            if kernel == "drdb_growth":
+                want = drdb_growth_ref(x, dconvs)[0]
+                good = drdb_growth(x, dconvs)[0]
+                bad = drdb_growth(_build.tf32_big(x), dconvs)[0]
+                held = [_within(t, want, GROWTH_TOL[torch.float32])
+                        for t in (good, bad)]
+            else:
+                # the tail's B: the bottleneck rounded to TF32 drops its
+                # big*small product (r1..r5 rounded read 1.3x the limit
+                # on these inputs, the bottleneck 2.7x)
+                rs = drdb_growth(x, dconvs)
+                want = drdb_tail_ref(x, rs, wb, bb)
+                good = drdb_tail(x, rs, wb, bb)
+                bad = drdb_tail(x, rs, _build.tf32_big(wb), bb)
+                held = [_within(t, want, TAIL_TOL[torch.float32], x)
+                        for t in (good, bad)]
     torch.cuda.synchronize()
     assert held == [True, False]
 
@@ -515,13 +586,20 @@ def test_f32_kernels_repeat_bit_for_bit(cuda):
     """Two calls of each 3xTF32 kernel on the same inputs give the same
     bits: no atomics, a fixed order of sums."""
     q, k, v = _sr_inputs(28, 2, 1000, 383, 2, 64, torch.float32, cuda)
-    x, dconvs, _ = _drdb_inputs(torch.Generator().manual_seed(29), 2, 40,
-                                56, torch.float32, cuda)
+    x, dconvs, (wb, bb) = _drdb_inputs(torch.Generator().manual_seed(29), 2,
+                                       40, 56, torch.float32, cuda)
+    xs, *ws = _ffm_inputs(torch.Generator().manual_seed(32), 2, 1000,
+                          torch.float32, cuda)
     with torch.inference_mode():
         assert torch.equal(sr_attention(q, k, v, 0.125),
                            sr_attention(q, k, v, 0.125))
+        rs = drdb_growth(x, dconvs)
         assert all(torch.equal(a, b) for a, b in zip(
-            drdb_growth(x, dconvs), drdb_growth(x, dconvs)))
+            rs, drdb_growth(x, dconvs)))
+        assert torch.equal(drdb_tail(x, rs, wb, bb),
+                           drdb_tail(x, rs, wb, bb))
+        assert all(torch.equal(a, b) for a, b in zip(
+            crosspath_apply_rows(*xs, *ws), crosspath_apply_rows(*xs, *ws)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -562,6 +640,29 @@ def test_drdb_tail_bf16_on_a_channel_slice(cuda, b, h, w):
     torch.cuda.synchronize()
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert _within(got, want, TAIL_TOL[torch.bfloat16], x)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 17, 33), (2, 5, 7), (2, 100, 172)])
+def test_drdb_tail_f32_on_a_channel_slice(cuda, b, h, w):
+    """The f32 tail (3xTF32; 32-channel TMA boxes of 64 pixels read
+    through pixel strides) with x a channel slice (channels 16-79) of a
+    wider channels_last tensor (pixel stride 96) and r1..r5 separate
+    tensors (pixel stride 32), at pixel counts that end inside a 64-pixel
+    tile; the unchanged f32 limit."""
+    gen = torch.Generator().manual_seed(33)
+    x, _, (wb, bb) = _drdb_inputs(gen, b, h, w, torch.float32, cuda)
+    wide = _randn(gen, (b, h, w, 96), torch.float32, cuda)
+    wide[..., 16:80] = x.permute(0, 2, 3, 1)
+    x = wide.permute(0, 3, 1, 2)[:, 16:80]
+    rs = [torch.relu(_randn(gen, (b, h, w, 32), torch.float32, cuda)
+                     ).permute(0, 3, 1, 2) for _ in range(5)]
+    assert x.stride(3) == 96 and rs[0].stride(3) == 32
+    with torch.inference_mode():
+        got = drdb_tail(x, rs, wb, bb)
+        want = drdb_tail_ref(x, rs, wb, bb)
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _within(got, want, TAIL_TOL[torch.float32], x)
 
 
 @pytest.mark.parametrize("fault", ["r2_r3_swapped", "r5_weights_zeroed",

@@ -455,7 +455,7 @@ def _tail_bf16_schedule(rows, wpk, bb):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_drdb_tail_packing_as_the_kernel_reads_it(dtype):
     """The tail kernel's product: the rows of x and r1..r5 side by side
-    times the packed bottleneck ([n][k] for bf16, [k][n] for f32), bias,
+    times the packed bottleneck ([n][k] in either dtype), bias,
     relu, residual; for bf16, on swizzled shared-memory tiles as
     ``_tail_bf16_schedule`` walks them, with the kernel's rounding steps,
     against the plain tail in bf16 within the card tests' bf16 tail limit
@@ -470,7 +470,7 @@ def test_drdb_tail_packing_as_the_kernel_reads_it(dtype):
     _, (wb, bb) = _port_convs(_drdb_params(rng))
     wb = _bf16_exact(wb)
     wpk = tdrdb.pack_tail_weights(wb, dtype).float()
-    w_kn = wpk.t() if dtype == torch.bfloat16 else wpk
+    w_kn = wpk.t()
     assert w_kn.shape == (224, C)
     if dtype == torch.float32:
         got = x + torch.relu(torch.cat([x, *rs], -1) @ w_kn + bb)
