@@ -12,7 +12,11 @@ with one rank per card, over NCCL:
     python3 chip_smoke.py --parallel
 
 Phases (each prints its lines and its seconds; any failure exits non-zero
-before the last line):
+before the last line; the CPU references of phases 6, 8 (a), 9 (a), 11 (b)
+and 12 (c) are computed in a spawned process of their own from phase 4 on,
+``CpuReferences``; phases 11 (a), 12 (a), (b) and (d), which time the
+card, run first, then 12 (e)'s child and the export's fresh process beside
+the untimed 11 (b)-(e) and 12 (c)):
  1. refuse to run without a CUDA device;
  2. print the card's name and power limit (nvidia-smi);
  3. build the hand-written kernels from segmif_tpu_torch/kernels/csrc
@@ -22,9 +26,9 @@ before the last line):
     the device (held by a sleep kernel while the host enqueues the timed
     calls), with each kernel's bound (the larger of its operations over the
     card's peak for their type and its bytes over the memory rate; the f32
-    sr-attention, DRDB growth, DRDB tail and FFM apply, 3xTF32 on the
-    tensor cores, also with the 3xTF32 bound, 3 x their operations at the
-    TF32 peak) and, for sr-attention, the time of
+    sr-attention, DRDB growth, DRDB tail, FFM grams and FFM apply, 3xTF32
+    on the tensor cores, also with the 3xTF32 bound, 3 x their operations
+    at the TF32 peak) and, for sr-attention, the time of
     ``F.scaled_dot_product_attention`` on the same inputs laid out [B, H,
     N, D] and, for information, SDPA's own f32 error against the plain
     version; sr-attention and FFM apply held per element, with planted
@@ -34,11 +38,13 @@ before the last line):
     gives) that must fail those checks, two f32 calls bit for bit, and f32
     and bf16 sr-attention at the 1080p stage-1 shape (M = 1980) beside
     SDPA; FFM apply also at B = 8 with N = 1, 40 and 4097 in both dtypes,
-    grams at N = 1 and 40 in bf16, with planted faults (y1's bias zeroed,
-    y1 and y2 swapped); the DRDB growth chain, tail and whole block (against
-    ``drdb_chain``), held per element, also at an odd 100x172, with the
-    block's peak device memory, the growth's five-launch traffic floor
-    and cuDNN's five convs on prebuilt concatenations beside it, one 1x1
+    grams (f32 against the plain maths summed in f64) at N = 1 and 40 in
+    both dtypes, with planted faults in both (y1's bias zeroed, y1 and y2
+    swapped; in f32 also W rounded to TF32, the projection's dropped
+    small*big product); the DRDB growth chain, tail and whole block
+    (against ``drdb_chain``), held per element, also at an odd 100x172,
+    with the block's peak device memory, the growth's five-launch traffic
+    floor and cuDNN's five convs on prebuilt concatenations beside it, one 1x1
     conv on a prebuilt concatenation beside the tail (f32 and bf16),
     growth and tail in f32 and bf16 at 17x33, 5x7 and on a channel slice
     of x, the f32 growth twice bit for bit and run on x rounded to TF32
@@ -167,7 +173,8 @@ before the last line):
     FFM grams and apply at [1|2, 2073600, 64], DRDB growth, tail and
     block at [1|2, 64, 1080, 1920] (f32 and bf16, phase 4's limits, the
     block's peak memory), the int8 growth and tail at batch 1 bit for
-    bit, each with its time and bound; (b) ``cli.stretch.main
+    bit, each with its time and bound (the f32 rows' 3xTF32 bound with
+    the FMA one beside it); (b) ``cli.stretch.main
     --synthetic`` at mit_b5, 1080x1920, bf16, its lines and its launches
     per pair (61 sr-attention, 2 + 2 FFM, 4 + 4 DRDB; 9 sr-attention with
     ``--no_seg``), then fps and peak memory at batch 1 and 2; (c) the
@@ -250,12 +257,14 @@ The line before the last is the kernels JSON; the last line is
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -300,8 +309,12 @@ APPLY_TOL = {
                  "held over seeds 0-4 by tests/test_torch_cuda.py"),
 }
 GRAM_RTOL = {  # relative to the largest gram entry
-    "float32": (1e-4, "non-negative summands over 307,200 tokens in "
-                      "another order"),
+    "float32": (1e-5, "3xTF32 products (each to about 2^-21) with the "
+                      "tensor cores' truncating adds, and non-negative "
+                      "summands over 307,200 tokens in another order; the "
+                      "kernel's arithmetic emulated on the CPU reads "
+                      "1.0e-6, a 1xTF32 gram 1.5e-4 "
+                      "(tests/test_torch_tf32x3.py)"),
     "bfloat16": (1e-3, "as f32, plus rare one-step flips where the bf16 "
                        "rounding of an activation meets a boundary"),
 }
@@ -416,6 +429,90 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_CHILDREN = []
+
+
+def started(proc):
+    """``proc`` (a ``subprocess.Popen``), killed at exit if it still runs:
+    a failed phase leaves no process of this script behind."""
+    _CHILDREN.append(proc)
+    return proc
+
+
+@atexit.register
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _reference_process(results) -> None:
+    """The CPU references' process: each ``REFERENCES`` job in turn, its
+    result pickled by value onto ``results`` (or its traceback)."""
+    import pickle
+    import traceback
+
+    # it yields the host's cores to the main process (whose own CPU work,
+    # phase 6's int8 forward, the PNG codecs, ran up to 2.3x slower beside
+    # it otherwise): the lowest priority, and idle threads that sleep
+    # rather than spin (read when torch's thread pool starts)
+    os.nice(19)
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+    for name in REFERENCES:
+        try:
+            out = (name, True, pickle.dumps(globals()[f"_ref_{name}"]()))
+        except Exception:
+            out = (name, False, traceback.format_exc())
+        results.put(out)
+        if not out[1]:
+            return
+
+
+class CpuReferences:
+    """The CPU references of phases 6, 8 (a), 9 (a), 11 (b) and 12 (c),
+    computed in a process of their own (spawned, so it touches no card)
+    while the card runs phase 4 on. Each ``_ref_<name>`` function rebuilds
+    its phase's seeded weights and inputs and runs the plain CPU path;
+    ``get(name)`` waits for its result. The process is a daemon:
+    multiprocessing stops it at exit."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._results = ctx.Queue()
+        self._proc = ctx.Process(target=_reference_process,
+                                 args=(self._results,), daemon=True)
+        self._proc.start()
+        self._got = {}
+
+    def get(self, name: str, timeout: float = 900.0):
+        import pickle
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while name not in self._got:
+            try:
+                key, ok, value = self._results.get(timeout=5.0)
+            except queue.Empty:
+                check(self._proc.is_alive(), "the CPU reference process "
+                      f"exited (code {self._proc.exitcode}) before {name}")
+                check(time.monotonic() < deadline,
+                      f"no CPU reference {name} within {timeout:.0f} s")
+                continue
+            check(ok, f"the CPU reference {key} failed:\n{value}")
+            self._got[key] = pickle.loads(value)
+        return self._got.pop(name)
+
+
+# in the order the phases read them
+REFERENCES = ("pipeline", "train", "seg", "variants", "stretch")
+
+
 def counted(kind, fn, counters, totals, expect, seen):
     """``fn`` with its kernel launches checked per call: every counter set
     to 0 just before the call and read just after, held to
@@ -496,16 +593,28 @@ def _events_ms(fn, iters: int, hold: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the plain version, no yardstick of speed, is timed over as many calls
+# (at most ``iters``, at least one) as its warm-up says fill this many ms:
+# a slow plain version (the int8 DRDB's, 190 ms a call) then costs one
+# call a side, not ``iters``
+PLAIN_TIMED_MS = 50.0
+
+
 def time_pair(kernel, plain, iters: int = 10):
     """(kernel ms, plain ms) per call, CUDA events, in the order plain,
     kernel, kernel, plain after one warm-up call of each."""
     import torch
 
     kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = (_events_ms(fn, iters)
-                      for fn in (plain, kernel, kernel, plain))
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    p_iters = max(1, min(iters, math.ceil(PLAIN_TIMED_MS / warm_ms)))
+    p1, k1, k2, p2 = (_events_ms(fn, n) for fn, n in (
+        (plain, p_iters), (kernel, iters), (kernel, iters),
+        (plain, p_iters)))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -531,6 +640,14 @@ def bound(ops: float, kind: str, moved: int) -> dict:
     t_bytes = moved / HBM_BYTES_S * 1e3
     return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
             else {"bound_ms": t_bytes, "bound_by": "bytes"})
+
+
+def grams_ops(b: int, n: int, c: int) -> int:
+    """FFM pass A's operations as the function needs them, over b images
+    of n tokens: three C-wide projections (2 C^2 a token each) and three
+    grams, symmetric, so only their C (C + 1) / 2 entries on and above the
+    diagonal (2 a token each)."""
+    return 3 * b * n * (2 * c * c + c * (c + 1))
 
 
 def max_err(a, b) -> float:
@@ -729,39 +846,55 @@ def kernel_checks(dev):
                                         randn((c,), torch.float32, 0.1)])
                            for _ in range(2)])
         got = crosspath_grams(x1, x2, s, wp, bp)
-        want = crosspath_grams_ref(x1, x2, s, wp, bp)
+        want = gram_ref(x1, x2, s, wp, bp)
         err = max_err(got, want)
         scale = want.abs().max().item()
         rtol, why = GRAM_RTOL[dname]
         ms, pms = time_pair(lambda: crosspath_grams(x1, x2, s, wp, bp),
                             lambda: crosspath_grams_ref(x1, x2, s, wp, bp))
-        print(f"ffm_grams {dname} B={BATCH} N={n} C={c}: max_abs_err "
-              f"{err:.3e} of max |gram| {scale:.3e} (rtol {rtol:g}: {why}); "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        ref, own = "the plain version", ""
+        if dtype == torch.float32:
+            plain_err = max_err(crosspath_grams_ref(x1, x2, s, wp, bp), want)
+            ref = "the plain maths in f64"
+            own = f", the f32 plain version's own {plain_err:.3e}"
+        print(f"ffm_grams {dname} B={BATCH} N={n} C={c}: against {ref}: "
+              f"max_abs_err {err:.3e} of max |gram| {scale:.3e} (rtol "
+              f"{rtol:g}: {why}){own}; kernel {ms:.4f} ms, plain {pms:.4f} "
+              f"ms", flush=True)
         check(err <= rtol * scale, f"ffm_grams {dname} error {err}")
         check(torch.equal(got, crosspath_grams(x1, x2, s, wp, bp)),
               "ffm_grams is not deterministic")
-        if dtype == torch.bfloat16:
-            for name, bad in (
-                    ("y1 bias zeroed", (wp, torch.cat([bp[:1] * 0, bp[1:]]))),
-                    ("y1 and y2 weights swapped", (wp[[1, 0, 2]], bp))):
-                e = max_err(crosspath_grams(x1, x2, s, *bad), want)
-                print(f"planted fault, ffm_grams {dname} N={n}, {name}: "
-                      f"max_abs_err {e:.3e}, error/limit "
-                      f"{e / (rtol * scale):.3f} (the check fails, as it "
-                      f"must)", flush=True)
-                check(e > rtol * scale, f"the ffm_grams check passes a "
-                                        f"kernel run with the {name}")
+        faults = [("y1 bias zeroed", (wp, torch.cat([bp[:1] * 0, bp[1:]]))),
+                  ("y1 and y2 weights swapped", (wp[[1, 0, 2]], bp))]
+        if dtype == torch.float32:
+            # W^T is the projection's A operand: its small*big product
+            # dropped is the kernel run on W rounded to TF32
+            faults.append(("W's small*big product dropped (W rounded to "
+                           "TF32)", (tf32_big(wp), bp)))
+        for name, bad in faults:
+            e = max_err(crosspath_grams(x1, x2, s, *bad), want)
+            print(f"planted fault, ffm_grams {dname} N={n}, {name}: "
+                  f"max_abs_err {e:.3e}, error/limit "
+                  f"{e / (rtol * scale):.3f} (the check fails, as it "
+                  f"must)", flush=True)
+            check(e > rtol * scale, f"the ffm_grams check passes a "
+                                    f"kernel run with the {name}")
         res["ffm_grams"]["max_abs_err"] = max(res["ffm_grams"]["max_abs_err"],
                                               err)
-        # three 64-wide relu projections and three 64x64 grams
-        bnd = bound(3 * 4 * BATCH * n * c * c, "f32" if dtype ==
-                    torch.float32 else "bf16", nbytes(x1, x2, s, wp, bp, got))
+        ops = grams_ops(BATCH, n, c)
+        moved = nbytes(x1, x2, s, wp, bp, got)
         if dtype == torch.bfloat16:
-            res["ffm_grams"].update(ms=ms, plain_ms=pms, **bnd)
+            res["ffm_grams"].update(ms=ms, plain_ms=pms,
+                                    **bound(ops, "bf16", moved))
         else:
-            print(f"ffm_grams float32: f32 bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']}, at the f32 peak)", flush=True)
+            fma, tf3 = bound(ops, "f32", moved), bound(ops, "tf32x3", moved)
+            res["ffm_grams"].update(f32_ms=ms, f32_bound_ms=tf3["bound_ms"])
+            print(f"ffm_grams float32: f32 bounds: 3xTF32 "
+                  f"{tf3['bound_ms']:.4f} ms ({tf3['bound_by']}, 3 x the "
+                  f"operations at the TF32 peak), FMA {fma['bound_ms']:.4f} "
+                  f"ms ({fma['bound_by']}, at the CUDA cores' f32 peak); "
+                  f"kernel at {tf3['bound_ms'] / ms:.3f} of its 3xTF32 "
+                  f"bound", flush=True)
 
         args = (x1, x2, s, wp, bp, mats, be, lnp)
         got = crosspath_apply_rows(*args)
@@ -822,18 +955,23 @@ def kernel_checks(dev):
         check(ok, f"ffm_apply {dname} N={n} error {err}")
         res["ffm_apply"]["max_abs_err"] = max(res["ffm_apply"]["max_abs_err"],
                                               err)
-    # bf16 grams with fewer tokens than one 16-token tile per warp
-    rtol, why = GRAM_RTOL["bfloat16"]
-    for n in (1, 40):
-        xs = [randn((BATCH, n, c), torch.bfloat16) for _ in range(3)]
+    # the grams with fewer tokens than one 16-token tile per warp (padded
+    # tokens must add nothing, although relu(bias) != 0), both dtypes
+    for dtype, n in itertools.product((torch.float32, torch.bfloat16),
+                                      (1, 40)):
+        dname = str(dtype).split(".")[1]
+        rtol = GRAM_RTOL[dname][0]
+        xs = [randn((BATCH, n, c), dtype) for _ in range(3)]
         got = crosspath_grams(*xs, wp, bp)
-        want = crosspath_grams_ref(*xs, wp, bp)
+        want = gram_ref(*xs, wp, bp)
         err, scale = max_err(got, want), want.abs().max().item()
-        print(f"ffm_grams bfloat16 B={BATCH} N={n}: max_abs_err {err:.3e} "
+        print(f"ffm_grams {dname} B={BATCH} N={n}: max_abs_err {err:.3e} "
               f"of max |gram| {scale:.3e} (rtol {rtol:g})", flush=True)
-        check(err <= rtol * scale, f"ffm_grams bfloat16 N={n} error {err}")
+        check(err <= rtol * scale, f"ffm_grams {dname} N={n} error {err}")
         check(torch.equal(got, crosspath_grams(*xs, wp, bp)),
               "ffm_grams is not deterministic")
+        res["ffm_grams"]["max_abs_err"] = max(res["ffm_grams"]["max_abs_err"],
+                                              err)
     return res
 
 
@@ -1349,6 +1487,32 @@ def bf16_vs_f32(dev):
     torch.cuda.empty_cache()
 
 
+def pipeline_inputs():
+    """Phases 5 and 6's seeded f32 mit_b3 ``JointPipeline`` (on the CPU,
+    eval mode), their requests' generator and, drawn from it, phase 6's
+    batch-1 request on the CPU."""
+    import torch
+
+    from segmif_tpu_torch.models.network import JointPipeline, init_params
+
+    model = init_params(JointPipeline("mit_b3"),
+                        torch.Generator().manual_seed(SEED)).eval()
+    gen = torch.Generator().manual_seed(SEED + 1)
+    return model, gen, requests(gen, 1, 1, "cpu")[0]
+
+
+def _ref_pipeline():
+    """Phase 6's CPU reference: (fused Y, logits, seconds) of the batch-1
+    f32 pipeline on the CPU, on phase 6's first request."""
+    import torch
+
+    model, _, (ir1, vis1) = pipeline_inputs()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, y, logits = model(ir1, vis1)
+    return y, logits, time.perf_counter() - t0
+
+
 def requests(gen, n_req, batch, dev):
     import torch
 
@@ -1390,15 +1554,43 @@ class planted_zero_bias_grad:
         self.cls.backward = staticmethod(self.real)
 
 
-def train_checks(dev, counters):
-    """Phase 8: fusion-phase training; see the module docstring."""
+def train_inputs():
+    """Phase 8's seeded mit_b3 ``JointPipeline`` at the reference modules'
+    scale, its batches' generator and, drawn from it, phase 8 (a)'s batch
+    of 2 on the CPU."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    model = drift.init_reference_scale(
+        JointPipeline("mit_b3"), torch.Generator().manual_seed(SEED + 6))
+    gen = torch.Generator().manual_seed(SEED + 7)
+    return model, gen, train_batch(gen, 2, *TRAIN_HW, "cpu")
+
+
+def _ref_train():
+    """Phase 8 (a)'s CPU reference: (metrics, gradients, seconds) of one
+    f32 round >= 2 step on the CPU, on phase 8's first batch."""
+    import torch
+
+    from segmif_tpu_torch.train.compare import step_grads
+
+    model, _, small = train_inputs()
+    t0 = time.perf_counter()
+    want_m, want = step_grads(model, small, False, torch.float32, "cpu",
+                              TRAIN_FUSION_SCALE)
+    return want_m, want, time.perf_counter() - t0
+
+
+def train_checks(dev, counters, refs):
+    """Phase 8: fusion-phase training; see the module docstring. ``refs``:
+    the ``CpuReferences``."""
     import warnings
 
     import torch
 
-    from segmif_tpu_torch import drift
     from segmif_tpu_torch.kernels import _build
-    from segmif_tpu_torch.models.network import JointPipeline
     from segmif_tpu_torch.train.compare import (bf16_rounded, leaf_cosines,
                                                 leaf_errors, step_grads)
     from segmif_tpu_torch.train.optimizer import adamw_poly
@@ -1406,16 +1598,11 @@ def train_checks(dev, counters):
     from segmif_tpu_torch.train.steps import make_fusion_train_step
 
     f32, bf16 = torch.float32, torch.bfloat16
-    model = drift.init_reference_scale(JointPipeline("mit_b3"),
-                                       torch.Generator().manual_seed(SEED + 6))
-    gen = torch.Generator().manual_seed(SEED + 7)
+    model, gen, small = train_inputs()
 
     # (a) card f32 against CPU f32
     t0 = time.perf_counter()
-    small = train_batch(gen, 2, *TRAIN_HW, "cpu")
-    want_m, want = step_grads(model, small, False, f32, "cpu",
-                              TRAIN_FUSION_SCALE)
-    cpu_s = time.perf_counter() - t0
+    want_m, want, cpu_s = refs.get("train")
     on_card = {k: v.to(dev) for k, v in small.items()}
     got_m, got = step_grads(model, on_card, False, f32, dev,
                             TRAIN_FUSION_SCALE)
@@ -1592,18 +1779,15 @@ def train_checks(dev, counters):
     print(f"train (c): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def seg_step_checks(dev):
-    """Phase 9 (a): the seg step, card against CPU, and the BN fold."""
+def seg_step_inputs():
+    """Phase 9 (a)'s seeded mit_b3 ``SegmentationNetwork`` (regularisers
+    0) and its batch of 2 at SEG_HW, on the CPU."""
     import torch
 
-    from segmif_tpu_torch.models import segformer_head
     from segmif_tpu_torch.models.network import (SegmentationNetwork,
                                                  init_params)
-    from segmif_tpu_torch.train.compare import (exact_zero_grad, leaf_errors,
-                                                seg_step_grads,
-                                                without_regularisers)
+    from segmif_tpu_torch.train.compare import without_regularisers
 
-    t0 = time.perf_counter()
     model = without_regularisers(init_params(
         SegmentationNetwork("mit_b3"),
         torch.Generator().manual_seed(SEED + 8)))
@@ -1611,9 +1795,35 @@ def seg_step_checks(dev):
     b, (h, w) = 2, SEG_HW
     data = {"image": torch.rand((b, h, w, 3), generator=gen),
             "label": torch.randint(0, 9, (b, h, w), generator=gen)}
-    want_m, want, want_s, want_r = seg_step_grads(model, data,
-                                                  torch.float32, "cpu")
-    cpu_s = time.perf_counter() - t0
+    return model, data
+
+
+def _ref_seg():
+    """Phase 9 (a)'s CPU reference: ``seg_step_grads`` on the CPU and its
+    seconds."""
+    import torch
+
+    from segmif_tpu_torch.train.compare import seg_step_grads
+
+    model, data = seg_step_inputs()
+    t0 = time.perf_counter()
+    out = seg_step_grads(model, data, torch.float32, "cpu")
+    return (*out, time.perf_counter() - t0)
+
+
+def seg_step_checks(dev, refs):
+    """Phase 9 (a): the seg step, card against CPU (``refs``: the
+    ``CpuReferences``), and the BN fold."""
+    import torch
+
+    from segmif_tpu_torch.models import segformer_head
+    from segmif_tpu_torch.train.compare import (exact_zero_grad, leaf_errors,
+                                                seg_step_grads)
+
+    t0 = time.perf_counter()
+    model, data = seg_step_inputs()
+    b, (h, w) = 2, SEG_HW
+    want_m, want, want_s, want_r, cpu_s = refs.get("seg")
     on_card = {k: v.to(dev) for k, v in data.items()}
 
     def held_to_cpu(got_m, got, got_s):
@@ -1728,7 +1938,7 @@ def driver_kernel_checks(dev, res):
                                         randn((c,), torch.float32, 0.1)])
                            for _ in range(2)])
         got = crosspath_grams(x1, x2, s, wp, bp)
-        want = crosspath_grams_ref(x1, x2, s, wp, bp)
+        want = gram_ref(x1, x2, s, wp, bp)
         err, rtol = max_err(got, want), GRAM_RTOL[dname][0]
         scale = want.abs().max().item()
         print(f"ffm_grams {dname} [{b}, {n}, {c}]: max_abs_err {err:.3e} of "
@@ -2390,66 +2600,99 @@ def _wrong_axis_softmax(ctx, num_heads):
     return torch.softmax(ctx.masked_fill(~mask, float("-inf")), dim=-1)
 
 
-def variant_card_vs_cpu(dev, backbone="mit_b3", hw=(H, W)):
-    """Phase 11 (b) and (d): each variant's batch-1 f32 pipeline, the short
-    tail and ``SimpleFusionNetwork`` on the card against the same weights
-    on the CPU, under PIPE_RTOL; then the planted faults, which must fail
-    the same check."""
+def variant_inputs(backbone="mit_b3", hw=(H, W)):
+    """Phase 11 (b)'s seeded batch-1 pair and stage-1/2 taps (on the CPU),
+    and its models: each variant's ``JointPipeline``, the short tail and
+    ``SimpleFusionNetwork`` as (name, a function making it)."""
     import torch
 
     from segmif_tpu_torch import drift
-    from segmif_tpu_torch.kernels import attention
     from segmif_tpu_torch.models.fusion import (FusionNetwork,
                                                 SimpleFusionNetwork)
     from segmif_tpu_torch.models.mit import MIT_VARIANTS
     from segmif_tpu_torch.models.network import JointPipeline, init_params
 
-    cl = torch.channels_last
     gen = torch.Generator().manual_seed(SEED + 13)
     (ir, vis), = _pairs(gen, 1, 1, hw, "cpu")
     dims = MIT_VARIANTS[backbone].embed_dims
     taps = (torch.randn((1, hw[0] // 4, hw[1] // 4, dims[0]), generator=gen),
             torch.randn((1, hw[0] // 8, hw[1] // 8, dims[1]), generator=gen))
-    t0 = time.perf_counter()
-    faults = {}
-    for v in VARIANTS:
-        model = init_params(JointPipeline(backbone, interaction=v),
-                            torch.Generator().manual_seed(SEED + 14)).eval()
-        with torch.inference_mode():
-            _, y_cpu, l_cpu = model(ir, vis)
-        model.to(dev, memory_format=cl)
-        with torch.inference_mode():
-            _, y, logits = model(ir.to(dev), vis.to(dev))
-        check(held_pipe(f"variant {v} b1 f32 card vs CPU",
-                        (("fused_y", y, y_cpu), ("logits", logits, l_cpu))),
-              f"variant {v}: card and CPU differ")
-        if v in ("moam", "average"):
-            faults[v] = (model, y_cpu)
-        else:
-            del model
+    models = [(v, lambda v=v: init_params(
+        JointPipeline(backbone, interaction=v),
+        torch.Generator().manual_seed(SEED + 14)).eval()) for v in VARIANTS]
     # SimpleFusionNetwork at the reference modules' scale: it clips to
     # [0, 1] before its stretch, so its largest magnitude is 1 whatever it
     # clipped, and at the JAX initialisers' scale (values of order 10-100
     # before the clip) the limit would hold their f32 sums to 1e-4
     # absolute
-    fusion_only = {
-        "short tail": init_params(FusionNetwork(tap_channels=dims[:2],
-                                                tail="short"),
-                                  torch.Generator().manual_seed(SEED + 15)),
-        "SimpleFusionNetwork": drift.init_reference_scale(
-            SimpleFusionNetwork(), torch.Generator().manual_seed(SEED + 16))}
-    refs = {}
-    for name, net in fusion_only.items():
-        args = (ir, vis[..., :1]) + (taps if name == "short tail" else ())
+    models += [
+        ("short tail", lambda: init_params(
+            FusionNetwork(tap_channels=dims[:2], tail="short"),
+            torch.Generator().manual_seed(SEED + 15)).eval()),
+        ("SimpleFusionNetwork", lambda: drift.init_reference_scale(
+            SimpleFusionNetwork(),
+            torch.Generator().manual_seed(SEED + 16)).eval())]
+    return (ir, vis, taps), models
+
+
+def _variant_args(name, ir, vis, taps):
+    """A phase 11 (b) model's inputs: the pair for a pipeline; the IR and
+    VIS Y (and the taps, for the short tail) for a fusion network."""
+    if name in VARIANTS:
+        return ir, vis
+    return (ir, vis[..., :1]) + (taps if name == "short tail" else ())
+
+
+def _ref_variants():
+    """Phase 11 (b)'s CPU references: {name: the model's f32 outputs on
+    the CPU} and their seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    (ir, vis, taps), models = variant_inputs()
+    out = {}
+    for name, build in models:
         with torch.inference_mode():
-            refs[name] = net.eval()(*args)
-        net.to(dev, memory_format=cl)
+            out[name] = build()(*_variant_args(name, ir, vis, taps))
+    return out, time.perf_counter() - t0
+
+
+def variant_card_vs_cpu(dev, refs):
+    """Phase 11 (b) and (d): each variant's batch-1 f32 pipeline, the short
+    tail and ``SimpleFusionNetwork`` on the card against the same weights
+    on the CPU (``refs``: the ``CpuReferences``), under PIPE_RTOL; then the
+    planted faults, which must fail the same check."""
+    import torch
+
+    from segmif_tpu_torch.kernels import attention
+    from segmif_tpu_torch.models.network import init_params
+
+    cl = torch.channels_last
+    t0 = time.perf_counter()
+    (ir, vis, taps), models = variant_inputs()
+    cpu, cpu_s = refs.get("variants")
+    faults, nets = {}, {}
+    for name, build in models:
+        net = build().to(dev, memory_format=cl)
         with torch.inference_mode():
-            y = net(*(a.to(dev) for a in args))
-        check(held_pipe(f"{name} b1 f32 card vs CPU",
-                        (("fused_y", y, refs[name]),)),
-              f"{name}: card and CPU differ")
-    print(f"phase 11 (b): card vs CPU, {time.perf_counter() - t0:.1f} s",
+            got = net(*(a.to(dev) for a in _variant_args(name, ir, vis,
+                                                         taps)))
+        if name in VARIANTS:
+            (_, y, logits), (_, y_cpu, l_cpu) = got, cpu[name]
+            check(held_pipe(f"variant {name} b1 f32 card vs CPU",
+                            (("fused_y", y, y_cpu),
+                             ("logits", logits, l_cpu))),
+                  f"variant {name}: card and CPU differ")
+            if name in ("moam", "average"):
+                faults[name] = (net, y_cpu)
+        else:
+            check(held_pipe(f"{name} b1 f32 card vs CPU",
+                            (("fused_y", got, cpu[name]),)),
+                  f"{name}: card and CPU differ")
+            nets[name] = net
+        del net
+    print(f"phase 11 (b): card vs CPU, {time.perf_counter() - t0:.1f} s "
+          f"(the CPU references {cpu_s:.1f} s, in their own process)",
           flush=True)
 
     # (d) planted faults, each against the CPU reference of (b)
@@ -2478,14 +2721,14 @@ def variant_card_vs_cpu(dev, backbone="mit_b3", hw=(H, W)):
     fails("'average' with att1 and att2 swapped",
           lambda: model.fuse(ir.to(dev), vis.to(dev))[1], y_cpu)
     f.load_state_dict(sd)
-    net = fusion_only["short tail"]
+    net = nets["short tail"]
     net.conv22 = init_params(torch.nn.Conv2d(1, 1, 3, padding=1),
                              torch.Generator().manual_seed(SEED + 17)
                              ).to(dev, memory_format=cl)
     fails("a short tail that runs conv22",
           lambda: net(ir.to(dev), vis[..., :1].to(dev),
-                      *(t.to(dev) for t in taps)), refs["short tail"])
-    del faults, fusion_only, model, net
+                      *(t.to(dev) for t in taps)), cpu["short tail"])
+    del faults, nets, model, net
 
 
 def attention_maps(dev, counters, totals, backbone="mit_b3", hw=(H, W)):
@@ -2677,20 +2920,29 @@ def fma_bound(dtype, ops, moved) -> dict:
 
 
 def _grams_f64(x1, x2, s, wp, bp):
-    """``crosspath_grams_ref``'s maths with the projections and grams in
-    f64 (the activations still rounded to the inputs' dtype)."""
-    import torch
-
-    from segmif_tpu_torch.kernels.ffm import _GRAM_PICKS, _halves
+    """``crosspath_grams_ref``'s maths (``_grams_plain``) in f64, on the
+    inputs and weight halves as the kernel takes them (the f64 reference
+    of tests/test_torch_cuda.py and tests/test_torch_tf32x3.py too)."""
+    from segmif_tpu_torch.kernels.ffm import (_GRAM_PICKS, _grams_plain,
+                                              _halves)
 
     w, b = _halves(wp, bp, x1.dtype, _GRAM_PICKS)
-    out = []
-    for i, x in enumerate((x1, x2, s)):
-        r = torch.relu(x.double() @ w[i].double() + b[i].double())
-        r = r.to(x.dtype).double()
-        out.append(r.transpose(1, 2) @ r)
-        del r
-    return torch.stack(out, 1)
+    return _grams_plain(*(t.double() for t in (x1, x2, s, w, b)))
+
+
+def gram_ref(x1, x2, s, wp, bp):
+    """The grams a kernel run is held to under GRAM_RTOL: in bf16 the
+    plain version's; in f32 its maths summed in f64 (``_grams_f64``),
+    since the f32 plain version's own sums over 10^5-10^6 tokens drift by
+    more than the f32 limit on the H100 (phase 4 and phase 12 (a) print
+    by how much)."""
+    import torch
+
+    from segmif_tpu_torch.kernels.ffm import crosspath_grams_ref
+
+    if x1.dtype == torch.bfloat16:
+        return crosspath_grams_ref(x1, x2, s, wp, bp)
+    return _grams_f64(x1, x2, s, wp, bp)
 
 
 def stretch_kernel_checks(dev):
@@ -2788,7 +3040,10 @@ def stretch_kernel_checks(dev):
             # over 2,073,600 tokens the plain version's own f32 sums drift
             # (at B=2 by 1.1e3 of 1.9e6 against f64 sums on an NVIDIA H100
             # 80GB HBM3 at 700 W, the kernel's chunked sums by 1.0), so
-            # both are held to the plain maths in f64
+            # both are held to the plain maths in f64 (in bf16 without
+            # r's rounding to bf16, which alone moves a gram of 65,536 to
+            # 524,288 tokens by 6e-5 to 3e-5 of its largest entry, a 30th
+            # of the bf16 limit or less)
             want = _grams_f64(x1, x2, s, wp, bp)
             plain_err = max_err(crosspath_grams_ref(x1, x2, s, wp, bp),
                                 want)
@@ -2797,19 +3052,23 @@ def stretch_kernel_checks(dev):
             ms, pms = time_pair(lambda: crosspath_grams(x1, x2, s, wp, bp),
                                 lambda: crosspath_grams_ref(x1, x2, s, wp,
                                                             bp), iters=3)
-            bnd = bound(3 * 4 * b * n * c * c, kind,
-                        nbytes(x1, x2, s, wp, bp, got))
+            gops = grams_ops(b, n, c)
+            moved = nbytes(x1, x2, s, wp, bp, got)
+            bnd = bound(gops, "bf16" if kind == "bf16" else "tf32x3", moved)
+            fma = fma_bound(dtype, gops, moved)
             print(f"stretch ffm_grams {dname} B={b} N={n} C={c}: against "
                   f"the plain maths in f64: max_abs_err {err:.3e} of max "
                   f"|gram| {scale:.3e} (rtol {rtol:g}: {why}), the f32 "
                   f"plain version's own {plain_err:.3e}; kernel {ms:.4f} "
                   f"ms, plain {pms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']})", flush=True)
+                  f"({bnd['bound_by']}{', 3xTF32' if fma else ''})"
+                  + (f", FMA {fma['fma_bound_ms']:.4f} ms" if fma else ""),
+                  flush=True)
             check(err <= rtol * scale, f"stretch ffm_grams {dname} B={b} "
                                        f"error {err}")
             rows[f"ffm_grams {dname} B={b} N={n}"] = {
                 "ms": ms, "plain_ms": pms, "library_ms": None,
-                "max_abs_err": err, **bnd}
+                "max_abs_err": err, **bnd, **fma}
             args = (x1, x2, s, wp, bp, mats, be, lnp)
             got = crosspath_apply_rows(*args)
             want = crosspath_apply_rows_ref(*args)
@@ -3007,25 +3266,45 @@ def stretch_cli_checks(dev, counters, totals):
     print(f"phase 12 (b): {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def stretch_pipeline_checks(dev):
-    """Phase 12 (c): the mit_b5 pipeline (15 classes) in f32, the card
-    against the CPU at STRETCH_CPU_HW under PIPE_RTOL; then at 1080x1920
-    bf16 against f32 on the card under ``drift``'s limits (weights at the
-    reference modules' scale), and a bf16 run with DRDB1's tail bias
-    dropped, which must fail them."""
+def stretch_cpu_inputs():
+    """Phase 12 (c)'s seeded mit_b5 ``JointPipeline`` (15 classes, eval)
+    and its batch-1 pair at STRETCH_CPU_HW, on the CPU."""
     import torch
 
-    from segmif_tpu_torch import drift
     from segmif_tpu_torch.models.network import JointPipeline, init_params
 
-    t0 = time.perf_counter()
     model = init_params(JointPipeline("mit_b5", STRETCH_CLASSES),
                         torch.Generator().manual_seed(SEED + 41)).eval()
     (ir, vis), = _pairs(torch.Generator().manual_seed(SEED + 42), 1, 1,
                         STRETCH_CPU_HW, "cpu")
+    return model, ir, vis
+
+
+def _ref_stretch():
+    """Phase 12 (c)'s CPU reference: (fused Y, logits, seconds)."""
+    import torch
+
+    model, ir, vis = stretch_cpu_inputs()
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        _, y_cpu, l_cpu = model(ir, vis)
-    cpu_s = time.perf_counter() - t0
+        _, y, logits = model(ir, vis)
+    return y, logits, time.perf_counter() - t0
+
+
+def stretch_pipeline_checks(dev, refs):
+    """Phase 12 (c): the mit_b5 pipeline (15 classes) in f32, the card
+    against the CPU (``refs``: the ``CpuReferences``) at STRETCH_CPU_HW
+    under PIPE_RTOL; then at 1080x1920 bf16 against f32 on the card under
+    ``drift``'s limits (weights at the reference modules' scale), and a
+    bf16 run with DRDB1's tail bias dropped, which must fail them."""
+    import torch
+
+    from segmif_tpu_torch import drift
+    from segmif_tpu_torch.models.network import JointPipeline
+
+    t0 = time.perf_counter()
+    model, ir, vis = stretch_cpu_inputs()
+    y_cpu, l_cpu, cpu_s = refs.get("stretch")
     model.to(dev, memory_format=torch.channels_last)
     with torch.inference_mode():
         _, y, logits = model(ir.to(dev), vis.to(dev))
@@ -3084,10 +3363,10 @@ def export_checks(dev, counters, totals, tmp):
     ``segmif::`` nodes against phase 5's launches per request, the loaded
     program against ``make_serving_fn`` on the same inputs (its launches
     too), export seconds, artifact size and pairs/s beside
-    ``make_serving_fn``'s (timed as phase 7). Then it starts a fresh
-    process that imports only torch and ``segmif_tpu_torch.kernels`` and
-    runs the default artifact, and returns it for
-    ``fresh_process_check``."""
+    ``make_serving_fn``'s (timed as phase 7). After its last timed request
+    it starts a fresh process that imports only torch and
+    ``segmif_tpu_torch.kernels`` and runs the default artifact, and
+    returns it for ``fresh_process_check``."""
     import numpy as np
     import torch
 
@@ -3174,22 +3453,23 @@ def export_checks(dev, counters, totals, tmp):
             ir, vis = reqs[0]
             with torch.inference_mode():
                 rgb0, pred0 = loaded(ir, vis)
-            fresh = (path, rgb0.float().cpu().numpy(),
-                     pred0.cpu().numpy())
+            fresh = (rgb0.float().cpu().numpy(), pred0.cpu().numpy())
             np.savez(Path(tmp) / "in.npz", ir=ir.cpu().numpy(),
                      vis=vis.cpu().numpy())
+            fresh_path = path
         del loaded, serve, data
         torch.cuda.empty_cache()
     del model, reqs, guide, cal
     torch.cuda.empty_cache()
-    # started now that nothing here is timed; its result is read by
-    # ``fresh_process_check`` after phase (e), which runs meanwhile
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _LOADER, str(fresh[0]),
-         str(Path(tmp) / "in.npz"), str(Path(tmp) / "out.npz")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
     print(f"phase 12 (d): {time.perf_counter() - t0:.1f} s", flush=True)
-    return proc, Path(tmp) / "out.npz", fresh[1:], time.perf_counter()
+    # started after the last timed request; ``fresh_process_check`` reads
+    # its result
+    proc = started(subprocess.Popen(
+        [sys.executable, "-c", _LOADER, str(fresh_path),
+         str(Path(tmp) / "in.npz"), str(Path(tmp) / "out.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT))
+    return proc, Path(tmp) / "out.npz", fresh, time.perf_counter()
 
 
 def fresh_process_check(pending) -> None:
@@ -3213,8 +3493,8 @@ def fresh_process_check(pending) -> None:
           "export: the fresh process's outputs differ")
     print(f"export default: loaded and run in a fresh process importing "
           f"{mods} (done {time.perf_counter() - t1:.1f} s after its start, "
-          f"beside phase 12 (e)); its outputs equal this process's bit for "
-          f"bit", flush=True)
+          f"beside phases 11 (b)-(e) and 12 (c)); its outputs equal this "
+          f"process's bit for bit", flush=True)
 
 
 def repeat_child(seeds) -> None:
@@ -3247,22 +3527,31 @@ def repeat_child(seeds) -> None:
             "weights_sha256": h.hexdigest()}), flush=True)
 
 
-def repeatability(dev):
+def start_repeatability():
+    """Phase 12 (e)'s child process (``repeat_child``), started early:
+    main starts it after the last section that times the card (12 (d)),
+    so that it runs beside the untimed checks of phases 11 (b)-(e) and
+    12 (c)."""
+    seeds = [REPEAT_SEEDS[0], REPEAT_SEEDS[0], REPEAT_SEEDS[1]]
+    return started(subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.repeat_child({seeds})"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)), time.perf_counter()
+
+
+def repeatability(pending):
     """Phase 12 (e): the cut overfit (REPEAT_ITERS of its first round) at
     seed REPEAT_SEEDS[0] twice and at REPEAT_SEEDS[1] once, in one child
-    process in deterministic mode: the two runs at one seed give the same
-    logged losses and final weights bit for bit; the run at the other seed
-    differs (the planted fault: it shows that the check can fail)."""
+    process in deterministic mode (``start_repeatability``'s): the two
+    runs at one seed give the same logged losses and final weights bit for
+    bit; the run at the other seed differs (the planted fault: it shows
+    that the check can fail)."""
     t0 = time.perf_counter()
-    seeds = [REPEAT_SEEDS[0], REPEAT_SEEDS[0], REPEAT_SEEDS[1]]
-    proc = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.repeat_child({seeds})"], capture_output=True,
-        text=True, timeout=600, cwd=ROOT)
+    proc, t_start = pending
+    out, err = proc.communicate(timeout=600)
     check(proc.returncode == 0, f"repeatability: the child failed: "
-                                f"{proc.stderr[-4000:]}")
-    runs = [json.loads(ln) for ln in proc.stdout.splitlines()
-            if ln.startswith("{")]
+                                f"{err[-4000:]}")
+    runs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     check(len(runs) == 3, f"repeatability: {len(runs)} runs")
 
     def same(a, b):
@@ -3285,7 +3574,9 @@ def repeatability(dev):
                               "different seeds")
     print(f"planted fault, repeatability: seed {other['seed']} against seed "
           f"{a['seed']} differs (the check fails, as it must)", flush=True)
-    print(f"phase 12 (e): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 12 (e): {time.perf_counter() - t0:.1f} s (its child "
+          f"started {t0 - t_start:.1f} s before, after phase 12 (d))",
+          flush=True)
 
 
 # Phase 13: the parallel paths (segmif_tpu_torch.parallel), ranks spawned
@@ -4628,7 +4919,6 @@ def main(argv=None) -> int:
                                               crosspath_grams)
     from segmif_tpu_torch.kernels.int8 import (drdb_int8_growth,
                                                drdb_int8_tail)
-    from segmif_tpu_torch.models.network import JointPipeline, init_params
     from segmif_tpu_torch.serving import make_serving_fn, quantize_for_serving
 
     t_start = time.perf_counter()
@@ -4670,6 +4960,7 @@ def main(argv=None) -> int:
         return 0
 
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
+    refs = CpuReferences()
 
     # phase 4: kernels vs plain at main-path shapes
     t0 = time.perf_counter()
@@ -4681,14 +4972,8 @@ def main(argv=None) -> int:
 
     # phase 6 first half: the CPU reference at batch 1, f32 (same weights)
     t0 = time.perf_counter()
-    model = init_params(JointPipeline("mit_b3"),
-                        torch.Generator().manual_seed(SEED)).eval()
-    gen = torch.Generator().manual_seed(SEED + 1)
-    ir1, vis1 = requests(gen, 1, 1, "cpu")[0]
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        _, y_cpu, logits_cpu = model(ir1, vis1)
-    cpu_s = time.perf_counter() - t0
+    model, gen, (ir1, vis1) = pipeline_inputs()
+    y_cpu, logits_cpu, cpu_s = refs.get("pipeline")
     model.to(dev, memory_format=torch.channels_last)
     with torch.inference_mode():
         _, y_gpu, logits_gpu = model(ir1.to(dev), vis1.to(dev))
@@ -4705,7 +4990,8 @@ def main(argv=None) -> int:
               f"network on two devices)", flush=True)
         check(bool(torch.isfinite(got).all()), f"{name} not finite")
         check(err <= rtol * scale, f"pipeline {name} error {err}")
-    print(f"cpu reference forward: {cpu_s:.1f} s", flush=True)
+    print(f"cpu reference forward: {cpu_s:.1f} s (in the CPU references' "
+          f"process)", flush=True)
 
     # phase 6, int8: calibrated on the card; the same amaxes and packed
     # weights on the CPU (plain int8 DRDB). The float path's last-bit
@@ -4828,12 +5114,12 @@ def main(argv=None) -> int:
 
     # phase 8: fusion-phase training
     t0 = time.perf_counter()
-    train_checks(dev, counters)
+    train_checks(dev, counters, refs)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 9: the interactive trainer
     t0 = time.perf_counter()
-    seg_step_checks(dev)
+    seg_step_checks(dev, refs)
     driver_kernel_checks(dev, kres)
     trainer_run(dev, counters, totals)
     seg_step_timing(dev)
@@ -4844,25 +5130,30 @@ def main(argv=None) -> int:
     disk_to_disk(dev, counters, totals, card)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 11: the fusion variants and the accuracy artifact
+    # phases 11 (the fusion variants and the accuracy artifact) and 12
+    # (the stretch, serving export and repeatability): first the sections
+    # that time the card, 11 (a), 12 (a), (b) and (d); then 12 (e)'s child
+    # and the export's fresh process, each on the card beside the untimed
+    # checks 11 (b)-(e) and 12 (c)
     t0 = time.perf_counter()
     variant_serving(dev, counters, totals)
-    variant_card_vs_cpu(dev)
-    attention_maps(dev, counters, totals)
-    accuracy_checks(dev)
-    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # phase 12: the stretch, serving export and repeatability
-    t0 = time.perf_counter()
     stretch_rows = stretch_kernel_checks(dev)
     stretch_cli_checks(dev, counters, totals)
-    stretch_pipeline_checks(dev)
     with tempfile.TemporaryDirectory() as tmp:
         fresh = export_checks(dev, counters, totals, tmp)
-        repeatability(dev)
+        repeat = start_repeatability()
+        print(f"phases 11 (a), 12 (a), (b), (d): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        variant_card_vs_cpu(dev, refs)
+        attention_maps(dev, counters, totals)
+        accuracy_checks(dev)
+        stretch_pipeline_checks(dev, refs)
+        repeatability(repeat)
         fresh_process_check(fresh)
     print(json.dumps({"stretch_kernels": stretch_rows}), flush=True)
-    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phases 11 (b)-(e), 12 (c), (e): {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
 
     # phase 13: the parallel paths
     parallel_checks(dev, totals, card)

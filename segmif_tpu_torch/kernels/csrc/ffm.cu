@@ -24,22 +24,21 @@
 //
 // What bounds it on the H100: device-memory traffic is the three inputs
 // read once per pass and the two outputs written once (about 5 x B x N x
-// 64 elements); the arithmetic is 3 x 2 x 64 x 64 FMA per token in pass A
-// and 7 x 64 x 64 in pass B: below the bf16 ridge, so on tensor cores the
-// bytes are the bound. On CUDA cores in f32 (pass A) the arithmetic is;
-// f32 pass B as 3xTF32 (three TF32 products per f32 product, 0.86 ms at
-// the TF32 peak at [8, 307200, 64]) is bound by its bytes again, 1,280 a
-// token (0.94 ms), and in practice by the issue of instructions: per k8
-// step and n8 tile one 8-byte B read, two splits and three mma.sync.
+// 64 elements); the arithmetic is 3 x (64 x 64 + 64 x 65 / 2) FMA per
+// token in pass A (the projections and the grams' upper triangles) and
+// 7 x 64 x 64 in pass B: below the bf16 ridge, so on tensor cores the
+// bytes are the bound. f32 runs on the tensor cores as 3xTF32 (three TF32
+// products per f32 product): at the TF32 peak pass A's operations take
+// 0.552 ms at [8, 307200, 64] against 0.564 for its bytes, pass B's 0.86
+// against 0.94 (1,280 bytes a token). On the H100 pass B runs at 40 % of
+// that bound, held by its instruction stream (the splits and the fresh
+// accumulators' adds beside each mma.sync), pass A at 38 %.
 //
-// Pass A in f32: 256 threads per block, token tiles of 64; a thread owns
-// a 4x4 micro-tile of a projection or of a gram, so each shared-memory
-// read feeds 4 FMAs. Tiles and weights are staged in shared memory as f32
-// (rows padded to 68 floats). The TPU kernel carries the gram accumulator
-// across a sequential grid; GPU blocks run in parallel and in no order,
-// so pass A writes one partial gram per (image, token chunk) and a second
-// kernel sums the partials in chunk order. No atomics: results are the
-// same from run to run.
+// Pass A writes one partial gram per (image, token chunk, projection):
+// the TPU kernel carries the gram accumulator across a sequential grid;
+// GPU blocks run in parallel and in no order, so a second kernel sums the
+// partials in chunk order. No atomics: results are the same from run to
+// run.
 //
 // Pass A in bf16 (ffm_grams_mma_kernel): both products on tensor cores
 // (mma.sync m16n8k16, f32 accumulation), one projection per block (grid
@@ -47,7 +46,15 @@
 // through a private four-stage cp.async ring. The projection is taken
 // transposed, r^T = W^T x^T, so its accumulators are already the gram's
 // operand fragments (see the kernel); the gram keeps its 10 upper 16x16
-// blocks in registers. Per-(image, chunk, projection) partials as above.
+// blocks in registers.
+//
+// Pass A in f32 (ffm_grams_tf32_kernel; what compute_dtype float32 runs):
+// the bf16 kernel's structure on mma.sync m16n8k8 .tf32 as 3xTF32
+// (common.cuh, split_tf32). W^T's split fragments are staged in shared
+// memory in fragment order (in registers they would take 256); the chained
+// k order of pass B below, in both products (the gram's k is the token);
+// each tile's gram products into fresh accumulators added to the warp's
+// f32 sums (see the kernel).
 //
 // Pass B in bf16 (the serving dtype): the seven products on tensor cores
 // (mma.sync m16n8k16, f32 accumulation), chained in registers.
@@ -97,124 +104,9 @@ namespace segmif {
 namespace {
 
 constexpr int C = 64;           // channels (the fusion trunk width)
-constexpr int TILE = 64;        // tokens per tile
-constexpr int RS = C + 4;       // padded row stride of staged tiles
-constexpr int kThreads = 256;   // 16 x 16 threads, 4x4 micro-tiles
-
-// Stage tokens [n0, n0+TILE) of x (an f32 [N, C] image slice) into
-// dst[TILE][RS]; rows past n_end are zero.
-__device__ __forceinline__ void load_tile(const float* __restrict__ x, int n0,
-                                          int n_end, float* dst) {
-  constexpr int LOADS = TILE * C / 4 / kThreads;
-#pragma unroll
-  for (int r = 0; r < LOADS; ++r) {
-    const int e0 = (threadIdx.x + r * kThreads) * 4;
-    const int t = e0 / C, c = e0 % C;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n0 + t < n_end)
-      v = *reinterpret_cast<const float4*>(x + int64_t(n0 + t) * C + c);
-    *reinterpret_cast<float4*>(dst + t * RS + c) = v;
-  }
-}
-
-// out[TILE][RS] = relu(src @ w + bias) for this thread's 4x4 micro-tile;
-// rows >= valid are written as 0.
-__device__ __forceinline__ void project(const float* src, const float* w,
-                                        const float* bias, float* dst,
-                                        int valid) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = bias[4 * tx + j];
-#pragma unroll 8
-  for (int kk = 0; kk < C; ++kk) {
-    const float4 wv = *reinterpret_cast<const float4*>(w + kk * C + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = src[(4 * ty + i) * RS + kk];
-      acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-      acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-      acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-      acc[i][3] = fmaf(a, wv.w, acc[i][3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool ok = 4 * ty + i < valid;
-    float4 r;
-    r.x = ok ? fmaxf(acc[i][0], 0.f) : 0.f;
-    r.y = ok ? fmaxf(acc[i][1], 0.f) : 0.f;
-    r.z = ok ? fmaxf(acc[i][2], 0.f) : 0.f;
-    r.w = ok ? fmaxf(acc[i][3], 0.f) : 0.f;
-    *reinterpret_cast<float4*>(dst + (4 * ty + i) * RS + 4 * tx) = r;
-  }
-}
+constexpr int TILE = 64;        // chunks are whole 64-token tiles
 
 // ---------------------------------------------------------------- pass A
-
-// f32. grid (n_chunks, B). w: [3][C][C] (the y1, y2, u3 column halves),
-// b: [3][C]. partial: [B][n_chunks][3][C][C].
-__global__ void __launch_bounds__(kThreads)
-    ffm_grams_kernel(const float* __restrict__ x1,
-                     const float* __restrict__ x2,
-                     const float* __restrict__ s, const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     float* __restrict__ partial, int n, int chunk) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3][C][C]
-  float* bs = ws + 3 * C * C;                   // [3][C]
-  float* xs = bs + 3 * C;                       // [TILE][RS]
-  float* rs = xs + TILE * RS;                   // [TILE][RS]
-  for (int i = threadIdx.x; i < 3 * C * C; i += kThreads) ws[i] = w[i];
-  for (int i = threadIdx.x; i < 3 * C; i += kThreads) bs[i] = bias[i];
-
-  const int b = blockIdx.y;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int n_begin = blockIdx.x * chunk;
-  const int n_end = min(n, n_begin + chunk);
-  const float* src[3] = {x1 + int64_t(b) * n * C, x2 + int64_t(b) * n * C,
-                         s + int64_t(b) * n * C};
-  float g[3][4][4];
-#pragma unroll
-  for (int q = 0; q < 3; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[q][i][j] = 0.f;
-
-  for (int n0 = n_begin; n0 < n_end; n0 += TILE) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      load_tile(src[q], n0, n_end, xs);
-      __syncthreads();  // xs ready; every thread is done reading rs
-      project(xs, ws + q * C * C, bs + q * C, rs, n_end - n0);
-      __syncthreads();  // rs ready; every thread is done reading xs
-#pragma unroll 4
-      for (int t = 0; t < TILE; ++t) {
-        const float* row = rs + t * RS;
-        const float4 a = *reinterpret_cast<const float4*>(row + 4 * ty);
-        const float4 c = *reinterpret_cast<const float4*>(row + 4 * tx);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          g[q][i][0] = fmaf(av[i], c.x, g[q][i][0]);
-          g[q][i][1] = fmaf(av[i], c.y, g[q][i][1]);
-          g[q][i][2] = fmaf(av[i], c.z, g[q][i][2]);
-          g[q][i][3] = fmaf(av[i], c.w, g[q][i][3]);
-        }
-      }
-    }
-  }
-  float* out = partial + (int64_t(b) * gridDim.x + blockIdx.x) * 3 * C * C;
-#pragma unroll
-  for (int q = 0; q < 3; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(out + q * C * C + (4 * ty + i) * C + 4 * tx) =
-          make_float4(g[q][i][0], g[q][i][1], g[q][i][2], g[q][i][3]);
-}
 
 // grams[b] = sum over chunks (in chunk order) of partial[b][chunk].
 __global__ void ffm_grams_reduce_kernel(const float* __restrict__ partial,
@@ -717,6 +609,41 @@ constexpr int GSTAGES = 4;               // per-warp ring of 16-token tiles
 constexpr size_t kGramsMmaSmem =
     sizeof(bf16) * kGramWarps * GSTAGES * WT * BRS + sizeof(float) * C * C;
 
+// The block's partial gram, from each warp's 10 upper 16x16 blocks
+// (acc[I * (7 - I) / 2 + J][h]: block (I, J)'s accumulator of n8 half h,
+// lane (g, t) holding rows g, g + 8 and columns 2t, 2t + 1): the warps add
+// them into sg ([C][C] in shared memory) in warp order, mirroring the
+// off-diagonal blocks, and the block writes sg to out ([C][C]).
+__device__ __forceinline__ void store_gram(const float acc[10][2][4],
+                                           float* sg,
+                                           float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  __syncthreads();
+  for (int wi = 0; wi < kGramWarps; ++wi) {
+    if (warp == wi) {
+#pragma unroll
+      for (int I = 0; I < 4; ++I)
+#pragma unroll
+        for (int J = I; J < 4; ++J)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int i = 16 * I + g + 8 * (c >> 1);
+              const int j = 16 * J + 8 * h + 2 * t4 + (c & 1);
+              const float v = acc[I * (7 - I) / 2 + J][h][c];
+              sg[i * C + j] = wi == 0 ? v : sg[i * C + j] + v;
+              if (I != J) sg[j * C + i] = wi == 0 ? v : sg[j * C + i] + v;
+            }
+    }
+    __syncthreads();
+  }
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (int i = threadIdx.x; i < C * C / 4; i += kGramThreads)
+    out4[i] = reinterpret_cast<const float4*>(sg)[i];
+}
+
 // grid (n_chunks, B, 3): block (chunk, b, q) takes projection q (y1, y2,
 // u3) of image b's token chunk. w: f32 [3][C][C] [k][n] (bf16-exact);
 // bias f32 [3][C]; partial: [B][n_chunks][3][C][C].
@@ -843,44 +770,193 @@ __global__ void __launch_bounds__(kGramThreads, 1)
       }
   }
 
-  // the warps' grams into shared memory, added in warp order
-  __syncthreads();
-  for (int wi = 0; wi < kGramWarps; ++wi) {
-    if (warp == wi) {
-#pragma unroll
-      for (int I = 0; I < 4; ++I)
-#pragma unroll
-        for (int J = I; J < 4; ++J)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int i = 16 * I + g + 8 * (c >> 1);
-              const int j = 16 * J + 8 * h + 2 * t4 + (c & 1);
-              const float v = acc[I * (7 - I) / 2 + J][h][c];
-              sg[i * C + j] = wi == 0 ? v : sg[i * C + j] + v;
-              if (I != J) sg[j * C + i] = wi == 0 ? v : sg[j * C + i] + v;
-            }
-    }
-    __syncthreads();
-  }
-  float4* out = reinterpret_cast<float4*>(
-      partial + ((int64_t(b) * gridDim.x + blockIdx.x) * 3 + q) * C * C);
-  for (int i = threadIdx.x; i < C * C / 4; i += kGramThreads)
-    out[i] = reinterpret_cast<const float4*>(sg)[i];
+  store_gram(acc, sg, partial + ((int64_t(b) * gridDim.x + blockIdx.x) * 3 +
+                                 q) * C * C);
 }
 
-constexpr size_t kGramsSmem =
-    sizeof(float) * (3 * C * C + 3 * C + 2 * TILE * RS);
+// ------------------------------------------------ pass A, f32, 3xTF32
+
+constexpr int WFRAG = 2 * C * C;         // W^T's split A fragments (floats)
+constexpr size_t kGramsTf32Smem =
+    sizeof(float) * (WFRAG + kGramWarps * GSTAGES * FTILE + C * C);
+
+// grid (n_chunks, B, 3), 8 warps, as ffm_grams_mma_kernel, on mma.sync
+// m16n8k8 .tf32 as 3xTF32: each f32 operand split into a TF32 big half and
+// its small rest, each product small*big + big*small + big*big. w: f32
+// [3][C][C] [k][n]; bias [3][C]; partial: [B][n_chunks][3][C][C].
+//  - r^T = W^T x^T per 16-token tile, as in bf16. W^T's A fragments, split,
+//    would take 256 registers beside the gram's 80: the block stages them
+//    once in shared memory in fragment order ([m16 tile][k8 step][big |
+//    small][lane][4], 32 KB), and a lane reads the four values of a half
+//    with one 16-byte load (512 contiguous bytes a warp).
+//  - The chained k order of pass B (mma k = t stands for column 2t of an
+//    n8 tile, k = t + 4 for 2t + 1, in both operands alike), in both
+//    products: in the projection k is the input channel, so a lane's two
+//    x values are one 8-byte read of the staged token row (under swz, in
+//    32 banks); in the gram k is the token, so the projection's
+//    accumulators (lane (g, t): r^T[ch g, g + 8][tok 2t, 2t + 1]), after
+//    bias, relu and the split, are at once the gram's A fragments (r^T)
+//    and B fragments (r): each x value is split once as it is read, each
+//    r value once for both roles.
+//  - Fresh accumulators: the tensor cores add into an accumulator with
+//    truncation, and a warp walks about 110 tiles of a main-path chunk;
+//    one accumulator chained over them drifts by 1.5e-5 of the largest
+//    entry (emulated in tests/test_torch_tf32x3.py), beyond the f32
+//    limit. So each tile's 6 mma of a gram block half go into a fresh
+//    accumulator, added to the warp's f32 sum; a fold over two tiles
+//    would need their r fragments too (64 registers a tile, beside the
+//    sum's 80).
+//  - Token tiles through a private four-stage cp.async ring per warp,
+//    [16][64] f32 under swz; rows past n_end are zero-filled, and their
+//    r (relu of the bias) is zeroed before the gram.
+__global__ void __launch_bounds__(kGramThreads, 1)
+    ffm_grams_tf32_kernel(const float* __restrict__ x1,
+                          const float* __restrict__ x2,
+                          const float* __restrict__ s,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ partial, int n, int chunk) {
+  extern __shared__ float4 smem_f4[];
+  float* wf = reinterpret_cast<float*>(smem_f4);  // [4][8][2][32][4]
+  float* rings = wf + WFRAG;                      // [warps][GSTAGES][WT][C]
+  float* sg = rings + kGramWarps * GSTAGES * FTILE;   // [C][C]
+  const int b = blockIdx.y, q = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* x = (q == 0 ? x1 : q == 1 ? x2 : s) + int64_t(b) * n * C;
+  const float* wq = w + q * C * C;
+  const float* bq = bias + q * C;
+  const int n_begin = blockIdx.x * chunk;
+  const int n_end = min(n, n_begin + chunk);
+  float* ring = rings + warp * GSTAGES * FTILE;
+  // this warp's 16-token tile at row0 into ring stage st
+  auto load = [&](int row0, int st) {
+#pragma unroll
+    for (int it = 0; it < WT * 16 / 32; ++it) {
+      const int r = 2 * it + (lane >> 4), c = lane & 15;
+      const bool ok = row0 + r < n_end;
+      cp_async16(ring + st * FTILE + swz(r, 4 * c),
+                 x + int64_t(ok ? row0 + r : 0) * C + 4 * c, ok);
+    }
+  };
+  constexpr int STEP = WT * kGramWarps;
+  int row0 = n_begin + WT * warp;
+#pragma unroll
+  for (int st = 0; st < GSTAGES - 1; ++st) {
+    if (row0 + st * STEP < n_end) load(row0 + st * STEP, st);
+    cp_async_commit();
+  }
+  // W^T's A fragments: element f of lane (g, t) in m16 tile m, k8 step j
+  // is W^T[16 m + g + 8 (f % 2)][8 j + 2 t + f / 2] = wq[k][o]
+  for (int i = threadIdx.x; i < C * C; i += kGramThreads) {
+    const int f = i & 3, l = (i >> 2) & 31, mj = i >> 7;
+    const int k = 8 * (mj & 7) + 2 * (l & 3) + (f >> 1);
+    const int o = 16 * (mj >> 3) + (l >> 2) + 8 * (f & 1);
+    uint32_t big, small;
+    split_tf32(wq[k * C + o], big, small);
+    wf[mj * 256 + 4 * l + f] = __uint_as_float(big);
+    wf[mj * 256 + 128 + 4 * l + f] = __uint_as_float(small);
+  }
+  float bv[4][2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    bv[m][0] = bq[16 * m + g];
+    bv[m][1] = bq[16 * m + g + 8];
+  }
+  float acc[10][2][4];
+#pragma unroll
+  for (int i = 0; i < 10; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][h][c] = 0.f;
+  __syncthreads();  // the fragments of every thread
+
+  for (int i = 0; row0 < n_end; ++i, row0 += STEP) {
+    const int ahead = row0 + (GSTAGES - 1) * STEP;
+    if (ahead < n_end) load(ahead, (i + GSTAGES - 1) % GSTAGES);
+    cp_async_commit();
+    cp_async_wait<GSTAGES - 1>();
+    __syncwarp();
+    const float* tile = ring + (i % GSTAGES) * FTILE;
+    // p[m][nt]: r^T before bias and relu, rows 16 m + g (+ 8), tokens
+    // 8 nt + 2 t (+ 1)
+    float p[4][2][4] = {};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t xb[2][2], xs[2][2];   // B of x^T: b0 = x[8 nt + g][8 j + 2t]
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            tile + swz(8 * nt + g, 8 * j + 2 * t4));
+        split_tf32(v.x, xb[nt][0], xs[nt][0]);
+        split_tf32(v.y, xb[nt][1], xs[nt][1]);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float* fr = wf + (8 * m + j) * 256 + 4 * lane;
+        const uint4 bg = *reinterpret_cast<const uint4*>(fr);
+        const uint4 sm = *reinterpret_cast<const uint4*>(fr + 128);
+        const uint32_t ab[4] = {bg.x, bg.y, bg.z, bg.w};
+        const uint32_t as[4] = {sm.x, sm.y, sm.z, sm.w};
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_tf32(p[m][nt], as, xb[nt][0], xb[nt][1]);
+          mma_tf32(p[m][nt], ab, xs[nt][0], xs[nt][1]);
+          mma_tf32(p[m][nt], ab, xb[nt][0], xb[nt][1]);
+        }
+      }
+    }
+    __syncwarp();  // the stage is refilled by a later iteration's load
+    // r = relu(p + bias), tokens past n_end 0, split: rb / rs[m][nt][c]
+    uint32_t rb[4][2][4], rs[4][2][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = row0 + 8 * nt + 2 * t4 + (c & 1) < n_end;
+          split_tf32(ok ? fmaxf(p[m][nt][c] + bv[m][c >> 1], 0.f) : 0.f,
+                     rb[m][nt][c], rs[m][nt][c]);
+        }
+    // gram blocks (I, J), I <= J, n8 half h: k8 step nt is the tile's
+    // tokens 8 nt .. 8 nt + 7; A = r^T[I] (a0..a3 = c0, c2, c1, c3), B =
+    // r[J]'s half h (b0, b1 = c0, c1 or c2, c3)
+#pragma unroll
+    for (int I = 0; I < 4; ++I)
+#pragma unroll
+      for (int J = I; J < 4; ++J)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const uint32_t ab[4] = {rb[I][nt][0], rb[I][nt][2], rb[I][nt][1],
+                                    rb[I][nt][3]};
+            const uint32_t as[4] = {rs[I][nt][0], rs[I][nt][2], rs[I][nt][1],
+                                    rs[I][nt][3]};
+            mma_tf32(part, as, rb[J][nt][2 * h], rb[J][nt][2 * h + 1]);
+            mma_tf32(part, ab, rs[J][nt][2 * h], rs[J][nt][2 * h + 1]);
+            mma_tf32(part, ab, rb[J][nt][2 * h], rb[J][nt][2 * h + 1]);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[I * (7 - I) / 2 + J][h][c] += part[c];
+        }
+  }
+  store_gram(acc, sg, partial + ((int64_t(b) * gridDim.x + blockIdx.x) * 3 +
+                                 q) * C * C);
+}
 
 int grams_f32(const void* x1, const void* x2, const void* s, const float* w,
               const float* bias, float* partial, int b, int n, int chunk,
               int n_chunks, cudaStream_t stream) {
-  auto kern = ffm_grams_kernel;
-  cudaError_t err = allow_smem(kern, kGramsSmem);
+  cudaError_t err = allow_smem(ffm_grams_tf32_kernel, kGramsTf32Smem);
   if (err != cudaSuccess) return int(err);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  kern<<<dim3(n_chunks, b), kThreads, kGramsSmem, stream>>>(
+  ffm_grams_tf32_kernel<<<dim3(n_chunks, b, 3), kGramThreads,
+                          kGramsTf32Smem, stream>>>(
       f(x1), f(x2), f(s), w, bias, partial, n, chunk);
   return int(cudaGetLastError());
 }

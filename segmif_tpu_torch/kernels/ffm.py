@@ -175,16 +175,14 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _grams_chunk(n: int, bsz: int, dtype: torch.dtype,
-                 device: torch.device) -> int:
+def _grams_chunk(n: int, bsz: int, device: torch.device) -> int:
     """Tokens per block of pass A, a multiple of 64: each image's tokens
-    split so that the grid is about four waves of SMs. bf16 has one block
-    per (image, chunk, projection) and one block per SM (by registers);
-    f32 one per (image, chunk)."""
+    split so that the grid is about four waves of SMs. Either dtype has
+    one block per (image, chunk, projection) and one block per SM (by
+    registers)."""
     tiles = math.ceil(n / _TILE)
-    per_block = 3 if dtype == torch.bfloat16 else 1
-    per_image = max(1, min(tiles, math.ceil(
-        4 * _sm_count(device) / (bsz * per_block))))
+    per_image = max(1, min(tiles, math.ceil(4 * _sm_count(device) /
+                                            (3 * bsz))))
     return math.ceil(tiles / per_image) * _TILE
 
 
@@ -192,9 +190,10 @@ def crosspath_grams(x1, x2, s, wp, bp) -> torch.Tensor:
     """Pass A: [B, 3, C, C] f32 grams, through the operator
     ``segmif::ffm_grams`` (``ffm_grams_op``). CPU tensors take the plain
     version (through autograd when a gradient is needed); CUDA tensors
-    launch ``segmif_ffm_grams``: per-(image, token-chunk) partial grams
-    (in bf16 the tensor-core kernel, one projection per block; in f32 the
-    CUDA-core kernel), then an in-order sum over the chunks."""
+    launch ``segmif_ffm_grams``: per-(image, token-chunk, projection)
+    partial grams on the tensor cores (bf16 products, or f32 as 3xTF32:
+    each operand split into two TF32 halves, each product big*big +
+    big*small + small*big), then an in-order sum over the chunks."""
     if x1.device.type == "cpu" and _build.needs_grad(x1, x2, s, wp, bp):
         return crosspath_grams_ref(x1, x2, s, wp, bp)
     if x1.is_cuda:
@@ -213,7 +212,7 @@ def ffm_grams_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
     partial grams and the output are allocated here."""
     _check_aligned("crosspath_grams", x1, x2, s)
     bsz, n, c = x1.shape
-    chunk = _grams_chunk(n, bsz, x1.dtype, x1.device)
+    chunk = _grams_chunk(n, bsz, x1.device)
     n_chunks = math.ceil(n / chunk)
     partial = torch.empty((bsz, n_chunks, 3, c, c), dtype=torch.float32,
                           device=x1.device)

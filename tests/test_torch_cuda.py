@@ -13,7 +13,7 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    2^-21 of each), atol 1e-5 (attention) / 1e-4 (FFM apply, whose
    LayerNorm scales errors by 1/std), rtol 0. The 3xTF32 kernels run on
    an A operand rounded to TF32 (a dropped small*big product: Q, x, the
-   tail's r1..r5, the apply's s) must fail the f32 limits:
+   tail's r1..r5, the apply's s, the grams' W) must fail the f32 limits:
    test_f32_check_catches_a_dropped_small_big_product; the f32 tail and
    apply hold theirs on seeds 0-4 at the main-path shapes:
    test_f32_tail_and_apply_limits_hold_over_seeds; f32 apply faults fail
@@ -32,9 +32,14 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    on other seeds at those shapes: test_bf16_limits_hold_over_seeds. A
    planted fault fails one of the two limits:
    test_sr_attention_and_apply_checks_catch_a_fault.
- - grams: 1e-4 relative to their largest entry in f32 (non-negative
-   summands in another order), 1e-3 in bf16 (rare one-step flips of an
-   activation).
+ - grams: in f32 1e-5 relative to the largest entry of the plain maths
+   summed in f64 (3xTF32 products with the tensor cores' truncating
+   adds; the f32 plain version's own sums over 10^5 tokens and more
+   drift by more than that), 1e-3 in bf16 against the plain version
+   (rare one-step flips of an activation). The f32 grams hold it on
+   seeds 0-4 at the main-path shape (test_f32_grams_limit_holds_over_
+   seeds); a zeroed bias, swapped projections (test_f32_grams_check_
+   catches_a_fault) and W rounded to TF32 fail it.
  - DRDB, per element: |got - ref| <= atol + rtol * (|ref| + |ref - x|),
    the last term only for the tail and the block, whose output is x plus
    a bottleneck term rounded on its own. f32: 1e-4 and 1e-4, for sums in
@@ -122,7 +127,7 @@ SR_TOL = {torch.float32: (0.0, 1e-5, 1.0),
           torch.bfloat16: (2 ** -7, 2 ** -14, 0.02)}
 APPLY_TOL = {torch.float32: (0.0, 1e-4, 1.0),
              torch.bfloat16: (2 ** -7, 2 ** -5, 0.01)}
-GRAM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+GRAM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # DRDB (rtol, atol) per element
 GROWTH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
 TAIL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -10)}
@@ -284,6 +289,16 @@ def test_sr_attention_refuses_what_it_does_not_take(cuda):
     assert g.shape == q.shape and bool(torch.isfinite(g).all())
 
 
+def _gram_want(x1, x2, s, wp, bp):
+    """What a grams run is held to under GRAM_RTOL: the plain version in
+    bf16; in f32 its maths summed in f64 (chip_smoke.gram_ref)."""
+    if x1.dtype == torch.bfloat16:
+        return crosspath_grams_ref(x1, x2, s, wp, bp)
+    w, b = kffm._halves(wp, bp, torch.float32, kffm._GRAM_PICKS)
+    return kffm._grams_plain(x1.double(), x2.double(), s.double(),
+                             w.double(), b.double())
+
+
 def _ffm_inputs(gen, b, n, dtype, device):
     c = 64
     xs = [_randn(gen, (b, n, c), dtype, device) for _ in range(3)]
@@ -309,7 +324,7 @@ def test_ffm_grams_kernel_matches_plain(cuda, dtype, b, n):
     (x1, x2, s), wp, bp, _, _, _ = _ffm_inputs(g, b, n, dtype, cuda)
     with torch.inference_mode():
         got = crosspath_grams(x1, x2, s, wp, bp)
-        want = crosspath_grams_ref(x1, x2, s, wp, bp)
+        want = _gram_want(x1, x2, s, wp, bp)
     torch.cuda.synchronize()
     assert got.shape == (b, 3, 64, 64) and got.dtype == torch.float32
     scale = want.abs().max().item()
@@ -379,6 +394,38 @@ def test_f32_tail_and_apply_limits_hold_over_seeds(cuda, seed):
                 crosspath_apply_rows(*xs, wp, bp, mats, be, lnp),
                 crosspath_apply_rows_ref(*xs, wp, bp, mats, be, lnp)):
             assert _close(got, want, APPLY_TOL[f32])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_f32_grams_limit_holds_over_seeds(cuda, seed):
+    """The f32 grams (3xTF32 on mma.sync) hold GRAM_RTOL against the
+    plain maths summed in f64 on seeds 0-4 at [8, 307200, 64]."""
+    g = torch.Generator().manual_seed(seed)
+    xs, wp, bp, _, _, _ = _ffm_inputs(g, 8, 307200, torch.float32, cuda)
+    with torch.inference_mode():
+        got = crosspath_grams(*xs, wp, bp)
+        want = _gram_want(*xs, wp, bp)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= GRAM_RTOL[torch.float32] * \
+        want.abs().max().item()
+
+
+@pytest.mark.parametrize("fault", ["bias_zeroed", "y1_y2_swapped"])
+def test_f32_grams_check_catches_a_fault(cuda, fault):
+    """The f32 grams run with y1's bias zeroed, or with the y1 and y2
+    projections swapped, fail the f32 limit against the true ones."""
+    g = torch.Generator().manual_seed(33)
+    xs, wp, bp, _, _, _ = _ffm_inputs(g, 2, 4097, torch.float32, cuda)
+    with torch.inference_mode():
+        want = _gram_want(*xs, wp, bp)
+        if fault == "bias_zeroed":
+            bp = torch.cat([bp[:1] * 0, bp[1:]])
+        else:
+            wp = wp[[1, 0, 2]]
+        got = crosspath_grams(*xs, wp, bp)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) > GRAM_RTOL[torch.float32] * \
+        want.abs().max().item()
 
 
 @pytest.mark.parametrize("fault", ["be_zeroed", "m1_m3_swapped",
@@ -532,17 +579,25 @@ def test_drdb_growth_f32_any_shape_and_channel_slice(cuda, b, h, w, sliced):
 
 
 @pytest.mark.parametrize("kernel", ["sr_attention", "drdb_growth",
-                                    "drdb_tail", "ffm_apply"])
+                                    "drdb_tail", "ffm_apply", "ffm_grams"])
 def test_f32_check_catches_a_dropped_small_big_product(cuda, kernel):
     """Without its small*big product a 3xTF32 kernel multiplies A's TF32
     half alone: the same as the kernel run on A rounded to TF32 (Q for
     sr-attention's logits, x for the first growth conv, s for the apply's
-    y3; for the tail, whose x is also its residual, B: the bottleneck
-    rounded, its big*small product dropped). That run fails the f32 limit
-    against the plain version on the true inputs; the true run holds
-    it."""
+    y3, W for the grams' projections; for the tail, whose x is also its
+    residual, B: the bottleneck rounded, its big*small product dropped).
+    That run fails the f32 limit against the plain version on the true
+    inputs; the true run holds it."""
     with torch.inference_mode():
-        if kernel == "sr_attention":
+        if kernel == "ffm_grams":
+            xs, wp, bp, _, _, _ = _ffm_inputs(
+                torch.Generator().manual_seed(34), 2, 4097, torch.float32,
+                cuda)
+            want = _gram_want(*xs, wp, bp)
+            top = GRAM_RTOL[torch.float32] * want.abs().max().item()
+            held = [_max_err(crosspath_grams(*xs, w, bp), want) <= top
+                    for w in (wp, _build.tf32_big(wp))]
+        elif kernel == "sr_attention":
             q, k, v = _sr_inputs(26, 2, 4800, 300, 2, 64, torch.float32,
                                  cuda)
             want = sr_attention_ref(q, k, v, 0.125)
@@ -598,6 +653,8 @@ def test_f32_kernels_repeat_bit_for_bit(cuda):
             rs, drdb_growth(x, dconvs)))
         assert torch.equal(drdb_tail(x, rs, wb, bb),
                            drdb_tail(x, rs, wb, bb))
+        assert torch.equal(crosspath_grams(*xs, *ws[:2]),
+                           crosspath_grams(*xs, *ws[:2]))
         assert all(torch.equal(a, b) for a, b in zip(
             crosspath_apply_rows(*xs, *ws), crosspath_apply_rows(*xs, *ws)))
 

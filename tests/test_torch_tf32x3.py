@@ -1,30 +1,34 @@
 """The f32 kernels' 3xTF32 arithmetic, emulated in plain PyTorch on the CPU.
 
-The f32 sr-attention, DRDB tail and FFM apply (mma.sync m16n8k8 .tf32) and
-the DRDB growth (wgmma .tf32) kernels split each f32 operand a into big =
-a rounded to TF32 (10 mantissa bits; nearest, ties away from zero) and
-small = a - big, and compute each product as big*big + big*small +
-small*big in f32 accumulators; the tensor cores read small as TF32, its
-low 13 bits ignored ("truncated"). Here the same arithmetic runs in torch
-(``mm``): the products of each group of k8 steps that the kernel sends
-into one fresh accumulator summed exactly (f64) and added to an f32 sum
-(sr-attention and the growth here per k8 step; the tail per 32-channel
-chunk and the apply per product, as their kernels do, with the tensor
-cores' adds inside one rounded toward zero). Each
-emulation is held against an f64 reference within half of
-chip_smoke.py's unchanged f32 limits (SR_TOL["float32"]: atol 1e-5;
-GROWTH_TOL and TAIL_TOL["float32"]: rtol and atol 1e-4; APPLY_TOL
-["float32"]: atol 1e-4), with small fed truncated and, as the
-alternative, rounded (both hold: the sr-attention cases read up to 0.055
-of the limit, the growth 0.005, the tail 0.003, the apply 0.035); a 1xTF32
+The f32 sr-attention, DRDB tail, FFM grams and FFM apply (mma.sync
+m16n8k8 .tf32) and the DRDB growth (wgmma .tf32) kernels split each f32
+operand a into big = a rounded to TF32 (10 mantissa bits; nearest, ties
+away from zero) and small = a - big, and compute each product as
+big*big + big*small + small*big in f32 accumulators; the tensor cores
+read small as TF32, its low 13 bits ignored ("truncated"). Here the same
+arithmetic runs in torch (``mm``): the products of each group of k8 steps
+that the kernel sends into one fresh accumulator summed exactly (f64) and
+added to an f32 sum (sr-attention and the growth here per k8 step; the
+tail per 32-channel chunk, the apply per product and the grams per
+16-token tile, as their kernels do, with the tensor cores' adds inside
+one rounded toward zero). Each emulation is held against an f64
+reference within half of chip_smoke.py's f32 limits (SR_TOL["float32"]:
+atol 1e-5; GROWTH_TOL and TAIL_TOL["float32"]: rtol and atol 1e-4;
+APPLY_TOL["float32"]: atol 1e-4; GRAM_RTOL["float32"]: 1e-5 of the
+largest entry), with small fed truncated and, as the alternative, rounded
+(both hold: the sr-attention cases read up to 0.055 of the limit, the
+growth 0.005, the tail 0.003, the apply 0.035, the grams 0.11); a 1xTF32
 version (big*big alone) must exceed the same limits twice over (it reads
-27-112x, 3.4-5.2x, 3.2-3.9x and 15-17x), so the limits tell the two
-apart. The apply's chained products take the accumulator's columns 2t,
-2t + 1 as mma k = t, t + 4, and the matrices' rows likewise; rows read in
-the plain order fail. Also the f32 growth packing (big and small halves,
-16-channel chunks) and the tail's ([n][k]) by their index formulas and
-round trips, and the f32 tail's and apply's shared-memory layouts as the
-kernels read them (each read finds its element, in 32 distinct banks).
+27-112x, 3.4-5.2x, 3.2-3.9x, 15-17x and 15x), so the limits tell
+the two apart. The apply's and the grams' chained products take the
+accumulator's columns 2t, 2t + 1 as mma k = t, t + 4, and the other
+operand's rows likewise (the grams' k is the token); rows read in the
+plain order fail. The grams need their fresh accumulators: chained over a
+warp's tiles they drift past the limit. Also the f32 growth packing (big
+and small halves, 16-channel chunks) and the tail's ([n][k]) by their
+index formulas and round trips, the grams' staged W^T fragments, and the
+f32 tail's and apply's shared-memory layouts as the kernels read them
+(each read finds its element, in 32 distinct banks).
 
 No card: CPU tensors only.
 """
@@ -534,3 +538,151 @@ def test_f32_apply_shared_memory_reads():
             for half in (slice(0, 16), slice(16, 32)):
                 banks = np.concatenate([at[half] % 32, (at[half] + 1) % 32])
                 assert len(set(banks)) == 32
+
+
+# ------------------------------------------------------------ the f32 grams
+
+GRAM_RTOL_F32 = 1e-5              # chip_smoke.GRAM_RTOL["float32"]
+
+
+def _token_order(tiles: int = 1, order=None):
+    """The gram's k order over ``tiles`` 16-token tiles: in the tile's k8
+    step j, mma k = t (t < 4) stands for token 8 j + 2 t and k = t + 4 for
+    8 j + 2 t + 1, where the projection's accumulator holds tokens 2 t and
+    2 t + 1 (``order``: another order within a tile)."""
+    if order is None:
+        order = torch.tensor([8 * j + 2 * t + h for j in range(2)
+                              for h in (0, 1) for t in range(4)])
+    return torch.cat([16 * i + order for i in range(tiles)])
+
+
+def _grams_case(seed, b=2, n=3000):
+    """Pass A's operands as chip_smoke draws them: x1, x2, s [B, N, 64],
+    the picked projection halves w [3, 64, 64] and b [3, 64]
+    (``_halves``)."""
+    rng = np.random.default_rng(seed)
+
+    def r(shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std
+                                 ).astype(np.float32))
+
+    xs = [r((b, n, 64)) for _ in range(3)]
+    w, bias = tffm._halves(r((3, 64, 128), 64 ** -0.5), r((3, 128), 0.1),
+                           torch.float32, tffm._GRAM_PICKS)
+    return xs, w, bias
+
+
+def grams_emulated(x1, x2, s, w, bias, terms, small, chunk=1024, warps=8,
+                   b_order=None, fresh=True):
+    """The f32 grams kernel's arithmetic: r = relu(x w + b) per token
+    (``mm``: its 8 k8 steps in one fresh accumulator, one mma at a time
+    rounded toward zero), tokens past N zero; per (image, chunk of
+    ``chunk`` tokens, projection) warp i of ``warps`` walks the chunk's
+    16-token tiles i, i + warps, ...; each tile's r^T r (k the tile's
+    tokens in the chained order, ``_token_order``; ``b_order`` reads r's
+    rows in another) goes into a fresh accumulator (``mm``, fold 2:
+    the tile's two k8 steps, truncating) added to the warp's f32 sum
+    (``fresh`` False: all of a warp's tiles chained on one accumulator);
+    the warps' sums added in warp order, then the chunks' in chunk order.
+    x_i [B, N, 64], w [3, 64, 64], bias [3, 64] -> [B, 3, 64, 64]."""
+    n = x1.shape[1]
+    out = torch.zeros(x1.shape[0], 3, 64, 64)
+    for q, x in enumerate((x1, x2, s)):
+        r = torch.relu(mm(x, w[q], terms, small, fold=8, truncate=True)
+                       + bias[q])
+        r = torch.cat([r, r.new_zeros(r.shape[0], (-n) % 16, 64)], 1)
+        tiles = r.unflatten(1, (-1, 16))             # [B, T, 16, 64]
+        per = chunk // 16
+        for t0 in range(0, tiles.shape[1], per):
+            block = None
+            for i in range(warps):
+                mine = tiles[:, t0 + i:t0 + per:warps]
+                if mine.shape[1] == 0:
+                    continue
+                k = mine.shape[1]
+                a = mine.flatten(1, 2)[:, _token_order(k)]
+                bb = mine.flatten(1, 2)[:, _token_order(k, b_order)]
+                g = mm(a.transpose(1, 2), bb, terms, small,
+                       fold=2 if fresh else 2 * k, truncate=True)
+                block = g if block is None else block + g
+            out[:, q] = out[:, q] + block
+    return out
+
+
+def _grams_want(x1, x2, s, w, bias):
+    """Pass A's plain maths (``_grams_plain``) in f64."""
+    return tffm._grams_plain(x1.double(), x2.double(), s.double(),
+                             w.double(), bias.double())
+
+
+def _gram_err(got, want):
+    """Largest |got - ref| over the largest |ref| (chip_smoke's gram
+    check)."""
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("small", ["truncated", "rounded"])
+def test_grams_3xtf32_holds_the_f32_limit(small):
+    """Two images of 3000 tokens (a ragged last tile) in chunks of 1024:
+    the emulation reads about 0.1 of the limit."""
+    xs, w, bias = _grams_case(11)
+    got = grams_emulated(*xs, w, bias, 3, small)
+    assert got.shape == (2, 3, 64, 64)
+    assert _gram_err(got, _grams_want(*xs, w, bias)) <= 0.5 * GRAM_RTOL_F32
+
+
+def test_grams_1xtf32_fails_the_f32_limit():
+    """W rounded to TF32 moves every token's projection alike: 1xTF32
+    reads about 15 times the limit."""
+    xs, w, bias = _grams_case(11)
+    got = grams_emulated(*xs, w, bias, 1, "truncated")
+    assert _gram_err(got, _grams_want(*xs, w, bias)) > 2 * GRAM_RTOL_F32
+
+
+def test_grams_token_order_must_match_in_a_and_b():
+    """The gram's k is the token: r's rows read in the plain fragment
+    order (k = t is token 8 j + t) against r^T's chained columns pair
+    different tokens and fail the limit."""
+    xs, w, bias = _grams_case(12, b=1, n=1000)
+    got = grams_emulated(*xs, w, bias, 3, "truncated",
+                         b_order=torch.arange(16))
+    assert _gram_err(got, _grams_want(*xs, w, bias)) > 2 * GRAM_RTOL_F32
+
+
+def test_grams_need_fresh_accumulators():
+    """One warp over 188 tiles (a main-path warp walks about 110): chained
+    on one accumulator through the tensor cores' truncating adds, its
+    gram drifts beyond the limit; a fresh accumulator per tile holds half
+    of it."""
+    xs, w, bias = _grams_case(13, b=1)
+    want = _grams_want(*xs, w, bias)
+    kw = {"chunk": 3008, "warps": 1}
+    assert _gram_err(grams_emulated(*xs, w, bias, 3, "truncated", **kw),
+                     want) <= 0.5 * GRAM_RTOL_F32
+    assert _gram_err(grams_emulated(*xs, w, bias, 3, "truncated",
+                                    fresh=False, **kw), want) > GRAM_RTOL_F32
+
+
+def test_f32_grams_w_fragments_by_index_formula():
+    """The f32 grams kernel stages W^T's A fragments in shared memory:
+    float i of a half holds element f = i % 4 of lane l = (i / 4) % 32 in
+    m16 tile m and k8 step j (mj = i / 128 = 8 m + j), W^T[o][k] = w[k][o]
+    at o = 16 m + g + 8 (f % 2), k = 8 j + 2 t + f / 2 for lane (g, t):
+    the A fragment (a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3
+    = A[g + 8][t + 4]) with mma k = t standing for channel 8 j + 2 t and
+    k = t + 4 for 8 j + 2 t + 1, x's chained order. Every (k, o) is
+    staged once, and m16 tile m, k8 step j holds rows 16 m .. 16 m + 15
+    and channels 8 j .. 8 j + 7."""
+    i = np.arange(64 * 64)
+    f, lane, mj = i % 4, (i // 4) % 32, i // 128
+    g, t = lane // 4, lane % 4
+    m, j = mj // 8, mj % 8
+    k = 8 * j + 2 * t + f // 2
+    o = 16 * m + g + 8 * (f % 2)
+    assert len(set(zip(k, o))) == 64 * 64
+    assert ((o // 16 == m) & (k // 8 == j)).all()
+    # A's element (row, column) of the mma, and the channel column stands for
+    row = g + 8 * (f % 2)
+    col = t + 4 * (f // 2)
+    np.testing.assert_array_equal(o, 16 * m + row)
+    np.testing.assert_array_equal(k, 8 * j + 2 * (col % 4) + col // 4)
