@@ -6,7 +6,7 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 or phases 1-3, 13 and 14 alone: on one card as in the whole run, and on
-a host with several cards phase 13 (a), (c), (d) and (e) and phase 14
+a host with several cards phase 13 (a), (c)-(f) and phase 14
 with one rank per card, over NCCL:
 
     python3 chip_smoke.py --parallel
@@ -215,11 +215,19 @@ the untimed 11 (b)-(e) and 12 (c)):
     stretch pair fused by ``make_spatial_fuse_fn`` on 2 and 7 (blocks of
     uneven height) ranks of the card, f32 and bf16, against one rank, with each rank's launches (9 sr-attention, 2 + 2 FFM, 4 + 4
     DRDB a pair) and two planted faults that must fail (a halo of 8 rows,
-    the FFM grams not summed); (e) each path's time beside one process's,
-    with the card's name and power limit (ranks sharing one card measure
-    the parallel paths' overhead, not a speed-up). With ``--parallel`` on
-    a host of N >= 2 cards: (a), (d) on N ranks and (c) on 2 and N, one
-    rank a card, over NCCL;
+    the FFM grams not summed); (f) several hosts: 4 ranks as 2 emulated
+    hosts (torchrun nodes) x 2 (``dist.launch(ranks_per_host=2)``), each
+    host reading its stride of (a)'s batches through the ``Prefetcher``
+    (``shard_by_process``: 4 of the 8 fusion rows, 2 of the 4 seg rows),
+    the f32 fusion and seg steps against one process on the hosts'
+    batches concatenated under (a)'s f32 limits, the hosts' rows disjoint
+    and one epoch, the launches of each step on each rank, a planted fault
+    that must fail (every host on host 0's stride); (e) each path's time
+    beside one process's, with the card's name and power limit (ranks
+    sharing one card measure the parallel paths' overhead, not a
+    speed-up). With ``--parallel`` on a host of N >= 2 cards: (a), (d) on
+    N ranks, (c) on 2 and N and (f) on 4, one rank a card, over NCCL (on
+    fewer than 4 cards (f)'s ranks share them over gloo);
 14. tensor parallelism (``segmif_tpu_torch.parallel.tensor``) on 4 ranks
     this script spawns (their launches join the kernels line): ranks 0-1
     one model group (TP 2), all four one model group (TP 4) and a data 2 x
@@ -3646,6 +3654,12 @@ SPATIAL_TOL = {"float32": (PIPE_RTOL["fused_y"], 0.0),
                "bfloat16": (2 ** -7, 2 ** -6)}
 SPATIAL_TIMED = 1
 SHARED_NOTE = "; ranks sharing one card measure overhead, not speed-up"
+# (f) several hosts: 2 emulated hosts (torchrun nodes) of 2 ranks
+# (``dist.launch(ranks_per_host=)``), each host reading its stride of the
+# 8 (fusion) or 4 (seg) rows of (a)'s batches through the Prefetcher,
+# seeded HOSTS_SEED: the global batch is the hosts' batches concatenated
+HOSTS, PER_HOST = 2, 2
+HOSTS_SEED = SEED + 135
 
 
 def par_backbone() -> str:
@@ -3719,12 +3733,14 @@ def _dp_models():
 
 
 def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
-             kinds=("fusion", "seg"), fusion_batch=None, mesh=None):
+             kinds=("fusion", "seg"), fusion_batch=None, mesh=None,
+             seg_batch=None):
     """One round >= 2 fusion step and one seg step (3-group AdamW,
     drop-path, dropout, BatchNorm) of copies of ``models``
-    (``_dp_models``) on phase 13's batches (the fusion step's replaced by
-    ``fusion_batch`` when given), in ``dtype``; under ``shard`` on this
-    rank's rows; with ``mesh`` the copies split over its model groups
+    (``_dp_models``) on phase 13's batches (replaced by ``fusion_batch``
+    and ``seg_batch`` when given: under ``shard``, the host's batches), in
+    ``dtype``; under ``shard`` on this rank's rows; with ``mesh`` the
+    copies split over its model groups
     (phase 14); the steps of ``kinds`` only. Returns
     {'fusion' | 'seg': {'metrics', 'grads', 'before', 'after', 'dwa' |
     'stats', 'launches', 'ms'}} with tensors on the CPU, split leaves
@@ -3744,9 +3760,11 @@ def dp_steps(models, dev, dtype, shard=None, timed=0, counters=None,
     if mesh is not None:
         tensor_parallel(joint, mesh)
         tensor_parallel(seg, mesh)
-    fusion_default, seg_batch = _dp_batches()
+    fusion_default, seg_default = _dp_batches()
     if fusion_batch is None:
         fusion_batch = fusion_default
+    if seg_batch is None:
+        seg_batch = seg_default
     if shard is not None:
         fusion_batch = shard[0].take(fusion_batch)
         seg_batch = shard[1].take(seg_batch)
@@ -4064,6 +4082,126 @@ def dp_rank(comm):
     return out
 
 
+class _Rows:
+    """A batch of tensors {'ir', 'vis', 'guide', 'label'} as a dataset of
+    its rows (name, ir, vis, guide, label), for the ``Prefetcher``."""
+
+    def __init__(self, batch):
+        self.b = {k: v.numpy() for k, v in batch.items()}
+
+    def __len__(self):
+        return len(self.b["label"])
+
+    def __getitem__(self, i):
+        b = self.b
+        return str(i), b["ir"][i], b["vis"][i], b["guide"][i], b["label"][i]
+
+
+def host_read(batch, hosts, host=None):
+    """This host's first ``Prefetcher`` batch of a global ``batch``
+    (B / ``hosts`` rows from its stride, the labels in their own dtype)
+    and the rows it took; with ``host`` given, host ``host``'s
+    (``pipeline.host_layout`` patched while it reads)."""
+    import torch
+
+    from segmif_tpu_torch.data import pipeline
+
+    real = pipeline.host_layout
+    if host is not None:
+        pipeline.host_layout = lambda: (host, hosts)
+    try:
+        pf = pipeline.Prefetcher(_Rows(batch), len(batch["label"]) // hosts,
+                                 seed=HOSTS_SEED, use_native=False)
+        try:
+            got = next(iter(pf))
+        finally:
+            pf.close()
+    finally:
+        pipeline.host_layout = real
+    got["label"] = got["label"].astype(batch["label"].numpy().dtype)
+    return {k: torch.from_numpy(v) for k, v in got.items()}, \
+        pf.indices.tolist()
+
+
+def hosts_rank(comm):
+    """Phase 13 (f) on one rank of ``HOSTS`` emulated hosts of
+    ``PER_HOST`` ranks: rank 0 first runs the one-process f32 steps on the
+    hosts' ``Prefetcher`` batches of (a)'s batches concatenated in host
+    order (timed) while the others wait; then every rank reads its host's
+    batches, runs the DP f32 steps on its rows of them (counted, timed) and
+    the planted fault (every host on host 0's stride, the fusion step).
+    Rank 0 returns the lines and verdicts; every rank its layout, its
+    host's rows and its launches."""
+    import torch
+
+    from segmif_tpu_torch.parallel import dist
+    from segmif_tpu_torch.parallel.mesh import batch_shard, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = comm.device
+    counters = _counters()
+    host, hosts = dist.host_layout()
+    mesh = make_mesh(comm=comm)
+    fusion, seg = _dp_batches()
+    seg = {"ir": seg["image"], "vis": seg["image"], "guide": seg["image"],
+           "label": seg["label"]}
+
+    def seg_step(b):
+        return {"image": b["guide"], "label": b["label"]}
+
+    models = _dp_models()
+    f32 = torch.float32
+    out = {"transport": comm.transport, "lines": [], "ok": True,
+           "layout": (host, hosts, mesh.host, mesh.hosts, mesh.local_rank)}
+    secs = [time.perf_counter()]
+    if comm.rank == 0:
+        whole = [{k: torch.cat([host_read(b, hosts, h)[0][k]
+                                for h in range(hosts)]) for k in b}
+                 for b in (fusion, seg)]
+        one = dp_steps(models, dev, f32, timed=DP_TIMED,
+                       fusion_batch=whole[0], seg_batch=seg_step(whole[1]))
+    comm.barrier()
+    secs.append(time.perf_counter())
+    mine, out["rows"] = host_read(fusion, hosts)
+    mine_seg, _ = host_read(seg, hosts)
+    shard = (batch_shard(mesh, DP_FUSION[0]), batch_shard(mesh, DP_SEG[0]))
+    got = dp_steps(models, dev, f32, shard, timed=DP_TIMED,
+                   counters=counters, fusion_batch=mine,
+                   seg_batch=seg_step(mine_seg))
+    same = all(_agree(comm, {**got[k]["grads"], **got[k]["after"]})
+               for k in got)
+    out["launches"] = {k: got[k]["launches"] for k in got}
+    if comm.rank == 0:
+        out["ms"] = {k: (got[k]["ms"], one[k]["ms"]) for k in got}
+        res = dp_compare(f"hosts (f) float32, {hosts} hosts x "
+                         f"{comm.world // hosts} ranks", got, one, "float32")
+        out["lines"] += [ln for _, ln in res] + [
+            f"hosts (f): every rank's gradients and weights the same: "
+            f"{same}"]
+        out["ok"] = same and all(ok for ok, _ in res)
+    del got
+    secs.append(time.perf_counter())
+    bad_batch, out["fault_rows"] = host_read(fusion, hosts, host=0)
+    bad = dp_steps(models, dev, f32, shard, kinds=("fusion",),
+                   fusion_batch=bad_batch)
+    if comm.rank == 0:
+        res = dp_compare("planted fault, hosts (f), every host on host 0's "
+                         "stride", bad, one, "float32")
+        out["lines"] += [ln + (" (holds)" if ok else
+                               " (the check fails, as it must)")
+                         for ok, ln in res]
+        out["ok"] = out["ok"] and not all(ok for ok, _ in res)
+    del bad
+    torch.cuda.empty_cache()
+    secs.append(time.perf_counter())
+    out["lines"].append(
+        f"hosts (f) seconds on rank 0: one process {secs[1] - secs[0]:.1f},"
+        f" DP steps {secs[2] - secs[1]:.1f}, planted fault "
+        f"{secs[3] - secs[2]:.1f}")
+    return out
+
+
 def spatial_rank(comm, worlds):
     """Phase 13 (c) on one of the spatial ranks: rank 0 first fuses the
     stretch pair on its own (f32 and bf16) while the others wait; then
@@ -4182,6 +4320,7 @@ def parallel_checks(dev, totals, card: str):
     with tempfile.TemporaryDirectory() as tmp:
         nccl_check(dev, tmp)
         dp_checks(totals, card, tmp)
+        hosts_checks(totals, card, tmp)
         spatial_checks(totals, card, tmp)
     print(f"phase 13: {time.perf_counter() - t_all:.1f} s", flush=True)
 
@@ -4280,6 +4419,54 @@ def dp_checks(totals, card, tmp, world=DP_WORLD):
           "parallel (d): the ranks' dry-run lines differ")
     print(f"parallel (a)+(d): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return r0["transport"]
+
+
+def hosts_checks(totals, card, tmp):
+    """Phase 13 (f) and its part of (e): ``HOSTS`` emulated hosts of
+    ``PER_HOST`` ranks (on one card, or one card each)."""
+    from segmif_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    world = HOSTS * PER_HOST
+    res = dist.launch(hosts_rank, world, (), device="cuda", timeout=600,
+                      workdir=tmp, ranks_per_host=PER_HOST)
+    r0 = res[0]
+    print(f"parallel (f) ranks: {HOSTS} hosts x {PER_HOST} on {card}: "
+          f"{r0['transport']}", flush=True)
+    for ln in r0["lines"]:
+        print(ln, flush=True)
+    check(r0["ok"], "parallel (f): a multi-host check failed, or the "
+                    "planted fault passed")
+    for r, out in enumerate(res):
+        h = r // PER_HOST
+        check(tuple(out["layout"]) == (h, HOSTS, h, HOSTS, r % PER_HOST),
+              f"parallel (f) rank {r}: layout {out['layout']}")
+        check(out["rows"] == res[h * PER_HOST]["rows"] and
+              out["fault_rows"] == res[0]["rows"],
+              f"parallel (f) rank {r}: rows {out['rows']}, fault rows "
+              f"{out['fault_rows']}")
+        for kind, counts in out["launches"].items():
+            check(counts == DP_EXPECT[kind],
+                  f"parallel (f) rank {r} {kind}: launches {counts}, "
+                  f"expected {DP_EXPECT[kind]}")
+            for k, v in counts.items():
+                totals[k] += v
+    rows = [res[h * PER_HOST]["rows"] for h in range(HOSTS)]
+    union = sorted(x for r in rows for x in r)
+    check(union == list(range(DP_FUSION[0])),
+          f"parallel (f): the hosts' rows {rows} are not one epoch, "
+          "disjoint")
+    print(f"parallel (f) the hosts' fusion rows {rows}: disjoint, one "
+          f"epoch of {DP_FUSION[0]}; launches per rank per step: "
+          f"{r0['launches']}", flush=True)
+    note = SHARED_NOTE if r0["transport"].startswith("gloo") else ""
+    for kind, (ms, one_ms) in r0["ms"].items():
+        print(f"parallel (e) {kind} step f32, {HOSTS} hosts x {PER_HOST} "
+              f"ranks ({r0['transport']}; {card}): {ms:.1f} ms per step on "
+              f"rank 0 against {one_ms:.1f} ms for one process on the "
+              f"hosts' batches concatenated{note}", flush=True)
+    print(f"parallel (f): {time.perf_counter() - t0:.1f} s", flush=True)
     return r0["transport"]
 
 
@@ -4863,7 +5050,7 @@ def tp_checks(totals, card, tmp, world=TP_WORLD):
 
 
 def nccl_run(card: str) -> int:
-    """``--parallel`` on several cards: phase 13 (a), (c), (d) and (e)
+    """``--parallel`` on several cards: phase 13 (a), (c)-(f)
     with one rank per card of this host, over NCCL
     (``dist.choose_backend``'s rule); the spatial fuse on 2 ranks and on
     every card; phase 14 on 4 ranks (TP 2 on two cards, TP 4 and DP 2 x
@@ -4880,6 +5067,10 @@ def nccl_run(card: str) -> int:
                                          worlds=tuple(sorted({2, n})))):
             check(transport.startswith("nccl"),
                   f"{n} ranks on {n} cards took {transport}, not nccl")
+        transport = hosts_checks(totals, card, tmp)
+        check(transport.startswith("nccl") == (n >= HOSTS * PER_HOST),
+              f"phase 13 (f)'s {HOSTS * PER_HOST} ranks on {n} cards took "
+              f"{transport}")
         transport = tp_checks(totals, card, tmp)
         check(transport.startswith("nccl") == (n >= TP_WORLD),
               f"phase 14's {TP_WORLD} ranks on {n} cards took {transport}")

@@ -27,14 +27,26 @@ process on the whole batch):
         -m segmif_tpu_torch.cli.train --mesh_data N ...
 
 or, without torchrun, ``--mesh_data N`` alone: the CLI spawns the N ranks
-itself (``parallel.dist.launch``). Tensor parallelism over M ranks a model
-group (``parallel.tensor``): ``--mesh_model M``, with ``--mesh_data D``
-on D x M ranks (``--mesh_data -1``, the default, is every rank over M);
+itself (``parallel.dist.launch``). On P hosts of L ranks each, run on
+host h (0 <= h < P)
+
+    torchrun --nnodes P --node_rank h --nproc_per_node L \
+        --master_addr HOST0 --master_port PORT \
+        -m segmif_tpu_torch.cli.train --mesh_data -1 ...
+
+The config's batch sizes stay global: each host reads B/P rows from its
+stride of the names, and the global batch is the hosts' batches in host
+order. If every host sees the same ``--checkpoint_dir`` rank 0 writes the
+files; else each host's first rank writes its host's copy there and
+resumes from it (``train.interactive``). Tensor parallelism over M ranks
+a model group (``parallel.tensor``): ``--mesh_model M``, with
+``--mesh_data D`` on D x M ranks (``--mesh_data -1``, the default, is
+every rank over M; a model group lies within a host);
 alone, the CLI spawns D x M ranks (M with ``--mesh_data -1``). Rank r
 computes on ``cuda:r % device_count`` (``--device cpu``: the CPU); the
 ranks talk over NCCL when each has a card of its own and over gloo when
 they share one or run on the CPU (``parallel.dist.choose_backend``). Only
-rank 0 logs at INFO and writes files.
+the ranks that write files log at INFO (and to ``train.log``).
 """
 from __future__ import annotations
 
@@ -69,11 +81,13 @@ def _parse(argv):
     p.add_argument("--remat", action="store_true",
                    help="not ported (refused)")
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="ranks of the data axis (-1: every launched rank); "
-                        "N > 1 without torchrun spawns N ranks")
+                   help="ranks of the data axis, over every host (-1: "
+                        "every launched rank); N > 1 without torchrun "
+                        "spawns N ranks")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="ranks of a model group (tensor parallelism); "
-                        "without torchrun D x M ranks are spawned")
+                   help="ranks of a model group (tensor parallelism), "
+                        "within one host; without torchrun D x M ranks "
+                        "are spawned")
     p.add_argument("--streaming", action="store_true",
                    help="keep the splits on disk (decode per batch; fused "
                         "images in a disk memmap)")
@@ -154,9 +168,10 @@ def _run(args, comm=None):
     cfg.mesh_model = args.mesh_model
 
     Path(cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
-    writer = comm is None or comm.rank == 0
-    logger = setup_logger(str(Path(cfg.checkpoint_dir) / "train.log"))  \
-        if writer else setup_logger(level=logging.WARNING)
+    log_file = str(Path(cfg.checkpoint_dir) / "train.log")
+    # under ranks the trainer names the writers; until then only warnings
+    logger = setup_logger(log_file) if comm is None else \
+        setup_logger(level=logging.WARNING)
     if args.synthetic:
         size = tuple(args.synthetic_size)
         n_val = args.synthetic_val or max(args.synthetic // 4, 1)
@@ -169,12 +184,16 @@ def _run(args, comm=None):
         train_ds, val_ds = (FusionFolderDataset(
             root, ir_dir=d.ir_dir, vis_dir=d.vis_dir, guide_dir=d.guide_dir,
             label_dir=d.label_dir) for root in (d.root_dir, d.val_root_dir))
-        logger.info("folder data: %d training pairs in %s, %d validation "
-                    "pairs in %s", len(train_ds), d.root_dir, len(val_ds),
-                    d.val_root_dir)
     trainer = InteractiveTrainer(cfg, train_ds, val_ds, logger=logger,
                                  device=args.device if comm is None
                                  else comm.device)
+    if comm is not None and trainer.writer:
+        setup_logger(log_file)   # the same logger, now at INFO
+    logger.info("files: %s", trainer.writer_rule)
+    if not args.synthetic:
+        logger.info("folder data: %d training pairs in %s, %d validation "
+                    "pairs in %s", len(train_ds), d.root_dir, len(val_ds),
+                    d.val_root_dir)
     result = trainer.run(start_round=args.start_round)
     logger.info("training complete: best mIoU %.4f", result["best_mIoU"])
     return result

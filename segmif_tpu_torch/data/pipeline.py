@@ -13,11 +13,16 @@ one log line:
 Unlike the JAX package, a native loader that was asked for and cannot run
 raises; it never falls back to the Python readers.
 
-Under data parallelism on one host (``parallel.mesh``) every rank reads
-the same global batches, in the same order, and keeps its rows. The JAX
-package's per-process striding (``shard_by_process``: each process takes
-names[i::process_count]) is a multi-host feature, not ported: ROADMAP
-queue 1's "Multi-host data parallelism" item.
+Several hosts (``shard_by_process``, the JAX package's name and default):
+host h of P (``parallel.dist.host_layout``, the counterpart of
+``jax.process_index()`` / ``process_count()``) takes the names
+``idx[h::P]``, and only those: the Python readers permute them in the
+epoch order above (an epoch is one pass over the host's names, and
+``start_batch`` counts the host's batches), and the native loader is
+handed only their paths. The caller asks each host for its share of the
+global batch (``parallel.mesh``: B/P rows a host, the global batch the
+hosts' batches concatenated). Under data parallelism the ranks of one
+host read the same batches, in the same order, and keep their rows.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+
+from ..parallel.dist import host_layout
 
 
 class Prefetcher:
@@ -46,28 +53,35 @@ class Prefetcher:
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  num_threads: int = 4, prefetch_depth: int = 4,
-                 loop: bool = True, use_native: bool = True,
-                 start_batch: int = 0):
+                 shard_by_process: bool = True, loop: bool = True,
+                 use_native: bool = True, start_batch: int = 0):
         """start_batch fast-forwards the deterministic batch sequence: batch
         k of a Prefetcher(seed=s, start_batch=k) is batch k of
         Prefetcher(seed=s, start_batch=0), which is how a resumed phase
         replays the uninterrupted data order. It takes the Python readers
         (the native loader's order lives in C++ and cannot be replayed).
 
-        use_native: read through the native loader when the dataset offers
-        ``sample_paths()`` (and ``loop``); raises ``RuntimeError`` if the
-        native library did not build or the loader cannot be created."""
+        shard_by_process: on several hosts read host h's names
+        ``idx[h::P]`` only (``host_layout``); ``batch_size`` is then the
+        host's batch. use_native: read through the native loader when the
+        dataset offers ``sample_paths()`` (and ``loop``); raises
+        ``RuntimeError`` if the native library did not build or the loader
+        cannot be created."""
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.start_batch = start_batch
         self.loop = loop
         self.indices = np.arange(len(dataset))
+        host, hosts = host_layout() if shard_by_process else (0, 1)
+        if hosts > 1:
+            self.indices = self.indices[host::hosts]
         self._native = None
         paths = self._sample_paths() if (use_native and loop
                                          and not start_batch) else None
         log = logging.getLogger("segmif_tpu_torch")
         if paths is not None:
+            paths = [paths[i] for i in self.indices]
             self._native = self._open_native(paths, num_threads,
                                              prefetch_depth, seed)
             log.info("Prefetcher: native C++ loader, %d threads, %d samples"

@@ -11,13 +11,22 @@ Ranks and backends:
    device ("Duplicate GPU detected"), and a host with one card runs all of
    its ranks on that card.
  - ``rank_device``: rank r of a host takes ``cuda:r % device_count``.
+ - Hosts (``host_layout``): a host is a torchrun node, the port's
+   counterpart of a JAX process. Of W ranks, L on each host
+   (LOCAL_WORLD_SIZE), rank r sits on host h = r // L of P = W // L;
+   where torchrun sets GROUP_RANK, h must equal it. Without a process
+   group, or without LOCAL_WORLD_SIZE, there is one host.
  - ``launch(fn, world, ...)`` spawns ``world`` ranks (the ``spawn`` start
    method, a ``file://`` rendezvous in a fresh directory), runs
    ``fn(comm, *args)`` on each and returns their results in rank order. It
-   kills every rank when one fails or the time runs out. The CLIs get
-   their ranks through ``run_cli``: ``join_env`` under torchrun,
-   ``launch`` for ``--mesh_data N`` / ``--mesh_model M`` / ``--spatial
-   N`` when they run alone.
+   kills every rank when one fails or the time runs out. With
+   ``ranks_per_host`` L it emulates W / L hosts on one machine: each rank
+   gets torchrun's LOCAL_RANK, LOCAL_WORLD_SIZE and GROUP_RANK for that
+   layout, and keeps the device of one host's rank r (``rank_device``).
+   The CLIs get their ranks through ``run_cli``: ``join_env`` under
+   torchrun (``--nnodes P --node_rank h`` included), ``launch`` for
+   ``--mesh_data N`` / ``--mesh_model M`` / ``--spatial N`` when they run
+   alone.
 
 Collectives (``Comm``): ``all_reduce_sum_`` (in place), ``all_reduce_sum``
 (differentiable: its backward all-reduces the incoming gradient),
@@ -63,6 +72,28 @@ def env_ranks() -> Tuple[int, int, int, int]:
     rank = int(e.get("RANK", 0))
     return (world, rank, int(e.get("LOCAL_RANK", rank)),
             int(e.get("LOCAL_WORLD_SIZE", world)))
+
+
+def host_layout() -> Tuple[int, int]:
+    """(h, P): this rank's host and the number of hosts, from the default
+    process group and torchrun's LOCAL_WORLD_SIZE (and GROUP_RANK, checked
+    where set); (0, 1) without a process group or LOCAL_WORLD_SIZE.
+    Raises ``ValueError`` for a layout of unequal hosts."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    world, rank = dist.get_world_size(), dist.get_rank()
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if per_host < 1 or world % per_host:
+        raise ValueError(f"{world} ranks do not split into hosts of "
+                         f"LOCAL_WORLD_SIZE={per_host}: every host runs as "
+                         "many ranks")
+    host = rank // per_host
+    group = os.environ.get("GROUP_RANK")
+    if group is not None and int(group) != host:
+        raise ValueError(f"rank {rank} with {per_host} ranks a host sits on "
+                         f"host {host}, but GROUP_RANK is {group}: torchrun "
+                         "numbered its ranks by another layout")
+    return host, world // per_host
 
 
 def choose_backend(device_type: str, ranks_per_host: int) -> str:
@@ -111,8 +142,10 @@ def join_env(device: str = "cuda") -> "Comm":
     """Join torchrun's process group (``env_ranks``; the rendezvous from
     MASTER_ADDR / MASTER_PORT) with ranks computing on ``device``."""
     world, rank, local, per_host = env_ranks()
-    return init(world, rank, device=device, local_rank=local,
+    comm = init(world, rank, device=device, local_rank=local,
                 ranks_per_host=per_host)
+    host_layout()   # raises here on a layout torchrun did not number so
+    return comm
 
 
 def leave() -> None:
@@ -306,11 +339,15 @@ class Comm:
 # ------------------------------------------------------------------ launch
 
 def _rank_main(fn, rank, world, init_method, device, timeout, threads,
-               args, results):
-    """One spawned rank: join the group, run ``fn``, report. A failure is
-    reported before the group is left: leaving waits on the peers'
-    collectives, and the parent kills every rank once it hears."""
+               args, results, per_host):
+    """One spawned rank: take the host layout of ``per_host`` ranks a
+    host, join the group, run ``fn``, report. A failure is reported before
+    the group is left: leaving waits on the peers' collectives, and the
+    parent kills every rank once it hears."""
     joined = False
+    os.environ.update(LOCAL_WORLD_SIZE=str(per_host),
+                      LOCAL_RANK=str(rank % per_host),
+                      GROUP_RANK=str(rank // per_host))
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -329,7 +366,8 @@ def _rank_main(fn, rank, world, init_method, device, timeout, threads,
 def launch(fn: Callable, world: int, args: tuple = (), device: str = "cpu",
            timeout: Optional[float] = TIMEOUT_S,
            threads: Optional[int] = None,
-           workdir: Optional[str] = None) -> List:
+           workdir: Optional[str] = None,
+           ranks_per_host: Optional[int] = None) -> List:
     """Run ``fn(comm, *args)`` on ``world`` spawned ranks and return the
     ranks' results in rank order.
 
@@ -340,7 +378,10 @@ def launch(fn: Callable, world: int, args: tuple = (), device: str = "cpu",
     ``choose_backend``'s rule for one host); ``threads`` sets each rank's
     intra-op threads (the host's cores shared out by default). The
     rendezvous file lives in a fresh directory under ``workdir`` (the
-    system's temporary directory by default), removed after. Raises
+    system's temporary directory by default), removed after.
+    ``ranks_per_host``: the ranks emulate ``world / ranks_per_host`` hosts
+    (``host_layout``; one host by default); the devices and the backend
+    stay those of one host's ``world`` ranks. Raises
     ``RuntimeError`` with the failing rank's traceback, or
     ``TimeoutError`` after ``timeout`` seconds (None: no limit on the
     whole run; each collective still times out after ``TIMEOUT_S``);
@@ -350,6 +391,10 @@ def launch(fn: Callable, world: int, args: tuple = (), device: str = "cpu",
     from .._device import resolve
 
     resolve(device)   # raises here, not in every rank, without a card
+    per_host = world if ranks_per_host is None else ranks_per_host
+    if per_host < 1 or world % per_host:
+        raise ValueError(f"launch: {world} ranks do not split into hosts of "
+                         f"{per_host}")
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // world)
     pg_timeout = TIMEOUT_S if timeout is None else min(timeout, TIMEOUT_S)
@@ -359,7 +404,7 @@ def launch(fn: Callable, world: int, args: tuple = (), device: str = "cpu",
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         fn, r, world, init_method, device, pg_timeout, threads, args,
-        results)) for r in range(world)]
+        results, per_host)) for r in range(world)]
     out: List = [None] * world
     pending = set(range(world))
     deadline = None if timeout is None else time.monotonic() + timeout

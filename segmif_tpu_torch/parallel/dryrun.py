@@ -31,7 +31,7 @@ import torch
 
 from .._device import place
 from . import dist
-from .mesh import Mesh, batch_shard, make_mesh, put_batch, put_replicated
+from .mesh import Mesh, batch_shard, make_mesh, put_replicated
 from .spatial import HALO, make_spatial_fuse_fn
 from .tensor import tensor_parallel
 
@@ -77,7 +77,7 @@ def dryrun(comm: dist.Comm) -> str:
     fstep = make_fusion_train_step(model, ftx, round1=False,
                                    compute_dtype=dtype, device=dev)
     fstate = FusionTrainState.create(model.fusion, ftx)
-    fm = fstep(fstate, shard.take(data), 0.4, shard)
+    fm = fstep(fstate, shard.own(data), 0.4, shard)
 
     # the seg-phase step: 3-group AdamW, BN batch statistics, dropout
     seg = model.seg
@@ -85,7 +85,7 @@ def dryrun(comm: dist.Comm) -> str:
                              warmup_iter=10, max_iter=1000)
     sstep = make_seg_train_step(seg, stx, compute_dtype=dtype, device=dev)
     sstate = SegTrainState.create(seg, stx)
-    sm = sstep(sstate, shard.take({"image": data["guide"],
+    sm = sstep(sstate, shard.own({"image": data["guide"],
                                    "label": data["label"]}), 1, shard)
 
     # spatial: the fusion trunk's rows over the data axis
@@ -99,8 +99,8 @@ def dryrun(comm: dist.Comm) -> str:
     tensor_parallel(put_replicated(mesh, b3), mesh)
     b3 = place(b3, dev).to(dtype).eval()
     b3_data = _data(n, 96, 128)
-    rows = put_batch(mesh, {k: torch.from_numpy(b3_data[k])
-                            for k in ("ir", "vis")})
+    rows = shard.own({k: torch.from_numpy(b3_data[k])
+                      for k in ("ir", "vis")})
     with torch.inference_mode():
         _, fy, logits = b3(rows["ir"].to(dev, dtype),
                            rows["vis"].to(dev, dtype))

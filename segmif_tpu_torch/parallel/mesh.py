@@ -15,9 +15,20 @@ shards with ``jax.sharding``; here rank r of D x M ranks sits at (d, m) =
    and make the same draws. Where D does not divide B, the JAX package's
    replicated fallback (``put_batch``, mesh.py:95-106) applies: every rank
    takes the whole batch, which again gives what one device gives.
- - ``put_batch``: the rank's rows of a batch; ``put_replicated``: the
-   parameters and buffers of a module broadcast from rank 0 of every
-   rank.
+ - Several hosts (``dist.host_layout``: P torchrun nodes of L ranks;
+   ``Mesh.host``, ``Mesh.hosts``): B stays the global batch, and host h
+   reads its own B/P rows (the ``Prefetcher``'s stride, ``data.pipeline``),
+   rows [h B/P, (h+1) B/P) of the global batch, which is the hosts'
+   batches concatenated in host order. A rank's global rows [lo, hi) are
+   as on one host; ``BatchShard.take`` reads them from its host's batch,
+   at offset lo - h B/P. ``make_mesh`` refuses a model group that spans
+   hosts (M must divide L: a model group's ranks read one batch), and
+   ``batch_shard`` a batch whose host share B/P the host's data ranks do
+   not divide (the replicated fallback has no meaning across hosts).
+ - ``BatchShard.take``: the rank's rows of its host's batch (the JAX
+   ``put_batch``'s part; the whole batch on one host);
+   ``put_replicated``: the parameters and buffers of a module broadcast
+   from rank 0 of every rank.
  - ``tp_spec_for`` / ``param_shardings``: the Megatron split of the JAX
    package (``_tp_spec_for``, ``param_shardings``) by leaf name over
    rank-2 Dense kernels, the q / kv / fc1 / FFM projections by column and
@@ -35,8 +46,9 @@ A ``BatchShard`` is what the train steps take under data parallelism
 rank's loss carries (``share``: its rows over the rows of all ranks; 1/D
 when every rank holds the whole batch), the sums over the data group
 (``sum``, through autograd) and, once ``with_gen`` has given it a
-generator, the random draws of the GLOBAL batch cut to its rows (``rand``),
-so that a fixed seed gives the same masks for any D and M.
+generator, the random draws of the GLOBAL batch cut to its rows (``rand``;
+``own`` cuts any tree over the global batch), so that a fixed seed gives
+the same masks for any D, M and P.
 
 Not ported: ``put_batch_chunk`` serves only the chunked train loop, which
 the port does not run (ROADMAP's "Do not port").
@@ -50,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from ..convert import jax_path
+from . import dist as _dist
 from .dist import Comm
 
 MODEL_AXIS = "model"
@@ -60,12 +73,15 @@ class Mesh:
     """``data`` x ``model`` ranks. ``comm``: this rank's data group (every
     rank when ``model`` is 1; None for one rank without a process group);
     ``model_comm``: its model group (None when ``model`` is 1); ``world``:
-    every rank (``comm`` when ``model`` is 1)."""
+    every rank (``comm`` when ``model`` is 1); ``host`` of ``hosts``: this
+    rank's host (``dist.host_layout``)."""
     data: int
     comm: Optional[Comm] = None
     model: int = 1
     model_comm: Optional[Comm] = None
     world: Optional[Comm] = None
+    host: int = 0
+    hosts: int = 1
 
     @property
     def everyone(self) -> Optional[Comm]:
@@ -82,8 +98,18 @@ class Mesh:
     def data_rank(self) -> int:
         return self.rank // self.model
 
+    @property
+    def local_rank(self) -> int:
+        """The rank among its host's ranks (0: the host's first)."""
+        c = self.everyone
+        return 0 if c is None else self.rank % (c.world // self.hosts)
 
-def _launch_hint(n: int) -> str:
+
+def _launch_hint(n: int, hosts: int = 1) -> str:
+    if hosts > 1:
+        return (f"launch {n} ranks: torchrun --nnodes {hosts} "
+                f"--nproc_per_node {n // hosts} on each of the {hosts} "
+                "hosts")
     return (f"launch {n} ranks: torchrun --nproc_per_node {n}, or the "
             "CLI's own spawn")
 
@@ -94,25 +120,36 @@ def make_mesh(data: int = -1, model: int = 1, comm: Optional[Comm] = None,
     the default process group, whose tensors live on ``device``, the CPU
     unless given). ``data`` -1 means every rank over ``model``; data x
     model must be the number of ranks. With both axes above 1 ``comm``
-    must be the default group: every rank of it makes the groups."""
+    must be the default group: every rank of it makes the groups. Over the
+    default group the mesh spans ``dist.host_layout``'s hosts, and a model
+    group must lie within one (``ValueError`` otherwise); a mesh over a
+    subgroup is one host's."""
     if comm is None and dist.is_available() and dist.is_initialized():
         comm = Comm("cpu" if device is None else device)
     world = 1 if comm is None else comm.world
+    host, hosts = (0, 1) if comm is None or comm.group is not None \
+        else _dist.host_layout()
     if model < 1:
         raise ValueError(f"mesh_model {model}: at least 1")
     if data == -1:
         if world % model:
             raise ValueError(f"mesh_model {model} does not divide the "
-                             f"{world} ranks ({_launch_hint(model)})")
+                             f"{world} ranks ({_launch_hint(model, hosts)})")
         data = world // model
     if data * model != world:
         raise ValueError(f"mesh_data {data} x mesh_model {model}: the "
                          f"mesh spans every rank, and there are {world} "
-                         f"({_launch_hint(data * model)})")
+                         f"({_launch_hint(data * model, hosts)})")
+    if (world // hosts) % model:
+        raise ValueError(f"mesh_model {model} spans hosts: a model group's "
+                         "ranks read one batch, so mesh_model must divide "
+                         f"the {world // hosts} ranks of each of the {hosts} "
+                         "hosts")
+    at = {"host": host, "hosts": hosts}
     if model == 1:
-        return Mesh(data, comm)
+        return Mesh(data, comm, **at)
     if data == 1:
-        return Mesh(1, None, model, comm, comm)
+        return Mesh(1, None, model, comm, comm, **at)
     if comm.group is not None:
         raise ValueError("a data x model mesh is made over the default "
                          "process group")
@@ -121,7 +158,8 @@ def make_mesh(data: int = -1, model: int = 1, comm: Optional[Comm] = None,
     datas = [comm.subgroup([d * model + m for d in range(data)])
              for m in range(model)]
     r = comm.rank
-    return Mesh(data, datas[r % model], model, models[r // model], comm)
+    return Mesh(data, datas[r % model], model, models[r // model], comm,
+                **at)
 
 
 def tp_spec_for(path_keys: Sequence[str], shape) -> Tuple:
@@ -180,16 +218,25 @@ def param_shardings(model: int, params: Mapping[str, Any],
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
     """Rows [lo, hi) of a global batch of ``total`` rows on this rank;
-    ``share`` is the weight of this rank's batch means in the global one."""
+    ``share`` is the weight of this rank's batch means in the global one;
+    ``offset``: the global row at which this rank's host's batch starts."""
     lo: int
     hi: int
     total: int
     share: float
     comm: Comm
     gen: Optional[torch.Generator] = None
+    offset: int = 0
 
     def take(self, tree: Dict[str, Any]) -> Dict[str, Any]:
-        """Each entry's rows [lo, hi) (tensors or numpy arrays)."""
+        """This rank's rows of its host's batch (tensors or numpy arrays;
+        on one host the global batch): rows [lo, hi) less ``offset``."""
+        return {k: v[self.lo - self.offset:self.hi - self.offset]
+                for k, v in tree.items()}
+
+    def own(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows [lo, hi) of a tree over the global batch
+        (the augmentation's draws, a batch every rank holds whole)."""
         return {k: v[self.lo:self.hi] for k, v in tree.items()}
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -208,19 +255,22 @@ class BatchShard:
 
 
 def batch_shard(mesh: Mesh, batch_size: int) -> BatchShard:
-    """The rows of a ``batch_size`` batch that this rank owns."""
-    n, r = mesh.data, mesh.data_rank
+    """The rows of a global ``batch_size`` batch that this rank owns.
+    On several hosts ``ValueError`` unless the host's data ranks divide
+    its share of the batch."""
+    n, r, hosts = mesh.data, mesh.data_rank, mesh.hosts
+    if batch_size % n and hosts > 1:
+        raise ValueError(
+            f"batch {batch_size} on {hosts} hosts: each host reads "
+            f"{batch_size / hosts:g} rows, which its {n // hosts} data ranks "
+            f"must divide (a batch size divisible by the {n} data ranks); "
+            "one host's fallback, every rank holding the whole batch, has "
+            "no meaning across hosts")
     if batch_size % n:
         return BatchShard(0, batch_size, batch_size, 1.0 / n, mesh.comm)
     per = batch_size // n
     return BatchShard(r * per, (r + 1) * per, batch_size, per / batch_size,
-                      mesh.comm)
-
-
-def put_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
-    """This rank's rows of ``batch`` (every entry [B, ...])."""
-    b = next(iter(batch.values())).shape[0]
-    return batch_shard(mesh, b).take(batch)
+                      mesh.comm, offset=mesh.host * batch_size // hosts)
 
 
 @torch.no_grad()

@@ -50,18 +50,31 @@ steps sum the gradients and losses over the ranks, so N ranks train as
 one process on the whole batch. The weights are broadcast from rank 0
 once, at the start. The regeneration and the mIoU evaluation run the
 whole set on every rank (each rank's fused set and mIoU are then the
-same: the same weights through the same deterministic passes), and only
-rank 0 writes: checkpoints, ``progress.json``, fused PNGs, the eval log.
-Every rank reads them on resume. ``fusion.grad_accum`` > 1 is refused
-under data parallelism. With ``streaming`` every rank regenerates the
-fused images and rank 0 alone writes the memmap; every rank waits for it
-(a barrier before and after) and the others read it.
+same: the same weights through the same deterministic passes), and one
+rank writes the files: checkpoints, ``progress.json``, the streaming
+memmap, fused PNGs, the eval log. Every rank reads them on resume.
+``fusion.grad_accum`` > 1 is refused under data parallelism. With
+``streaming`` every rank regenerates the fused images and the writer
+alone fills the memmap, under a temporary name that it renames into place;
+every rank waits for it (a barrier before and after) and the others open
+it afresh.
+
+Several hosts (torchrun nodes; ``parallel.dist.host_layout``): the
+config's batch sizes stay the global batches B, each host's
+``Prefetcher`` reads B/P rows from its stride of the names
+(``data.pipeline``), and the global batch is the hosts' batches
+concatenated (``parallel.mesh``), so N ranks on P hosts train as one
+process on that batch. The writers: at start-up rank 0 drops a token file
+named by a random number into ``checkpoint_dir``, and every rank looks
+for it there. If every rank sees it the hosts share the directory and
+rank 0 alone writes, as on one host; else each host's first rank writes
+its host's whole copy, and that host's ranks read it back on resume.
 
 Tensor parallelism (``mesh_model`` M > 1 on D x M ranks,
 ``parallel.tensor``): after the broadcast the model is split over each
 model group; the steps sum over the data group only, the regeneration and
 the evaluation run split on every rank, and the checkpoints hold what one
-process holds (every rank gathers, rank 0 writes; a load cuts the pieces
+process holds (every rank gathers, the writer writes; a load cuts the pieces
 for any M). Without launched ranks ``mesh_data`` or ``mesh_model`` above 1
 raises ("launch N ranks").
 
@@ -72,6 +85,8 @@ from __future__ import annotations
 
 import datetime
 import json
+import os
+import secrets
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -204,8 +219,11 @@ class InteractiveTrainer:
         self.dev = resolve(device)
         self.mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, device=self.dev)
         refuse_under_dp(cfg, self.mesh.data)
-        self.writer = self.mesh.rank == 0   # the rank that writes files
+        if self.mesh.hosts > 1:   # each host must read whole rows
+            for b in (cfg.fusion.batch_size, cfg.seg.batch_size):
+                batch_shard(self.mesh, b)
         self.log = logger or setup_logger()
+        self.writer, self.writer_rule = self._writer_rule()
         self.dtype = DTYPES[cfg.compute_dtype]
         self.acc = _build.acc_dtype(self.dtype)   # master weights, inputs
         self.model = JointPipeline(cfg.backbone, cfg.data.num_classes,
@@ -237,6 +255,36 @@ class InteractiveTrainer:
         self.seg_loss_history = []
         self.ssim_history = []
 
+    def _writer_rule(self):
+        """(whether this rank writes the files, the rule in words): rank 0
+        on one host or where every host sees the same ``checkpoint_dir``
+        (a token file that rank 0 drops there, named by a random number
+        that every rank is given); else each host's first rank."""
+        mesh = self.mesh
+        base = Path(self.cfg.checkpoint_dir)
+        base.mkdir(parents=True, exist_ok=True)
+        if mesh.hosts == 1:
+            return mesh.rank == 0, "one host: rank 0 writes the files"
+        comm = mesh.everyone
+        word = comm.broadcast_(torch.tensor([secrets.randbits(62)],
+                                            device=comm.device))
+        token = base / f".shared_{int(word.item()):x}"
+        if mesh.rank == 0:
+            token.touch()
+        comm.barrier()
+        seen = comm.all_reduce_sum_(torch.tensor(
+            [float(token.exists())], device=comm.device))
+        if mesh.rank == 0:
+            token.unlink()
+        seen = int(seen.item())
+        if seen == comm.world:
+            return mesh.rank == 0, (f"{mesh.hosts} hosts share "
+                                    "checkpoint_dir: rank 0 writes the files")
+        return mesh.local_rank == 0, (
+            f"{mesh.hosts} hosts, checkpoint_dir not shared ({seen} of "
+            f"{comm.world} ranks see rank 0's token): each host's first "
+            "rank writes its host's copy")
+
     # ------------------------------------------------------------ phases ----
 
     def _shard(self, batch_size: int):
@@ -250,9 +298,10 @@ class InteractiveTrainer:
         seeded ``seed``. Under ``shard``: the draws of the whole batch,
         and this rank's rows of it."""
         gen.manual_seed(seed)
-        draws = augment.draw(gen, len(raw["label"]), aug, self.acc)
+        total = len(raw["label"]) if shard is None else shard.total
+        draws = augment.draw(gen, total, aug, self.acc)
         if shard is not None:
-            draws, raw = shard.take(draws), shard.take(raw)
+            draws, raw = shard.own(draws), shard.take(raw)
         b = {k: upload(raw[k], self.dev)
              for k in ("ir", "vis", "guide", "label")}
         return augment.apply(draws, b["ir"], b["vis"], b["guide"],
@@ -286,7 +335,7 @@ class InteractiveTrainer:
         fusion_scale = fp.fusion_scale_base / round_idx
         aug = self._aug_config(fp.crop_size)
         # an iteration takes `accum` batches: resume at start_iter * accum
-        pf = Prefetcher(self.train_data, fp.batch_size,
+        pf = Prefetcher(self.train_data, fp.batch_size // self.mesh.hosts,
                         seed=cfg.seed + round_idx,
                         use_native=cfg.native_loader,
                         start_batch=start_iter * accum)
@@ -359,15 +408,16 @@ class InteractiveTrainer:
             comm.barrier()
 
     def _regenerate_streaming(self, fuse_fn, data, out_dir, want_ssim):
-        """Each fused batch straight into the split's uint8 memmap (rank 0
-        writes; the others open it once it is whole); the val SSIM against
+        """Each fused batch straight into the split's uint8 memmap (the
+        writer fills a new one and renames it into place; the others open
+        it once it is whole); the val SSIM against
         the static guide averaged over the batches, weighted by their
         sizes (the images share one size, so this is the SSIM of the whole
         set up to summation order)."""
         _, ir0, *_ = data[0]
         hw = (ir0.shape[0], ir0.shape[1])
         self._barrier()   # no rank still reads the memmap
-        fused_mm = data.ensure_fused(*hw) if self.writer else None
+        fused_mm = data.begin_fused(*hw) if self.writer else None
         stats = {"ssim_sum": 0.0, "n": 0}
 
         def sink(start, fused_np, guide_np):
@@ -381,7 +431,7 @@ class InteractiveTrainer:
         generate_fused(fuse_fn, data, batch_size=4, out_dir=out_dir,
                        sink=sink, device=self.dev, dtype=self.acc)
         if fused_mm is not None:
-            fused_mm.flush()
+            data.commit_fused()
         self._barrier()
         if fused_mm is None:
             data.ensure_fused(*hw, write=False)
@@ -402,7 +452,8 @@ class InteractiveTrainer:
         state = SegTrainState.create(seg, tx)
         start_iter = self._restore_phase("seg", round_idx, state)
         aug = self._aug_config(cfg.data.crop_size)
-        pf = Prefetcher(self.train_data.seg_view(), sp.batch_size,
+        pf = Prefetcher(self.train_data.seg_view(),
+                        sp.batch_size // self.mesh.hosts,
                         seed=cfg.seed + 100 + round_idx,
                         start_batch=start_iter)
         it = iter(pf)
@@ -464,7 +515,7 @@ class InteractiveTrainer:
 
     def _save_phase(self, role: str, round_idx: int, state):
         """Mid-phase checkpoint of the whole train state and the best-mIoU
-        gate (every rank gathers a split state; rank 0 writes)."""
+        gate (every rank gathers a split state; the writer writes)."""
         tree = ckpt.state_tree(state) if self.writer or state.splits \
             else None
         if self.writer:
@@ -494,10 +545,13 @@ class InteractiveTrainer:
     def _mark_progress(self, next_round: int, next_phase: str):
         if not self.writer:
             return
-        Path(self.cfg.checkpoint_dir).mkdir(parents=True, exist_ok=True)
-        self._progress_path().write_text(json.dumps(
+        path = self._progress_path()
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        tmp.write_text(json.dumps(
             {"next_round": next_round, "next_phase": next_phase,
              "best_miou": self.best_miou}))
+        os.replace(tmp, path)
 
     def read_progress(self):
         path = self._progress_path()
@@ -507,7 +561,7 @@ class InteractiveTrainer:
 
     def save_checkpoint(self, role: str):
         """The role checkpoint of ``model.fusion`` or ``model.seg`` (every
-        rank gathers a split module; rank 0 writes)."""
+        rank gathers a split module; the writer writes)."""
         module = getattr(self.model, role)
         sd = gather_state_dict(module)
         if self.writer:

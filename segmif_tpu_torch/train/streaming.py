@@ -8,7 +8,10 @@ loader or Python threads) decode per batch, and the regenerated fused
 images, the one array the trainer must own across the phases, live in a
 uint8 ``np.memmap`` under the checkpoint dir (``fused_<tag>.u8``), which
 the OS pages in on demand. A memmap left by a run of another geometry is
-recreated.
+recreated. The trainer's writer fills a new memmap under a temporary name
+(``begin_fused``) and renames it into place (``commit_fused``); the other
+ranks then open the file afresh (``ensure_fused(write=False)``), so no
+reader sees a half-written file.
 
 It speaks the protocol of ``interactive.InMemoryFusionDataset`` where the
 trainer needs it: ``__len__`` / ``__getitem__`` (the 5-tuple with the
@@ -19,6 +22,7 @@ so that the native loader can own the decode.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +39,7 @@ class StreamingFusionData:
                                   [dataset[i][0] for i in range(len(dataset))]))
         self.cache_path = Path(cache_dir) / f"fused_{tag}.u8"
         self._fused = None
+        self._tmp = None   # begin_fused's file until commit_fused
 
     def __len__(self):
         return len(self.ds)
@@ -51,8 +56,9 @@ class StreamingFusionData:
     def ensure_fused(self, h: int, w: int, write: bool = True) -> np.memmap:
         """The [N, h, w, 3] uint8 memmap of the latest regenerated fused
         images, created on first use (the writer flushes it). ``write``
-        False opens the file another process wrote, read-only."""
-        if self._fused is None and not write:
+        False opens the file another process wrote, read-only, afresh
+        (``commit_fused`` put a new file in place)."""
+        if not write:
             self._fused = np.memmap(self.cache_path, dtype=np.uint8,
                                     mode="r", shape=(len(self), h, w, 3))
         if self._fused is None:
@@ -67,6 +73,23 @@ class StreamingFusionData:
                                         mode="w+",
                                         shape=(len(self), h, w, 3))
         return self._fused
+
+    def begin_fused(self, h: int, w: int) -> np.memmap:
+        """A new [N, h, w, 3] uint8 memmap under a temporary name beside
+        the cache file, for the writer to fill; ``commit_fused`` puts it in
+        place."""
+        self.cache_path.parent.mkdir(parents=True, exist_ok=True)
+        self._tmp = self.cache_path.with_name(
+            f"{self.cache_path.name}.tmp{os.getpid()}")
+        self._fused = np.memmap(self._tmp, dtype=np.uint8, mode="w+",
+                                shape=(len(self), h, w, 3))
+        return self._fused
+
+    def commit_fused(self) -> None:
+        """Flush ``begin_fused``'s memmap and rename it to the cache
+        file."""
+        self._fused.flush()
+        os.replace(self._tmp, self.cache_path)
 
     @property
     def fused(self):

@@ -13,7 +13,11 @@ or tensor parallelism (``FAULTS``) for that case only. ``tp_forward_cases``
 ``spatial_cases``: ``spatial_fuse_batched`` and ``make_spatial_fuse_fn``
 at a given halo, with the grams summed or not. ``trainer_runs``: one
 round of ``InteractiveTrainer.run()``, and the same round stopped after
-a mid-phase checkpoint and resumed.
+a mid-phase checkpoint and resumed (on several hosts with a shared
+checkpoint dir or one a host). ``host_run``: on ranks that emulate hosts
+(``dist.launch(ranks_per_host=)``), ``run_case``'s steps on each host's
+``Prefetcher`` batch of a case's global batch, and the multi-host
+refusals.
 """
 import contextlib
 import dataclasses
@@ -22,12 +26,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from segmif_tpu_torch.data import pipeline
 from segmif_tpu_torch.losses.seg_loss import cross_entropy
 from segmif_tpu_torch.models import segformer_head
 from segmif_tpu_torch.models.fusion import FusionNetwork
 from segmif_tpu_torch.models.network import (JointPipeline,
                                              SegmentationNetwork)
-from segmif_tpu_torch.parallel import dist, spatial, tensor
+from segmif_tpu_torch.parallel import dist, dryrun, spatial, tensor
 from segmif_tpu_torch.parallel import mesh as mesh_mod
 from segmif_tpu_torch.parallel.mesh import Mesh, batch_shard, make_mesh
 from segmif_tpu_torch.train import steps
@@ -107,6 +112,11 @@ def _name_rule(key):
     return mods + ["kernel" if leaf == "weight" else leaf]
 
 
+def _same_stride():
+    """Fault: every host reads host 0's stride of the names."""
+    return 0, dist.host_layout()[1]
+
+
 FAULTS = {"ce_per_rank": (steps, "ce_share", _ce_per_rank),
           "bn_local": (segformer_head, "batch_stats", _bn_local),
           "grams_local": (spatial, "all_reduce_grams", _grams_local),
@@ -116,7 +126,8 @@ FAULTS = {"ce_per_rank": (steps, "ce_share", _ce_per_rank),
                               _row_linear_bias_every_rank),
           "kv_contiguous": (tensor, "kv_parts", lambda name: 1),
           "world_sum": (steps, "_sum_over_ranks", _sum_over_world),
-          "name_rule": (mesh_mod, "jax_path", _name_rule)}
+          "name_rule": (mesh_mod, "jax_path", _name_rule),
+          "same_stride": (pipeline, "host_layout", _same_stride)}
 
 
 @contextlib.contextmanager
@@ -141,7 +152,8 @@ def run_case(comm, case):
     """One step. case: {'kind': 'fusion' | 'seg', 'sd': state dict
     (numpy), 'data': the global batch (numpy), 'dtype', 'round1' (fusion),
     'regularisers' (seg), 'model' (ranks a model group, 1 by default),
-    'faults'}. Returns the global metrics, the gradients, the updated
+    'faults', 'total' (the global batch's rows when 'data' is this rank's
+    host's batch)}. Returns the global metrics, the gradients, the updated
     weights (both whole), the DWA state (fusion) and the BatchNorm buffers
     (seg)."""
     dtype = getattr(torch, case["dtype"])
@@ -153,7 +165,7 @@ def run_case(comm, case):
     if seg and not case.get("regularisers", True):
         model = without_regularisers(model)
     data = {k: torch.from_numpy(v) for k, v in case["data"].items()}
-    b = len(case["data"]["label"])
+    b = case.get("total", len(case["data"]["label"]))
     mesh = None if comm is None else make_mesh(model=case.get("model", 1),
                                                comm=comm)
     shard = None if mesh is None or mesh.data == 1 else \
@@ -302,30 +314,30 @@ def assert_close_leaves(got, want, rtol, what=""):
 
 
 
-def tiny_trainer_cfg(ckpt, dtype="float64", model=1):
+def tiny_trainer_cfg(ckpt, dtype="float64", model=1, batch=2):
     """``test_torch_interactive.tiny_cfg`` in ``dtype`` (that module
     imports JAX, which the ranks do not), with a mid-phase checkpoint
-    after every fusion iteration; ``mesh_data`` -1: every rank over
-    ``model`` (``mesh_model``)."""
+    after every fusion iteration, both phases at global batch ``batch``;
+    ``mesh_data`` -1: every rank over ``model`` (``mesh_model``)."""
     from segmif_tpu_torch.config import (DataConfig, FusionPhaseConfig,
                                          SegPhaseConfig, TrainConfig)
 
     return TrainConfig(
         backbone="mit_b0", rounds=1, log_iters=1, checkpoint_dir=str(ckpt),
         compute_dtype=dtype, data=DataConfig(num_classes=9, crop_size=32),
-        fusion=FusionPhaseConfig(iters_round1=2, iters_later=2, batch_size=2,
-                                 crop_size=32, checkpoint_every=1,
-                                 dwa_warmup_steps=1),
-        seg=SegPhaseConfig(iters=2, batch_size=2, eval_every=100),
+        fusion=FusionPhaseConfig(iters_round1=2, iters_later=2,
+                                 batch_size=batch, crop_size=32,
+                                 checkpoint_every=1, dwa_warmup_steps=1),
+        seg=SegPhaseConfig(iters=2, batch_size=batch, eval_every=100),
         mesh_data=-1, mesh_model=model)
 
 
-def _trainer(ckpt, model=1):
+def _trainer(ckpt, model=1, batch=2):
     from segmif_tpu_torch.data.datasets import SyntheticFusionDataset
     from segmif_tpu_torch.train.interactive import InteractiveTrainer
 
     return InteractiveTrainer(
-        tiny_trainer_cfg(ckpt, model=model),
+        tiny_trainer_cfg(ckpt, model=model, batch=batch),
         SyntheticFusionDataset(n=4, size=(32, 32)),
         SyntheticFusionDataset(n=2, size=(32, 32), seed=1), device="cpu")
 
@@ -342,15 +354,24 @@ def _trainer_out(t, result, writes):
             "seg_loss": t.seg_loss_history, "ssim": t.ssim_history}
 
 
-def trainer_runs(comm, ckpt_a, ckpt_b, model=1):
+def trainer_runs(comm, ckpt_a, ckpt_b, model=1, batch=2, per_host=False):
     """One round of ``InteractiveTrainer.run()`` in f64 in ``ckpt_a``; and
     in ``ckpt_b`` the same run stopped on every rank right after the
     fusion phase's first mid-phase checkpoint, then resumed by a new
-    trainer; ``model`` ranks a model group. Returns (the run, the resumed
+    trainer; ``model`` ranks a model group, global batches of ``batch``;
+    ``per_host``: each host its own ``host<h>`` dir under both; ``ckpt_a``
+    None: the resumed run only. Returns (the run or None, the resumed
     run), each with the number of files this rank wrote (role and phase
-    checkpoints, progress) and the weights gathered whole."""
+    checkpoints, progress) and the weights gathered whole, the resumed
+    run with its trainer's writer rule."""
+    from pathlib import Path
+
     from segmif_tpu_torch.train import checkpoint as ckpt
 
+    if per_host:
+        h = dist.host_layout()[0]
+        ckpt_a, ckpt_b = (d and str(Path(d) / f"host{h}")
+                          for d in (ckpt_a, ckpt_b))
     writes = {"role": 0, "phase": 0}
     real_role, real_phase = ckpt.save_role, ckpt.save_phase
 
@@ -364,9 +385,11 @@ def trainer_runs(comm, ckpt_a, ckpt_b, model=1):
 
     ckpt.save_role, ckpt.save_phase = role, phase
     try:
-        a = _trainer(ckpt_a, model)
-        run = _trainer_out(a, a.run(), dict(writes))
-        b = _trainer(ckpt_b, model)
+        run = None
+        if ckpt_a is not None:
+            a = _trainer(ckpt_a, model, batch)
+            run = _trainer_out(a, a.run(), dict(writes))
+        b = _trainer(ckpt_b, model, batch)
         real_save = b._save_phase
 
         def crash(role_name, round_idx, state):
@@ -380,8 +403,9 @@ def trainer_runs(comm, ckpt_a, ckpt_b, model=1):
             b.run()
         except KeyboardInterrupt:
             pass
-        c = _trainer(ckpt_b, model)
+        c = _trainer(ckpt_b, model, batch)
         resumed = _trainer_out(c, c.run(), dict(writes))
+        resumed["writer"] = (c.writer, c.writer_rule)
     finally:
         ckpt.save_role, ckpt.save_phase = real_role, real_phase
     return run, resumed
@@ -472,3 +496,91 @@ def streaming_run(comm, train_root, val_root, ckpt):
     out["fused"] = [np.asarray(d.fused).copy()
                     for d in (t.train_data, t.val_data)]
     return out
+
+
+class ArrayDataset:
+    """A batch of numpy rows as a dataset of (name, ir, vis, guide,
+    label), row i named by its index."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def __len__(self):
+        return len(self.data["label"])
+
+    def __getitem__(self, i):
+        d = self.data
+        return (f"{i:04d}", d["ir"][i], d["vis"][i], d["guide"][i],
+                d["label"][i])
+
+
+def host_batch(data, seed):
+    """This host's first batch of a global batch ``data`` read through the
+    ``Prefetcher`` (its stride of the rows, B/P of them, in the (seed,
+    epoch 0) order), and the host's row indices."""
+    hosts = pipeline.host_layout()[1]
+    pf = pipeline.Prefetcher(ArrayDataset(data), len(data["label"]) // hosts,
+                             seed=seed, use_native=False)
+    try:
+        return next(iter(pf)), pf.indices.tolist()
+    finally:
+        pf.close()
+
+
+def host_run(comm, cases, seed, dirs):
+    """On ranks that emulate hosts: the layout, each case of ``cases``
+    (``run_case``'s, a case's 'data' the global batch) on this host's
+    ``Prefetcher`` batch of it (a case's faults planted on the read too),
+    the host's rows, the messages of the refusals (a model group across
+    hosts; batches of 6 and 5, whose host share of 3 or 2.5 rows the
+    host's data ranks do not divide), ``writer_runs`` in ``dirs[:3]``,
+    ``cli.train`` with a checkpoint dir a host under ``dirs[3]`` and the
+    dry run's line."""
+    out = {"layout": dist.host_layout(), "cases": [], "rows": []}
+    for case in cases:
+        with planted(case.get("faults", ())):
+            data, rows = host_batch(case["data"], seed)
+        out["rows"].append(rows)
+        out["cases"].append(run_case(comm, dict(
+            case, data=data, total=len(case["data"]["label"]))))
+    mesh = make_mesh(comm=comm)
+    out["mesh"] = (mesh.host, mesh.hosts, mesh.local_rank)
+    out["refusals"] = []
+    for refused in (lambda: make_mesh(model=comm.world, comm=comm),
+                    lambda: batch_shard(mesh, 6),
+                    lambda: batch_shard(mesh, 5)):
+        try:
+            refused()
+            out["refusals"].append(None)
+        except ValueError as e:
+            out["refusals"].append(str(e))
+    out["writers"] = writer_runs(comm, *dirs[:3])
+    out["cli"] = cli_run(comm, dirs[3])
+    out["dryrun"] = dryrun.dryrun(comm)
+    return out
+
+
+def cli_run(comm, root):
+    """``cli.train`` (one f32 round of mit_b0 at 32x32, the default
+    batches of 2 and 4) on this rank, with ``--mesh_model 2``: a model
+    group a host, one data index each; each host in ``root/host<h>``.
+    Returns the CLI's result."""
+    from pathlib import Path
+
+    from segmif_tpu_torch.cli import train as cli_train
+
+    ckpt = Path(root) / f"host{dist.host_layout()[0]}"
+    return cli_train._rank(comm, [
+        "--synthetic", "8", "--synthetic_size", "32", "32", "--crop_size",
+        "32", "--backbone", "mit_b0", "--rounds", "1", "--fusion_iters", "1",
+        "--seg_iters", "1", "--checkpoint_dir", str(ckpt), "--device", "cpu",
+        "--mesh_data", "-1", "--mesh_model", "2"])
+
+
+def writer_runs(comm, shared_a, shared_b, own):
+    """``trainer_runs`` at global batches of 4, with every host in one
+    checkpoint dir (``shared_*``), and its stopped and resumed run alone
+    with a dir a host (``own/host<h>``): ((run, resumed) shared, (None,
+    resumed) one dir a host)."""
+    return (trainer_runs(comm, shared_a, shared_b, batch=4),
+            trainer_runs(comm, None, own, batch=4, per_host=True))
