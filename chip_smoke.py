@@ -5111,6 +5111,7 @@ def main(argv=None) -> int:
     from segmif_tpu_torch.kernels.int8 import (drdb_int8_growth,
                                                drdb_int8_tail)
     from segmif_tpu_torch.serving import make_serving_fn, quantize_for_serving
+    from segmif_tpu_torch.utils.profiler import span_totals, spans_on
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -5134,9 +5135,11 @@ def main(argv=None) -> int:
               flush=True)
 
     # phase 3: build
-    _build.library()
+    with spans_on():
+        _build.library()
+    build_ns = span_totals()["kernels/library"][0]
     srcs = ", ".join(str(p.relative_to(ROOT)) for p in _build.sources())
-    print(f"build: {_build.build_seconds:.1f} s, nvcc "
+    print(f"build: {build_ns / 1e9:.1f} s, nvcc "
           f"{' '.join(_build.ARCH_FLAGS)}, from {srcs}", flush=True)
     if args.parallel:
         if torch.cuda.device_count() > 1:

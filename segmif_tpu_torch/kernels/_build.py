@@ -23,11 +23,12 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
 import torch
+
+from ..utils.profiler import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
@@ -85,7 +86,6 @@ class KernelBuildError(RuntimeError):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None   # wall time of this process's build
 
 
 def nvcc_path() -> Optional[str]:
@@ -152,20 +152,20 @@ def compile_library(extra_flags: Optional[List[str]] = None) -> tuple:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib, build_seconds
+    """The loaded kernel library, built on first call (under the span
+    ``kernels/library``, which times the build)."""
+    global _lib
     with _lock:
         if _lib is None:
-            t0 = time.perf_counter()
-            path, _ = compile_library()
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.segmif_error_string.argtypes = [ctypes.c_int]
-            lib.segmif_error_string.restype = ctypes.c_char_p
-            build_seconds = time.perf_counter() - t0
+            with span("kernels/library"):
+                path, _ = compile_library()
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.segmif_error_string.argtypes = [ctypes.c_int]
+                lib.segmif_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
@@ -204,23 +204,25 @@ def tf32_big(w: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32).to(w.dtype)
 
 
-def plain_vjp(plain: Callable, saved: Sequence[torch.Tensor],
+def plain_vjp(name: str, plain: Callable, saved: Sequence[torch.Tensor],
               needs: Sequence[bool], cotangents) -> tuple:
-    """The backward of a kernel's autograd.Function: the gradients of
-    ``plain(*saved)`` (the kernel's plain PyTorch version) against the
-    output cotangents, recomputed here with autocast off, for the saved
-    inputs whose ``needs`` flag is set (None for the others). The JAX
-    package's custom_vjp backwards recompute through XLA the same way; no
-    kernel runs here."""
-    ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, needs)]
-    with torch.enable_grad(), torch.autocast(saved[0].device.type,
-                                             enabled=False):
-        out = plain(*ins)
-    outs = (out,) if torch.is_tensor(out) else tuple(out)
-    wanted = [t for t in ins if t.requires_grad]
-    got = iter(torch.autograd.grad(outs, wanted, cotangents)
-               if wanted else ())
-    return tuple(next(got) if t.requires_grad else None for t in ins)
+    """The backward of a kernel's autograd.Function, under the span
+    ``name``: the gradients of ``plain(*saved)`` (the kernel's plain
+    PyTorch version) against the output cotangents, recomputed here with
+    autocast off, for the saved inputs whose ``needs`` flag is set (None
+    for the others). The JAX package's custom_vjp backwards recompute
+    through XLA the same way; no kernel runs here."""
+    with span(name):
+        ins = [t.detach().requires_grad_(bool(n))
+               for t, n in zip(saved, needs)]
+        with torch.enable_grad(), torch.autocast(saved[0].device.type,
+                                                 enabled=False):
+            out = plain(*ins)
+        outs = (out,) if torch.is_tensor(out) else tuple(out)
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, cotangents)
+                   if wanted else ())
+        return tuple(next(got) if t.requires_grad else None for t in ins)
 
 
 def check(err: int, what: str) -> None:

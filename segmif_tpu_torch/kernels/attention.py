@@ -49,6 +49,7 @@ class _SrAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (None, None) + _build.plain_vjp(
+            "bwd/sr_attention",
             lambda q, k, v: sr_attention_ref(q, k, v, ctx.scale),
             ctx.saved_tensors, ctx.needs_input_grad[2:], (g,))
 

@@ -395,8 +395,8 @@ class _DrdbFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (None, None) + _build.plain_vjp(
-            lambda x, *ws: drdb_chain(x, *_convs(ws)), ctx.saved_tensors,
-            ctx.needs_input_grad[2:], (g,))
+            "bwd/drdb", lambda x, *ws: drdb_chain(x, *_convs(ws)),
+            ctx.saved_tensors, ctx.needs_input_grad[2:], (g,))
 
 
 def _drdb_grad(x, dconvs, bottleneck, wpk=None, forward=None):

@@ -419,7 +419,8 @@ class _CrossPathFn(torch.autograd.Function):
                                         ctx.scale, ctx.num_heads)
 
         return (None, None, None) + _build.plain_vjp(
-            plain, ctx.saved_tensors, ctx.needs_input_grad[3:], (g1, g2))
+            "bwd/crosspath", plain, ctx.saved_tensors,
+            ctx.needs_input_grad[3:], (g1, g2))
 
 
 def _crosspath_grad(x1, x2, s, w: Dict, scale: float, num_heads: int,

@@ -46,6 +46,7 @@ from ..kernels.int8 import Int8Drdb, drdb_int8, quantize_drdb, record_amax
 from ..ops.color import minmax_stretch
 from ..ops.image import nchw, nhwc, resize_bilinear
 from ..parallel import tensor as tp_ops
+from ..utils.profiler import span
 
 _CL = torch.channels_last
 
@@ -464,20 +465,29 @@ class FusionNetwork(nn.Module):
             return y.contiguous(memory_format=_CL)
 
         maps: list = []
-        x1 = self.DRDB1(entry(ir, self.conv1_ir))
-        x2 = self.DRDB2(entry(vis_y, self.conv1_vis))
-        if self.interaction != "none":
-            x1, x2 = self._interact(x1, x2, self._tap(seg_tap1, self.conv3,
-                                                      hw), 1, maps)
-        x1 = self.DRDB3(x1)
-        x2 = self.DRDB4(x2)
-        if self.interaction != "none":
-            x1, x2 = self._interact(x1, x2, self._tap(seg_tap2, self.conv4,
-                                                      hw), 2, maps)
-        y = self._prelu(self.conv2(torch.cat([x1, x2], dim=1)))
-        y = self._prelu(self.conv21(y))
-        if self.conv22 is not None:
-            y = self._prelu(self.conv22(y))
+        with span("fusion"):
+            x1 = entry(ir, self.conv1_ir)
+            with span("fusion/drdb1"):
+                x1 = self.DRDB1(x1)
+            x2 = entry(vis_y, self.conv1_vis)
+            with span("fusion/drdb2"):
+                x2 = self.DRDB2(x2)
+            if self.interaction != "none":
+                with span("fusion/ffm1"):
+                    x1, x2 = self._interact(
+                        x1, x2, self._tap(seg_tap1, self.conv3, hw), 1, maps)
+            with span("fusion/drdb3"):
+                x1 = self.DRDB3(x1)
+            with span("fusion/drdb4"):
+                x2 = self.DRDB4(x2)
+            if self.interaction != "none":
+                with span("fusion/ffm2"):
+                    x1, x2 = self._interact(
+                        x1, x2, self._tap(seg_tap2, self.conv4, hw), 2, maps)
+            y = self._prelu(self.conv2(torch.cat([x1, x2], dim=1)))
+            y = self._prelu(self.conv21(y))
+            if self.conv22 is not None:
+                y = self._prelu(self.conv22(y))
         if self.return_attention:
             return nhwc(y), maps
         return nhwc(y)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..kernels.attention import sr_attention
 from ..ops.image import nchw, nhwc
 from ..parallel import tensor as tp_ops
+from ..utils.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,11 +265,13 @@ class MixVisionTransformer(nn.Module):
         with masks from ``gen``."""
         outs = []
         b = x.shape[0]
-        for i in range(stages):
-            x, h, w = getattr(self, f"patch_embed{i + 1}")(x)
-            for blk in getattr(self, f"block{i + 1}"):
-                x = blk(x, h, w, train, gen)
-            x = getattr(self, f"norm{i + 1}")(x)
-            x = x.reshape(b, h, w, x.shape[-1])
-            outs.append(x)
+        with span("seg/encoder"):
+            for i in range(stages):
+                with span(f"seg/stage{i + 1}"):
+                    x, h, w = getattr(self, f"patch_embed{i + 1}")(x)
+                    for blk in getattr(self, f"block{i + 1}"):
+                        x = blk(x, h, w, train, gen)
+                    x = getattr(self, f"norm{i + 1}")(x)
+                    x = x.reshape(b, h, w, x.shape[-1])
+                outs.append(x)
         return outs

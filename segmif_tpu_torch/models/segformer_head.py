@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 from ..ops.image import nchw, nhwc, resize_bilinear
+from ..utils.profiler import span
 from .mit import uniform
 
 BN_MOMENTUM = 0.9
@@ -123,24 +124,27 @@ class SegFormerHead(nn.Module):
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """features: [c1, c2, c3, c4] NHWC -> logits at 1/4 res, NHWC.
         ``train=True``: batch statistics and dropout (masks from ``gen``)."""
-        tgt = features[0].shape[1:3]
-        proj = []
-        for i in (4, 3, 2, 1):
-            p = getattr(self, f"linear_c{i}")(features[i - 1])
-            if p.shape[1:3] != tgt:
-                p = resize_bilinear(p, tgt)
-            proj.append(p)
-        x = self.linear_fuse.conv(nchw(torch.cat(proj, dim=-1)))
-        bn = self.linear_fuse.bn
-        if not train:
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, training=False, eps=bn.eps)
-            return nhwc(self.linear_pred(torch.relu(x)))
-        shard = None if isinstance(gen, torch.Generator) else gen
-        x = torch.relu(batch_norm_train(x, bn, shard))
-        if self.dropout_rate > 0.0:
-            if gen is None:
-                raise ValueError("dropout in train mode needs a generator")
-            x = dropout(x, self.dropout_rate,
-                        dropout_mask(x, self.dropout_rate, gen))
-        return nhwc(self.linear_pred(x))
+        with span("seg/head"):
+            tgt = features[0].shape[1:3]
+            proj = []
+            for i in (4, 3, 2, 1):
+                p = getattr(self, f"linear_c{i}")(features[i - 1])
+                if p.shape[1:3] != tgt:
+                    p = resize_bilinear(p, tgt)
+                proj.append(p)
+            x = self.linear_fuse.conv(nchw(torch.cat(proj, dim=-1)))
+            bn = self.linear_fuse.bn
+            if not train:
+                x = F.batch_norm(x, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, training=False,
+                                 eps=bn.eps)
+                return nhwc(self.linear_pred(torch.relu(x)))
+            shard = None if isinstance(gen, torch.Generator) else gen
+            x = torch.relu(batch_norm_train(x, bn, shard))
+            if self.dropout_rate > 0.0:
+                if gen is None:
+                    raise ValueError("dropout in train mode needs a "
+                                     "generator")
+                x = dropout(x, self.dropout_rate,
+                            dropout_mask(x, self.dropout_rate, gen))
+            return nhwc(self.linear_pred(x))

@@ -41,6 +41,7 @@ from ._device import place, resolve as _device
 from .ops.image import const, resize_bilinear
 from .parallel.mesh import put_replicated
 from .parallel.tensor import tensor_parallel
+from .utils.profiler import span
 
 
 def _place(model, dev: torch.device):
@@ -95,14 +96,15 @@ class ServingModule(torch.nn.Module):
             self.register_buffer(f"tap{i + 1}", t, persistent=False)
 
     def forward(self, ir: torch.Tensor, vis: torch.Tensor):
-        taps = None if self.tap1 is None else (self.tap1, self.tap2)
-        fused_rgb, _ = self.model.fuse(ir, vis, taps=taps,
-                                       vis_channel=self.vis_channel)
-        if not self.with_seg:
-            return fused_rgb
-        logits = self.model.seg(fused_rgb).float()
-        logits = resize_bilinear(logits, ir.shape[1:3])
-        return fused_rgb, logits.argmax(dim=-1).to(torch.int32)
+        with span("serve"):
+            taps = None if self.tap1 is None else (self.tap1, self.tap2)
+            fused_rgb, _ = self.model.fuse(ir, vis, taps=taps,
+                                           vis_channel=self.vis_channel)
+            if not self.with_seg:
+                return fused_rgb
+            logits = self.model.seg(fused_rgb).float()
+            logits = resize_bilinear(logits, ir.shape[1:3])
+            return fused_rgb, logits.argmax(dim=-1).to(torch.int32)
 
 
 def _serving_module(model, guide_rgb, with_seg, vis_channel,

@@ -92,6 +92,7 @@ from ..losses.seg_loss import cross_entropy
 from ..ops.color import rgb_to_ycrcb, ycrcb_to_rgb
 from ..ops.image import resize_bilinear
 from ..parallel.tensor import broadcast_whole
+from ..utils.profiler import span
 from .state import FusionTrainState, SegTrainState
 
 
@@ -196,8 +197,10 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
         return total, loss1, loss2, w
 
     def grads_of(state, mb, fusion_scale, shard=None):
-        total, loss1, loss2, w = loss_fn(state, mb, fusion_scale, shard)
-        grads = torch.autograd.grad(total, list(state.params.values()))
+        with span("step/forward"):
+            total, loss1, loss2, w = loss_fn(state, mb, fusion_scale, shard)
+        with span("step/backward"):
+            grads = torch.autograd.grad(total, list(state.params.values()))
         return grads, [t.detach() for t in (total, loss1, loss2, w)]
 
     def step(state: FusionTrainState, batch: Dict[str, torch.Tensor],
@@ -209,34 +212,39 @@ def make_fusion_train_step(model, tx, round1: bool, ignore_index: int = 255,
         if shard is not None and grad_accum > 1:
             raise ValueError("grad_accum > 1 under data parallelism: use "
                              "data parallelism OR accumulation")
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        if grad_accum > 1:
-            gsum = sums = None
-            for a in range(grad_accum):
-                g, ls = grads_of(state, {k: v[a] for k, v in batch.items()},
-                                 fusion_scale)
-                if gsum is None:
-                    gsum, sums, w = list(g), ls[:3], ls[3]
-                else:
-                    gsum = [x + y for x, y in zip(gsum, g)]
-                    sums = [x + y for x, y in zip(sums, ls[:3])]
-            inv = 1.0 / grad_accum
-            grads = [g * inv for g in gsum]
-            total, loss1, loss2 = (s * inv for s in sums)
-        else:
-            g, (total, loss1, loss2, w) = grads_of(state, batch,
-                                                   fusion_scale, shard)
-            grads, (total, loss1, loss2) = _sum_over_ranks(
-                shard, g, [total, loss1, loss2])
-        grads = broadcast_whole(dict(zip(state.params, grads)),
-                                state.splits)
-        state.opt_state = tx.update(grads, state.opt_state, state.params)
-        _, state.dwa, _ = dwa_combine(state.dwa, loss1, loss2, fusion_scale,
-                                      seg_scale, dwa_temperature,
-                                      dwa_warmup_steps)
-        state.step = state.step + 1
-        return {"loss": total, "loss_fusion": loss1, "loss_seg": loss2,
-                "weights": w}
+        with span("step"):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            if grad_accum > 1:
+                gsum = sums = None
+                for a in range(grad_accum):
+                    g, ls = grads_of(state, {k: v[a] for k, v in
+                                             batch.items()}, fusion_scale)
+                    if gsum is None:
+                        gsum, sums, w = list(g), ls[:3], ls[3]
+                    else:
+                        gsum = [x + y for x, y in zip(gsum, g)]
+                        sums = [x + y for x, y in zip(sums, ls[:3])]
+                inv = 1.0 / grad_accum
+                grads = [g * inv for g in gsum]
+                total, loss1, loss2 = (s * inv for s in sums)
+            else:
+                grads, (total, loss1, loss2, w) = grads_of(
+                    state, batch, fusion_scale, shard)
+            with span("step/allreduce"):
+                if grad_accum == 1:
+                    grads, (total, loss1, loss2) = _sum_over_ranks(
+                        shard, grads, [total, loss1, loss2])
+                grads = broadcast_whole(dict(zip(state.params, grads)),
+                                        state.splits)
+            with span("step/optimizer"):
+                state.opt_state = tx.update(grads, state.opt_state,
+                                            state.params)
+            _, state.dwa, _ = dwa_combine(state.dwa, loss1, loss2,
+                                          fusion_scale, seg_scale,
+                                          dwa_temperature, dwa_warmup_steps)
+            state.step = state.step + 1
+            return {"loss": total, "loss_fusion": loss1, "loss_seg": loss2,
+                    "weights": w}
 
     step.seg = seg      # the frozen copy this step reads
     return step

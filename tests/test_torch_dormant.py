@@ -28,7 +28,6 @@ from segmif_tpu.ops import color as jcolor
 from segmif_tpu.ops import entropy as jent
 from segmif_tpu.ops import filters as jfilt
 from segmif_tpu.ops import image as jimage
-from segmif_tpu.utils.profiler import StepTimer as JaxStepTimer
 from segmif_tpu_torch.data import legacy_augment as aug
 from segmif_tpu_torch.eval.metrics import colorize_labels
 from segmif_tpu_torch.kernels import attention as att
@@ -438,24 +437,11 @@ def test_colorize_labels_matches_jax():
     np.testing.assert_array_equal(got, jax_colorize(lab))
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    import time
-
-    out = []
-    for timer in (profiler.StepTimer(window=2), JaxStepTimer(window=2)):
-        clock = iter([0.0, 0.5, 1.5, 1.75])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        out.append([timer.tick() for _ in range(4)]
-                   + [timer.mean, timer.throughput(8)])
-    assert out[0] == out[1] == [None, 0.5, 1.0, 0.25, 0.625, 8 / 0.625]
-
-
 def test_benchmark_fn_and_trace_on_cpu(tmp_path):
-    calls = []
-    s = profiler.benchmark_fn(lambda a: calls.append(a.sum()),
-                              torch.ones(4), iters=3, warmup=2)
-    assert s > 0 and len(calls) == 5
+    """``trace`` writes a Chrome trace that holds the port's spans."""
     with profiler.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+        with profiler.span("test/trace"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    text = (tmp_path / "tr" / "trace.json").read_text()
+    assert '"segmif/test/trace"' in text
     assert len(prof.key_averages()) > 0
