@@ -55,7 +55,11 @@ the untimed 11 (b)-(e) and 12 (c)):
     int8 block's peak memory; at 100x172, faults planted in the DRDB
     kernels' arguments (dropped biases, swapped conv taps, a zeroed weight
     chunk, two growth slices swapped at the tail, a wrong requant scale)
-    must fail those checks;
+    must fail those checks; the FFM's bf16 backward kernels (pass A',
+    pass B' and the whole backward) at [8, 307200, 64] and the trainer's
+    [2, 102400, 64] against the plain VJP (dyadic tokens; every gradient
+    within 2^-7 of its largest magnitude, a repeat bit for bit), each
+    pass's ms, the whole backward's and the plain VJP's, and their bound;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
@@ -75,7 +79,8 @@ the untimed 11 (b)-(e) and 12 (c)):
  7. print pairs/s for the four serving modes, timed with CUDA events;
  8. fusion-phase training (``segmif_tpu_torch.train.steps.
     make_fusion_train_step``; the kernels' autograd.Functions recompute
-    their plain versions in the backward): (a) one round >= 2 step of a
+    their plain versions in the backward, but for the FFM's bf16 backward,
+    two kernels): (a) one round >= 2 step of a
     mit_b3 model (weights at the reference modules' scale) in f32 on the
     card against the same step on the CPU, batch 2 at 240x320, every
     gradient leaf held to the CPU's, and a DRDB Function that returns a
@@ -83,7 +88,8 @@ the untimed 11 (b)-(e) and 12 (c)):
     full width, batch 8 at 480x640, bf16 compute with f32 master weights,
     AdamW (poly schedule): 6 round >= 2 steps on one batch, then a round-1
     step, with the kernel launches of every step counted (sr-attention 35
-    or 7, FFM 2 + 2, DRDB 4 + 4, int8 0: the backward launches none),
+    or 7, FFM 2 + 2, DRDB 4 + 4, int8 0; in the backward the FFM's two
+    kernels 2 + 2 and no plain VJP of the FFM),
     finite losses and loss_fusion falling from step 1 to step 5, and no
     synchronizing CUDA call in a step; (c) one bf16 step against one f32
     step on the card, beside an f32 step with the weights rounded to bf16:
@@ -93,7 +99,7 @@ the untimed 11 (b)-(e) and 12 (c)):
     within a tighter range (128x160 printed); the (a) fault must fail both;
     (d) ms per step and pairs/s (CUDA events, three steps after two
     warm-up steps, host-paced), the share of a step spent in the
-    Functions' recompute backward, peak device memory, each part's
+    Functions' backward, peak device memory, each part's
     seconds;
  9. the interactive trainer (``segmif_tpu_torch.train``): (a) one seg
     step of a mit_b3 ``SegmentationNetwork`` (drop-path and dropout at 0)
@@ -983,6 +989,94 @@ def kernel_checks(dev):
     return res
 
 
+# a bf16 fusion step's FFM backward: its two kernels once per round, no
+# plain VJP
+BWD_EXPECT = {"ffm_bwd_reduce": 2, "ffm_bwd_rows": 2, "plain_vjp": 0}
+# the FFM's bf16 backward against the plain VJP in bf16, every gradient
+# within this share of its largest magnitude (tests/test_torch_cuda.py's
+# GRAD_TOL), on dyadic tokens and projections whose relu inputs no
+# summation order moves
+FFM_BWD_TOL = 2 ** -7
+
+
+def ffm_backward_checks(dev):
+    """Phase 4: the FFM's bf16 backward (``kffm.crosspath_backward``: pass
+    A', the fold's gradient, pass B') at the fusion trunk's shape and at
+    the trainer's 2x320x320 crops against the plain VJP it replaces: the
+    errors, a repeat bit for bit, each pass's ms, the whole backward's
+    beside the plain VJP's and the bound of the function's operations
+    (40 64x64 products a token) and bytes (x1 x2 s g1 g2 read, dx1 dx2 ds
+    written, once each)."""
+    import torch
+
+    from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.kernels import ffm as kffm
+    from segmif_tpu_torch.models.fusion import CrossPath
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 21)
+
+    def ternary(shape, step):
+        return (torch.randint(-1, 2, shape, generator=gen) * step).to(
+            dev, bf16)
+
+    for b, n in ((BATCH, H * W), (2, 320 * 320)):
+        torch.manual_seed(SEED + 21)
+        cp = CrossPath(64).to(dev, bf16)
+        with torch.no_grad():
+            for i in (1, 2, 3):
+                lin = getattr(cp, f"channel_proj{i}")
+                for t in (lin.weight, lin.bias):
+                    t.copy_(ternary(tuple(t.shape), 1 / 64))
+        xs = [ternary((b, n, 64), 1 / 8) for _ in range(3)]
+        gs = [torch.randn((b, n, 64), generator=gen).to(dev, bf16)
+              for _ in range(2)]
+        w = {k: v.detach() for k, v in cp.folded_weights().items()}
+        ws = [w[k] for k in kffm.W_KEYS]
+        wp, bp = kffm.projections(w)
+        with torch.no_grad():
+            grams = kffm.crosspath_grams(*xs, wp, bp)
+        args = (*xs, grams, ws, *gs, [True] * 20, cp.scale, cp.num_heads)
+
+        def kernel():
+            return kffm.crosspath_backward(*args)
+
+        def plain():
+            return _build.plain_vjp(
+                "bwd/crosspath", lambda x1, x2, s, *ws: kffm.
+                crosspath_folded_ref(x1, x2, s, dict(zip(kffm.W_KEYS, ws)),
+                                     cp.scale, cp.num_heads),
+                [*xs, *ws], [True] * 20, gs)
+
+        got, want = kernel(), plain()
+        errs = {name: max_err(g, e) / e.float().abs().max().item()
+                for name, g, e in zip(("x1", "x2", "s") + kffm.W_KEYS, got,
+                                      want)}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= FFM_BWD_TOL, f"ffm backward error {errs}")
+        check(all(torch.equal(a, c) for a, c in zip(got, kernel())),
+              "the ffm backward is not deterministic")
+        ms, pms = time_pair(kernel, plain)
+        mats, be, lnp = kffm.apply_args(grams, w, cp.scale, cp.num_heads)
+        sym = torch.randn((b, 3, 64, 64), generator=gen).to(dev) * 1e-3
+        a_ms = time_fn(lambda: kffm.crosspath_bwd_reduce(
+            *xs, *gs, wp, bp, mats, be, lnp))
+        b_ms = time_fn(lambda: kffm.crosspath_bwd_rows(
+            *xs, *gs, wp, bp, mats, sym, be, lnp))
+        bd = bound(40 * 2 * 64 * 64 * b * n, "bf16", nbytes(*xs, *gs,
+                                                             *got[:3]))
+        print(f"ffm_backward bfloat16 B={b} N={n} C=64: against the plain "
+              f"VJP worst max|err|/max|ref| {errs[worst]:.3e} ({worst}; "
+              f"limit {FFM_BWD_TOL:g}), repeats bit for bit; pass A' "
+              f"{a_ms:.4f} ms, pass B' {b_ms:.4f} ms, the whole backward "
+              f"{ms:.4f} ms (the fold's small ops on the host's pace "
+              f"besides), plain VJP {pms:.4f} ms; bound {bd['bound_ms']:.4f}"
+              f" ms ({bd['bound_by']}), the two passes at "
+              f"{bd['bound_ms'] / (a_ms + b_ms):.3f} of it", flush=True)
+        del got, want, xs, gs, grams, args
+        torch.cuda.empty_cache()
+
+
 def drdb_inputs(gen, b, h, w, dtype, dev):
     """x as the trunk holds it (an NCHW view on channels_last memory) and
     the DRDB's weights at torch's default conv init."""
@@ -1599,6 +1693,7 @@ def train_checks(dev, counters, refs):
     import torch
 
     from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.kernels import ffm as kffm
     from segmif_tpu_torch.train.compare import (bf16_rounded, leaf_cosines,
                                                 leaf_errors, step_grads)
     from segmif_tpu_torch.train.optimizer import adamw_poly
@@ -1654,13 +1749,22 @@ def train_checks(dev, counters, refs):
     expect = {r: {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
                   **float_drdb} for r, sr in (("r2", 35), ("r1", 7))}
 
+    # the FFM's backward: its two kernels once a round, no plain VJP
+    bwd = {"ffm_bwd_reduce": kffm.crosspath_bwd_reduce,
+           "ffm_bwd_rows": kffm.crosspath_bwd_rows}
+
     def counted(fn, which):
-        for c in counters.values():
+        for c in (*counters.values(), *bwd.values()):
             c.launches = 0
+        kffm._CrossPathFn.plain_backwards = 0
         metrics = fn(state, full, TRAIN_FUSION_SCALE)
         counts = {k: c.launches for k, c in counters.items()}
         check(counts == expect[which], f"train step launches {counts}, "
                                        f"expected {expect[which]}")
+        backward = {k: c.launches for k, c in bwd.items()}
+        backward["plain_vjp"] = kffm._CrossPathFn.plain_backwards
+        check(backward == BWD_EXPECT, f"train step FFM backward "
+                                      f"{backward}, expected {BWD_EXPECT}")
         return metrics
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1682,25 +1786,29 @@ def train_checks(dev, counters, refs):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
     step_ms = ev[0].elapsed_time(ev[1]) / 3
-    # step 6: the Functions' recompute backward timed inside the step
-    real, spans = _build.plain_vjp, []
+    # step 6: the Functions' backward (the recomputes and the FFM's
+    # kernels) timed inside the step
+    spans = []
 
-    def timed_vjp(*a, **k):
-        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s_.record()
-        out = real(*a, **k)
-        e_.record()
-        spans.append((s_, e_))
-        return out
+    def timed(real):
+        def fn(*a, **k):
+            s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s_.record()
+            out = real(*a, **k)
+            e_.record()
+            spans.append((s_, e_))
+            return out
+        return fn
 
-    _build.plain_vjp = timed_vjp
+    reals = (_build.plain_vjp, kffm.crosspath_backward)
+    _build.plain_vjp, kffm.crosspath_backward = map(timed, reals)
     try:
         ev[2].record()
         losses.append(counted(step, "r2"))
         ev[3].record()
         torch.cuda.synchronize()
     finally:
-        _build.plain_vjp = real
+        _build.plain_vjp, kffm.crosspath_backward = reals
     syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
     recompute_ms = sum(a.elapsed_time(b) for a, b in spans)
     inst_ms = ev[2].elapsed_time(ev[3])
@@ -1710,7 +1818,7 @@ def train_checks(dev, counters, refs):
           f"master weights, AdamW lr {TRAIN_LR:g}: 6 round >= 2 steps, "
           f"loss {' '.join(f'{v:.5f}' for v in tot)}, loss_fusion "
           f"{' '.join(f'{v:.5f}' for v in fus)}; launches per step "
-          f"{expect['r2']} (the backward launches none)", flush=True)
+          f"{expect['r2']}, in the backward {BWD_EXPECT}", flush=True)
     check(all(math.isfinite(v) for v in tot + fus), "train losses not "
                                                    "finite")
     check(fus[4] < fus[0], "loss_fusion did not fall over 5 steps")
@@ -1726,9 +1834,9 @@ def train_checks(dev, counters, refs):
           f"warm-up steps, CUDA events, host-paced), "
           f"{BATCH * 1e3 / step_ms:.3f} train pairs/s; peak device memory of "
           f"steps 3-5 above the model and batch {peak / 2**30:.2f} GiB; step "
-          f"6 {inst_ms:.2f} ms of which the Functions' recompute backward "
+          f"6 {inst_ms:.2f} ms of which the Functions' backward "
           f"{recompute_ms:.2f} ms ({recompute_ms / inst_ms:.3f} of the step, "
-          f"{len(spans)} recomputes); synchronizing CUDA calls in step 2 "
+          f"{len(spans)} calls); synchronizing CUDA calls in step 2 "
           f"(torch.cuda.set_sync_debug_mode): {len(syncs)}", flush=True)
     check(not syncs, f"the train step waits for the device: "
                      f"{syncs[0].message if syncs else ''}")
@@ -5159,6 +5267,7 @@ def main(argv=None) -> int:
     # phase 4: kernels vs plain at main-path shapes
     t0 = time.perf_counter()
     kres = kernel_checks(dev)
+    ffm_backward_checks(dev)
     with torch.inference_mode():
         kres.update(drdb_checks(dev))
         kres.update(drdb_int8_checks(dev))

@@ -11,7 +11,8 @@ Module names mirror ``segmif_tpu`` so each counterpart is easy to find:
  - ``kernels.attention``: MiT spatially-reduced attention; CUDA kernel
    ``kernels/csrc/sr_attention.cu`` on CUDA tensors, plain PyTorch on CPU.
  - ``kernels.ffm``: the folded CrossPath (feature-fusion module) as a
-   grams pass and an apply pass, CUDA kernels in ``kernels/csrc/ffm.cu``.
+   grams pass and an apply pass, CUDA kernels in ``kernels/csrc/ffm.cu``;
+   its bf16 backward as two more passes in ``kernels/csrc/ffm_bwd.cu``.
  - ``kernels.drdb``: the dilated residual dense block; CUDA kernels
    ``kernels/csrc/drdb.cu`` (growth chain, concat-free tail).
  - ``kernels.int8``: the calibrated int8 DRDB for serving (quantisers,

@@ -60,6 +60,18 @@ SIGNATURES = {
                          _vp, _vp,                         # o1 o2
                          _i32, _i32, _i32,                 # B N chunk
                          _i32, _vp],                       # dtype stream
+    "segmif_ffm_bwd_reduce": [_vp, _vp, _vp, _vp, _vp,     # x1 x2 s g1 g2
+                              _vp, _vp, _vp, _vp, _vp,     # wp bp mats be lnp
+                              _vp, _vp,                    # partial out
+                              _i32, _i32, _i32, _i32,      # B N chunk nchunk
+                              _i32, _vp],                  # dtype stream
+    "segmif_ffm_bwd_rows": [_vp, _vp, _vp, _vp, _vp,       # x1 x2 s g1 g2
+                            _vp, _vp, _vp, _vp, _vp, _vp,  # wp bp mats sym
+                                                           # be lnp
+                            _vp, _vp, _vp,                 # dx1 dx2 ds
+                            _vp, _vp,                      # partial out
+                            _i32, _i32, _i32, _i32,        # B N chunk nchunk
+                            _i32, _vp],                    # dtype stream
     "segmif_drdb_growth": [_vp, _i64, _vp, _vp, _vp,       # x x_ps rs w b
                            _i32, _i32, _i32,               # B H W
                            _i32, _vp],                     # dtype stream
@@ -173,10 +185,10 @@ def library() -> ctypes.CDLL:
 def refuse_grad(*ts: torch.Tensor, instead: Optional[str] = None) -> None:
     """Raise if autograd would need a gradient through a forward-only
     kernel wrapper. ``instead``: the function whose autograd.Function
-    carries the gradient (its backward recomputes the plain version)."""
+    carries the gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        hint = (f"call {instead}, whose backward recomputes the plain "
-                "version, for a gradient" if instead else
+        hint = (f"call {instead}, whose autograd.Function carries the "
+                "gradient" if instead else
                 "call it under torch.inference_mode() or torch.no_grad()")
         raise RuntimeError(f"this CUDA kernel wrapper is forward-only; "
                            f"{hint}")

@@ -15,12 +15,20 @@ ln1/2_scale and _bias [C].
  - ``crosspath_fused``: grams -> per-head contexts and end-projection fold
    (tiny [B, C, C] matrices, plain torch) -> apply. Under autograd the
    whole of it sits in one ``autograd.Function`` whose backward is the VJP
-   of ``crosspath_folded_ref`` with respect to x1, x2, s and every weight,
-   recomputed in plain PyTorch (the JAX ``custom_vjp`` of
-   ``pallas_ffm.py``: ``_bwd`` recomputes ``crosspath_folded_xla``). The
-   Function takes the weights as ``w`` holds them (the module's
+   of ``crosspath_folded_ref`` with respect to x1, x2, s and every weight.
+   The Function takes the weights as ``w`` holds them (the module's
    ``.t()`` views), so their gradients reach the ``nn.Linear`` and
    ``nn.LayerNorm`` leaves. The two passes called alone are forward-only.
+ - The backward (``crosspath_backward``): bf16 CUDA tokens with the
+   kernels' contract take two more kernels (``csrc/ffm_bwd.cu``), the
+   operators ``segmif::ffm_bwd_reduce`` (pass A': the context matrices'
+   gradients and the per-channel sums, summed over the tokens) and
+   ``segmif::ffm_bwd_rows`` (pass B': the tokens' gradients and the
+   projections' sums), with the fold's gradient between them in plain
+   torch on the forward's saved grams. Every other input (f32, f64, CPU)
+   recomputes ``crosspath_folded_ref`` under autograd (the JAX
+   ``custom_vjp`` of ``pallas_ffm.py``: ``_bwd`` recomputes
+   ``crosspath_folded_xla``; it has no backward kernel).
  - ``crosspath_apply``: CPU tensors take the plain folded maths, CUDA
    tensors the two kernels.
 
@@ -37,6 +45,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build
+from ..utils.profiler import span
 from .attention import linear_ctx_blockdiag_from_gram
 
 LN_EPS = 1e-5
@@ -367,12 +376,19 @@ def _crosspath_kernels(x1, x2, s, w: Dict, scale: float, num_heads: int,
     grams the contexts read: the row-sharded trunk
     (``parallel.spatial``) sums them over the ranks, so that every rank
     applies the whole image's contexts to its own tokens."""
+    return _crosspath_passes(x1, x2, s, w, scale, num_heads, reduce)[:2]
+
+
+def _crosspath_passes(x1, x2, s, w: Dict, scale: float, num_heads: int,
+                      reduce=None):
+    """``_crosspath_kernels``' (o1, o2) and the grams the contexts read."""
     wp, bp = projections(w)
     grams = crosspath_grams(x1, x2, s, wp, bp)
     if reduce is not None:
         grams = reduce(grams)
-    return crosspath_apply_rows(x1, x2, s, wp, bp,
-                                *apply_args(grams, w, scale, num_heads))
+    o1, o2 = crosspath_apply_rows(x1, x2, s, wp, bp,
+                                  *apply_args(grams, w, scale, num_heads))
+    return o1, o2, grams
 
 
 def projections(w: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -382,54 +398,417 @@ def projections(w: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.stack([w["bp1"], w["bp2"], w["bp3"]]))
 
 
+def fold_mats(grams: torch.Tensor, wkv1, wkv2, wkv3, we1, we2,
+              scale: float, num_heads: int) -> torch.Tensor:
+    """The four context matrices [B, 4, C, C] (M0-M3, in the grams' type)
+    from pass A's [B, 3, C, C] grams: the per-head contexts folded into
+    the end projections' halves, before their rounding to the tokens'
+    type. The backward differentiates it on the forward's grams."""
+    dim = grams.shape[-1]
+    acc = _build.acc_dtype(grams.dtype)
+    bd_1 = linear_ctx_blockdiag_from_gram(grams[:, 0], wkv1, scale,
+                                          num_heads)
+    bd_2 = linear_ctx_blockdiag_from_gram(grams[:, 1], wkv2, scale,
+                                          num_heads)
+    bd_s = linear_ctx_blockdiag_from_gram(grams[:, 2], wkv3, scale,
+                                          num_heads)
+    we1, we2 = we1.to(acc), we2.to(acc)
+    return torch.stack([bd_1 @ we1[:dim], bd_s @ we1[dim:],
+                        bd_2 @ we2[:dim], bd_s @ we2[dim:]], 1)
+
+
 def apply_args(grams: torch.Tensor, w: Dict, scale: float, num_heads: int):
     """Pass B's (mats, be, lnp) from pass A's [B, 3, C, C] grams: the
     contexts folded into the end projections, their biases, the two
     LayerNorms."""
-    dim = grams.shape[-1]
-    bd_1 = linear_ctx_blockdiag_from_gram(grams[:, 0], w["wkv1"], scale,
-                                          num_heads)
-    bd_2 = linear_ctx_blockdiag_from_gram(grams[:, 1], w["wkv2"], scale,
-                                          num_heads)
-    bd_s = linear_ctx_blockdiag_from_gram(grams[:, 2], w["wkv3"], scale,
-                                          num_heads)
-    we1, we2 = w["we1"].float(), w["we2"].float()
-    mats = torch.stack([bd_1 @ we1[:dim], bd_s @ we1[dim:],
-                        bd_2 @ we2[:dim], bd_s @ we2[dim:]], 1)
+    mats = fold_mats(grams, w["wkv1"], w["wkv2"], w["wkv3"], w["we1"],
+                     w["we2"], scale, num_heads)
     be = torch.stack([w["be1"], w["be2"]]).float()
     lnp = torch.stack([torch.stack([w["ln1_scale"], w["ln1_bias"]]),
                        torch.stack([w["ln2_scale"], w["ln2_bias"]])]).float()
     return mats, be, lnp
 
 
+# ---------------------------------------------------------------- backward
+
+_BWD_STEP = 128   # tokens a backward block takes a step (8 warps x 16)
+
+
+def _bwd_chunk(n: int, bsz: int, parts: int, device: torch.device) -> int:
+    """Tokens per block of a backward pass, a multiple of 128: on the card
+    each image's tokens split so that the grid ((chunks, B, parts), one
+    block per SM by shared memory) is about four waves of SMs; on the CPU
+    one chunk an image."""
+    steps = math.ceil(n / _BWD_STEP)
+    if device.type != "cuda":
+        return steps * _BWD_STEP
+    per_image = max(1, min(steps, math.ceil(4 * _sm_count(device) /
+                                            (parts * bsz))))
+    return math.ceil(steps / per_image) * _BWD_STEP
+
+
+def _ln_grad(t, g, gamma):
+    """(dh, xhat): the gradient at ``_layer_norm``'s input t for the output
+    cotangent g, and t normalised; the variance's clamp passes no gradient
+    where it holds."""
+    mu = t.mean(-1, keepdim=True)
+    var = (t * t).mean(-1, keepdim=True) - mu * mu
+    rstd = torch.rsqrt(var.clamp_min(0.0) + LN_EPS)
+    xhat = (t - mu) * rstd
+    a = g * gamma
+    dh = rstd * (a - a.mean(-1, keepdim=True) - xhat * (
+        (a * xhat).mean(-1, keepdim=True) * (var >= 0)))
+    return dh, xhat
+
+
+def _chunks(n: int, chunk: int):
+    return [slice(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+
+
+def _bwd_reduce_plain(x1, x2, s, g1, g2, wp, bp, mats, be, lnp, chunk):
+    """Plain pass A' on the kernel's operands (wp, mats in the tokens'
+    type; bp, be, lnp in the arithmetic type): per chunk of each image's
+    tokens the sums of ``ffm_bwd_reduce``, then the chunks summed in
+    order. -> dM [B, 4, C, C] (y3^T dh1, u1^T dh1, y3^T dh2, u2^T dh2) and
+    sums [B, 2, 3, C] (per output: sum(dh), sum(g xhat), sum(g))."""
+    acc = _build.acc_dtype(x1.dtype)
+    n, c = x1.shape[1:]
+    wp, m = wp.to(acc), mats.to(acc)
+    total = 0
+    for sl in _chunks(n, chunk):
+        y3 = _relu_proj(s[:, sl], wp[2, :, :c], bp[2, :c])
+        outs = []
+        for o, (x, g) in enumerate(((x1, g1), (x2, g2))):
+            xo, go = x[:, sl].to(acc), g[:, sl].to(acc)
+            u = _relu_proj(x[:, sl], wp[o, :, c:], bp[o, c:])
+            dh, xhat = _ln_grad(
+                xo + (y3 @ m[:, 2 * o] + u @ m[:, 2 * o + 1] + be[o]), go,
+                lnp[o, 0])
+            outs.append(torch.cat([
+                (y3.transpose(1, 2) @ dh).flatten(1),
+                (u.transpose(1, 2) @ dh).flatten(1),
+                dh.sum(1), (go * xhat).sum(1), go.sum(1)], 1))
+        total = total + torch.stack(outs, 1)
+    return _reduce_outputs(total, c)
+
+
+def _reduce_outputs(out: torch.Tensor, c: int):
+    """[B, 2, 2 C C + 3 C] -> (dM [B, 4, C, C], sums [B, 2, 3, C])."""
+    bsz, cc = out.shape[0], c * c
+    return (out[..., :2 * cc].reshape(bsz, 4, c, c).contiguous(),
+            out[..., 2 * cc:].reshape(bsz, 2, 3, c).contiguous())
+
+
+def _relu_grad(dr, r, dt):
+    """The gradient at a projection's pre-activation from dr, the one at
+    its output r = relu(pre) rounded to dt: dr rounded to dt (the cast's
+    gradient), then relu's mask."""
+    return dr.to(dt).to(dr.dtype) * (r > 0)
+
+
+def _bwd_rows_plain(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp, chunk):
+    """Plain pass B' on the kernel's operands (as ``_bwd_reduce_plain``;
+    sym [B, 3, C, C] the grams' symmetrised gradients dG_i + dG_i^T) ->
+    dx1, dx2, ds (the tokens' type), dWp [B, 3, C, 2C] and dbp [B, 3, 2C]
+    (the arithmetic type) summed over each image's chunks in order."""
+    dt = x1.dtype
+    acc = _build.acc_dtype(dt)
+    n, c = x1.shape[1:]
+    wp, m = wp.to(acc), mats.to(acc)
+    dxs = [torch.empty_like(x) for x in (x1, x2, s)]
+    total = 0
+    for sl in _chunks(n, chunk):
+        xs = [x[:, sl] for x in (x1, x2, s)]
+        r = [_relu_proj(x, wp[i], bp[i]) for i, x in enumerate(xs)]
+        y3 = r[2][..., :c]
+        dh = []
+        for o, g in enumerate((g1, g2)):
+            u = r[o][..., c:]
+            dh.append(_ln_grad(xs[o].to(acc) + (
+                y3 @ m[:, 2 * o] + u @ m[:, 2 * o + 1] + be[o]),
+                g[:, sl].to(acc), lnp[o, 0])[0])
+        dr = [torch.cat([r[o][..., :c] @ sym[:, o],
+                         dh[o] @ m[:, 2 * o + 1].transpose(1, 2)], -1)
+              for o in (0, 1)]
+        dr.append(torch.cat([dh[0] @ m[:, 0].transpose(1, 2) +
+                             dh[1] @ m[:, 2].transpose(1, 2),
+                             r[2][..., c:] @ sym[:, 2]], -1))
+        dpre = [_relu_grad(d, ri, dt) for d, ri in zip(dr, r)]
+        for i, (x, p) in enumerate(zip(xs, dpre)):
+            dx = (p @ wp[i].transpose(0, 1)).to(dt)
+            dxs[i][:, sl] = dx + dh[i].to(dt) if i < 2 else dx
+        total = total + torch.stack([torch.cat(
+            [(x.to(acc).transpose(1, 2) @ p).flatten(1), p.sum(1)], 1)
+            for x, p in zip(xs, dpre)], 1)
+    return (*dxs, *_rows_outputs(total, c))
+
+
+def _rows_outputs(out: torch.Tensor, c: int):
+    """[B, 3, 2 C C + 2 C] -> (dWp [B, 3, C, 2C], dbp [B, 3, 2C])."""
+    bsz, cc = out.shape[0], 2 * c * c
+    return (out[..., :cc].reshape(bsz, 3, c, 2 * c).contiguous(),
+            out[..., cc:].contiguous())
+
+
+def _check_bwd(name: str, *ts: torch.Tensor) -> None:
+    _check_tokens(name, *ts)
+    if ts[0].dtype != torch.bfloat16:
+        raise ValueError(f"{name}: dtype {ts[0].dtype}; the backward "
+                         "kernels take bf16")
+
+
+def _bwd_operands(x1, wp, bp, mats, be, lnp):
+    """The passes' weights as the kernels read them: wp and mats in the
+    tokens' type, bp rounded to it, in the arithmetic type with be and
+    lnp."""
+    dt, dev = x1.dtype, x1.device
+    acc = _build.acc_dtype(dt)
+    return (wp.to(dev, dt).contiguous(), bp.to(dev, dt).to(acc).contiguous(),
+            mats.to(dev, dt).contiguous(), be.to(dev, acc).contiguous(),
+            lnp.to(dev, acc).contiguous())
+
+
+def crosspath_bwd_reduce(x1, x2, s, g1, g2, wp, bp, mats, be, lnp,
+                         chunk=None):
+    """Pass A' of the backward, through the operator
+    ``segmif::ffm_bwd_reduce`` (``ffm_bwd_reduce_op``). x_i, s and the
+    cotangents g1, g2 [B, N, C]; wp [3, C, 2C], bp [3, 2C]; mats [B, 4, C,
+    C] (the forward's, rounded to the tokens' type here); be [2, C]; lnp
+    [2, 2, C]. -> (dM [B, 4, C, C], sums [B, 2, 3, C]) in the arithmetic
+    type. CPU tensors take the plain version; CUDA tensors (bf16, the
+    forward kernels' token contract) launch ``segmif_ffm_bwd_reduce``.
+    ``chunk`` (a multiple of 128) overrides the tokens per block."""
+    if x1.is_cuda:
+        _check_bwd("crosspath_bwd_reduce", x1, x2, s, g1, g2)
+    chunk = chunk or _bwd_chunk(x1.shape[1], x1.shape[0], 2, x1.device)
+    return torch.ops.segmif.ffm_bwd_reduce(
+        x1, x2, s, g1, g2, *_bwd_operands(x1, wp, bp, mats, be, lnp), chunk)
+
+
+@torch.library.custom_op("segmif::ffm_bwd_reduce", mutates_args=(),
+                         device_types="cuda")
+def ffm_bwd_reduce_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
+                      g1: torch.Tensor, g2: torch.Tensor, wp: torch.Tensor,
+                      bp: torch.Tensor, mats: torch.Tensor, be: torch.Tensor,
+                      lnp: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``segmif_ffm_bwd_reduce`` (and its in-order sum of the
+    chunks) on the current stream; the partials and the output are
+    allocated here."""
+    _check_aligned("crosspath_bwd_reduce", x1, x2, s, g1, g2)
+    bsz, n, c = x1.shape
+    n_chunks = math.ceil(n / chunk)
+    per = 2 * c * c + 3 * c
+    partial = torch.empty((bsz, n_chunks, 2, per), dtype=torch.float32,
+                          device=x1.device)
+    out = torch.empty((bsz, 2, per), dtype=torch.float32, device=x1.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x1.device).cuda_stream
+    with torch.cuda.device(x1.device):
+        err = lib.segmif_ffm_bwd_reduce(
+            x1.data_ptr(), x2.data_ptr(), s.data_ptr(), g1.data_ptr(),
+            g2.data_ptr(), wp.data_ptr(), bp.data_ptr(), mats.data_ptr(),
+            be.data_ptr(), lnp.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), bsz, n, chunk, n_chunks,
+            _build.DTYPE_CODES[x1.dtype], stream)
+    _build.check(err, "crosspath_bwd_reduce")
+    crosspath_bwd_reduce.launches += 1
+    return _reduce_outputs(out, c)
+
+
+@ffm_bwd_reduce_op.register_kernel("cpu")
+def _ffm_bwd_reduce_cpu(x1, x2, s, g1, g2, wp, bp, mats, be, lnp, chunk):
+    return _bwd_reduce_plain(x1, x2, s, g1, g2, wp, bp, mats, be, lnp, chunk)
+
+
+@ffm_bwd_reduce_op.register_fake
+def _ffm_bwd_reduce_fake(x1, x2, s, g1, g2, wp, bp, mats, be, lnp, chunk):
+    bsz, c = x1.shape[0], x1.shape[-1]
+    return (be.new_empty((bsz, 4, c, c)), be.new_empty((bsz, 2, 3, c)))
+
+
+crosspath_bwd_reduce.launches = 0
+
+
+def crosspath_bwd_rows(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp,
+                       chunk=None):
+    """Pass B' of the backward, through the operator
+    ``segmif::ffm_bwd_rows`` (``ffm_bwd_rows_op``): operands as
+    ``crosspath_bwd_reduce``'s, and sym [B, 3, C, C] (dG_i + dG_i^T, the
+    arithmetic type) -> (dx1, dx2, ds) [B, N, C] in the tokens' type, dWp
+    [B, 3, C, 2C] and dbp [B, 3, 2C] in the arithmetic type. CPU tensors
+    take the plain version; CUDA tensors launch ``segmif_ffm_bwd_rows``."""
+    if x1.is_cuda:
+        _check_bwd("crosspath_bwd_rows", x1, x2, s, g1, g2)
+    chunk = chunk or _bwd_chunk(x1.shape[1], x1.shape[0], 3, x1.device)
+    wp, bp, mats, be, lnp = _bwd_operands(x1, wp, bp, mats, be, lnp)
+    sym = sym.to(x1.device, bp.dtype).contiguous()
+    return torch.ops.segmif.ffm_bwd_rows(x1, x2, s, g1, g2, wp, bp, mats,
+                                         sym, be, lnp, chunk)
+
+
+@torch.library.custom_op("segmif::ffm_bwd_rows", mutates_args=(),
+                         device_types="cuda")
+def ffm_bwd_rows_op(x1: torch.Tensor, x2: torch.Tensor, s: torch.Tensor,
+                    g1: torch.Tensor, g2: torch.Tensor, wp: torch.Tensor,
+                    bp: torch.Tensor, mats: torch.Tensor, sym: torch.Tensor,
+                    be: torch.Tensor, lnp: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """One launch of ``segmif_ffm_bwd_rows`` (and its in-order sum of the
+    chunks) on the current stream; the outputs and partials are allocated
+    here."""
+    _check_aligned("crosspath_bwd_rows", x1, x2, s, g1, g2)
+    bsz, n, c = x1.shape
+    n_chunks = math.ceil(n / chunk)
+    per = 2 * c * c + 2 * c
+    dev = x1.device
+    dxs = [torch.empty_like(x) for x in (x1, x2, s)]
+    partial = torch.empty((bsz, n_chunks, 3, per), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((bsz, 3, per), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.segmif_ffm_bwd_rows(
+            x1.data_ptr(), x2.data_ptr(), s.data_ptr(), g1.data_ptr(),
+            g2.data_ptr(), wp.data_ptr(), bp.data_ptr(), mats.data_ptr(),
+            sym.data_ptr(), be.data_ptr(), lnp.data_ptr(),
+            *(d.data_ptr() for d in dxs), partial.data_ptr(), out.data_ptr(),
+            bsz, n, chunk, n_chunks, _build.DTYPE_CODES[x1.dtype], stream)
+    _build.check(err, "crosspath_bwd_rows")
+    crosspath_bwd_rows.launches += 1
+    return (*dxs, *_rows_outputs(out, c))
+
+
+@ffm_bwd_rows_op.register_kernel("cpu")
+def _ffm_bwd_rows_cpu(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp, chunk):
+    return _bwd_rows_plain(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp,
+                           chunk)
+
+
+@ffm_bwd_rows_op.register_fake
+def _ffm_bwd_rows_fake(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp, chunk):
+    bsz, c = x1.shape[0], x1.shape[-1]
+    return (x1.new_empty(x1.shape), x2.new_empty(x2.shape),
+            s.new_empty(s.shape), be.new_empty((bsz, 3, c, 2 * c)),
+            be.new_empty((bsz, 3, 2 * c)))
+
+
+crosspath_bwd_rows.launches = 0
+
+
+def bwd_takes_kernels(x1, x2, s) -> bool:
+    """Whether ``_CrossPathFn``'s backward runs the kernels: bf16 CUDA
+    tokens [B, N, 64], contiguous and 16-byte aligned (the forward
+    kernels' contract). Every other input takes the plain VJP."""
+    return (x1.is_cuda and x1.dtype == torch.bfloat16 and x1.dim() == 3
+            and x1.shape[-1] == 64 and all(
+                t.shape == x1.shape and t.dtype == x1.dtype
+                and t.device == x1.device and t.is_contiguous()
+                and t.data_ptr() % 16 == 0 for t in (x1, x2, s)))
+
+
+def crosspath_backward(x1, x2, s, grams, ws, g1, g2, needs, scale: float,
+                       num_heads: int, chunk=None) -> tuple:
+    """The gradients of ``crosspath_folded_ref`` with respect to x1, x2, s
+    and the 17 weights ``ws`` (``W_KEYS`` order; None where ``needs`` is
+    False), from the forward's grams [B, 3, C, C] and the cotangents g1, g2
+    (made contiguous here if autograd hands them in another layout): pass
+    A' (``crosspath_bwd_reduce``), the fold's gradient (autograd through
+    ``fold_mats`` on the grams: dM rounded to the tokens' type, as the
+    fold's cast passes it; the contexts', the end projections' and the
+    grams' gradients), pass B' (``crosspath_bwd_rows``). On CUDA tensors
+    the two passes are kernels; on CPU tensors their plain versions (the
+    CPU tests hold this chain to autograd's VJP)."""
+    w = dict(zip(W_KEYS, ws))
+    dt = x1.dtype
+    acc = _build.acc_dtype(dt)
+    g1, g2 = g1.contiguous(), g2.contiguous()
+    wp, bp = projections(w)
+    be = torch.stack([w["be1"], w["be2"]])
+    lnp = torch.stack([torch.stack([w["ln1_scale"], w["ln1_bias"]]),
+                       torch.stack([w["ln2_scale"], w["ln2_bias"]])])
+    fold_keys = ("wkv1", "wkv2", "wkv3", "we1", "we2")
+    leaves = [grams.detach().requires_grad_(True)] + [
+        w[k].detach().requires_grad_(True) for k in fold_keys]
+    with torch.enable_grad():
+        mats = fold_mats(*leaves, scale, num_heads)
+    dmats, sums = crosspath_bwd_reduce(x1, x2, s, g1, g2, wp, bp,
+                                       mats.detach(), be, lnp, chunk)
+    dgrams, *dfold = torch.autograd.grad(mats, leaves,
+                                         dmats.to(dt).to(acc))
+    grads = dict(zip(fold_keys, dfold))
+    sums = sums.sum(0)
+    for o in (0, 1):
+        i = str(o + 1)
+        grads["be" + i] = sums[o, 0]
+        grads[f"ln{i}_scale"], grads[f"ln{i}_bias"] = sums[o, 1], sums[o, 2]
+    dx = [None] * 3
+    if any(needs[:3]) or any(n for k, n in zip(W_KEYS, needs[3:])
+                             if k[:2] in ("wp", "bp")):
+        sym = dgrams + dgrams.transpose(-1, -2)
+        *dx, dwp, dbp = crosspath_bwd_rows(x1, x2, s, g1, g2, wp, bp,
+                                           mats.detach(), sym, be, lnp,
+                                           chunk)
+        dwp, dbp = dwp.sum(0).to(dt), dbp.sum(0).to(dt)
+        for i in range(3):
+            grads[f"wp{i + 1}"], grads[f"bp{i + 1}"] = dwp[i], dbp[i]
+    out = list(dx) + [grads.get(k) for k in W_KEYS]
+    return tuple(t.to(ref.dtype) if t is not None and n else None
+                 for t, ref, n in zip(out, (x1, x2, s, *ws), needs))
+
+
 class _CrossPathFn(torch.autograd.Function):
-    """The two kernels' forward; the backward recomputes the plain folded
-    CrossPath."""
+    """The two kernels' forward. The backward: the two backward kernels
+    where ``bwd_takes_kernels`` (bf16 on the card), else the VJP of the
+    plain folded CrossPath recomputed under autograd; both under the span
+    ``bwd/crosspath``. ``plain_backwards`` counts the plain VJPs run on
+    CUDA tensors."""
+
+    plain_backwards = 0
 
     @staticmethod
     def forward(ctx, scale, num_heads, forward, x1, x2, s, *ws):
         ctx.scale, ctx.num_heads = scale, num_heads
+        w = dict(zip(W_KEYS, ws))
+        ctx.kernels = forward is None and bwd_takes_kernels(x1, x2, s)
+        if ctx.kernels:
+            o1, o2, grams = _crosspath_passes(x1, x2, s, w, scale, num_heads)
+            ctx.save_for_backward(x1, x2, s, grams, *ws)
+            return o1, o2
         ctx.save_for_backward(x1, x2, s, *ws)
-        return forward(x1, x2, s, dict(zip(W_KEYS, ws)), scale, num_heads)
+        return (forward or _crosspath_kernels)(x1, x2, s, w, scale,
+                                               num_heads)
 
     @staticmethod
     def backward(ctx, g1, g2):
+        needs = ctx.needs_input_grad[3:]
+        if ctx.kernels:
+            x1, x2, s, grams, *ws = ctx.saved_tensors
+            with span("bwd/crosspath"):
+                return (None, None, None) + crosspath_backward(
+                    x1, x2, s, grams, ws, g1, g2, needs, ctx.scale,
+                    ctx.num_heads)
+
         def plain(x1, x2, s, *ws):
             return crosspath_folded_ref(x1, x2, s, dict(zip(W_KEYS, ws)),
                                         ctx.scale, ctx.num_heads)
 
+        if ctx.saved_tensors[0].is_cuda:
+            _CrossPathFn.plain_backwards += 1
         return (None, None, None) + _build.plain_vjp(
-            "bwd/crosspath", plain, ctx.saved_tensors,
-            ctx.needs_input_grad[3:], (g1, g2))
+            "bwd/crosspath", plain, ctx.saved_tensors, needs, (g1, g2))
 
 
 def _crosspath_grad(x1, x2, s, w: Dict, scale: float, num_heads: int,
                     forward=None):
     """The fused CrossPath that carries a gradient. ``forward`` stands in
     for the kernels (a test passes the plain version to gradcheck the
-    Function on the CPU); nothing on the main path sets it."""
-    return _CrossPathFn.apply(scale, num_heads, forward or _crosspath_kernels,
-                              x1, x2, s, *(w[k] for k in W_KEYS))
+    Function on the CPU; the backward is then the plain VJP); nothing on
+    the main path sets it."""
+    return _CrossPathFn.apply(scale, num_heads, forward, x1, x2, s,
+                              *(w[k] for k in W_KEYS))
 
 
 def crosspath_fused(x1, x2, s, w: Dict, scale: float, num_heads: int):

@@ -63,10 +63,17 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    a dropped DRDB1 tail bias must fail them.
  - gradients (test_function_gradients_match_plain): each kernel's
    autograd.Function against autograd through its plain version on the
-   same inputs, the computation its backward repeats: every input's
-   gradient within 1e-5 (f32) or 2^-7 (bf16, one step) of its largest
-   magnitude (cuDNN's and cuBLAS's backward kernels may sum in another
-   order between the two runs).
+   same inputs: every input's gradient within 1e-5 (f32) or 2^-7 (bf16,
+   one step) of its largest magnitude (cuDNN's and cuBLAS's backward
+   kernels may sum in another order between the two runs; the FFM's bf16
+   backward is its two kernels, run on dyadic tokens whose relu branches
+   no summation order moves). The FFM's backward kernels against the
+   same chain on their plain versions (test_ffm_backward_kernels_match_
+   plain_passes): GRAD_TOL and at most 5 % of each token gradient's
+   elements differing (FFM_BWD_SHARE), bit for bit from run to run, a
+   missing relu mask or f32 operands taken at bf16 failing it; pass A''s
+   f32 sums within 1e-5 of the plain maths summed in f64
+   (test_ffm_bwd_reduce_holds_f32_sums), dh taken at bf16 failing it.
  - a fusion-phase train step on the card in f32 against the CPU
    (test_train_step_card_matches_cpu): the losses within 1e-4 relative,
    every gradient leaf within TRAIN_LEAF_RTOL of its largest magnitude;
@@ -1059,12 +1066,13 @@ GRAD_CASES = [("sr_attention", (2, 70, 65, 2, 64)),
               ("sr_attention", (8, 19200, 300, 1, 64)),   # mit_b3 stage 1
               ("sr_attention", (8, 1200, 300, 5, 64)),    # stage 3
               ("ffm", (2, 1000)), ("ffm", (8, 307200)),
+              ("ffm", (1, 40)), ("ffm", (3, 4097)),
               ("drdb", (1, 5, 7)), ("drdb", (8, 480, 640))]
 
 
 def _grad_case(kind, shape, dtype, device, gen):
     """(inputs needing a gradient, kernel-path output, plain output, the
-    counters that must move by one)."""
+    counters of the forward kernels, which must move by one)."""
     from segmif_tpu_torch.kernels.drdb import drdb_chain
     from segmif_tpu_torch.models.fusion import DRDB, CrossPath
 
@@ -1081,8 +1089,8 @@ def _grad_case(kind, shape, dtype, device, gen):
     if kind == "ffm":
         b, n = shape
         cp = CrossPath(64).to(device, dtype)
-        xs = [_randn(gen, (b, n, 64), dtype, device).requires_grad_(True)
-              for _ in range(3)]
+        xs = [x.requires_grad_(True)
+              for x in _dyadic_crosspath(cp, gen, b, n, dtype, device)]
         return ([*xs, *cp.parameters()], lambda: cp(*xs),
                 lambda: kffm.crosspath_folded_ref(
                     *xs, cp.folded_weights(), cp.scale, cp.num_heads),
@@ -1100,20 +1108,28 @@ def _grad_case(kind, shape, dtype, device, gen):
 @pytest.mark.parametrize("kind,shape", GRAD_CASES)
 def test_function_gradients_match_plain(cuda, dtype, kind, shape):
     """Each kernel's autograd.Function on the card: the forward launches
-    the kernel (each counter moves by one; the backward launches none),
-    and every input's gradient equals that of autograd through the plain
-    version on the same inputs, which the Function's backward recomputes
-    (GRAD_TOL of the gradient's largest magnitude)."""
+    the kernel (each counter moves by one); the backward launches the
+    FFM's two backward kernels once each in bf16 and runs no plain VJP
+    there, and in f32 (and for the other Functions) launches none and
+    recomputes the plain version; every input's gradient equals that of
+    autograd through the plain version on the same inputs (GRAD_TOL of the
+    gradient's largest magnitude; the FFM on dyadic tokens,
+    ``_dyadic_crosspath``)."""
     gen = torch.Generator().manual_seed(30)
     ins, kernel, plain, counters = _grad_case(kind, shape, dtype, cuda, gen)
-    for fn in counters:
+    bwd = [kffm.crosspath_bwd_reduce, kffm.crosspath_bwd_rows]
+    for fn in counters + bwd:
         fn.launches = 0
+    kffm._CrossPathFn.plain_backwards = 0
     out = kernel()
     outs = (out,) if torch.is_tensor(out) else tuple(out)
     cot = [_randn(gen, o.shape, dtype, cuda) for o in outs]
     got = torch.autograd.grad(outs, ins, cot)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [1] * len(counters)
+    kernels = int(kind == "ffm" and dtype == torch.bfloat16)
+    assert [fn.launches for fn in bwd] == [kernels] * 2
+    assert kffm._CrossPathFn.plain_backwards == int(kind == "ffm") - kernels
     ref = plain()
     want = torch.autograd.grad((ref,) if torch.is_tensor(ref) else ref,
                                ins, cot)
@@ -1123,6 +1139,160 @@ def test_function_gradients_match_plain(cuda, dtype, kind, shape):
         assert scale > 0, i
         assert _max_err(g, e) <= GRAD_TOL[dtype] * scale, (i, _max_err(g, e),
                                                            scale)
+
+
+# The FFM's backward kernels against the same chain with their plain
+# versions (crosspath_backward on the forward's grams), bf16: every
+# gradient within GRAD_TOL of its largest magnitude, and at most this
+# share of each token gradient's elements different at all. Both sides
+# round where the plain VJP rounds (dr and dM to bf16, dx_i as the sum of
+# two bf16 gradients), so only f32 sums in another order differ (and a
+# dM rounded on the other side of a bf16 step, carried through the rest):
+# on the H100 up to 0.12 % of the elements at [8, 307200]; a rounding
+# point missed (tests/test_torch_grad.py) or the f32 operands taken at
+# bf16 (their low pieces dropped) move 26-53 %.
+FFM_BWD_SHARE = 0.05
+
+
+def _ternary(gen, shape, step, dtype, dev):
+    return (torch.randint(-1, 2, shape, generator=gen) * step).to(dev, dtype)
+
+
+def _dyadic_crosspath(cp, gen, b, n, dtype, dev):
+    """Tokens in {-1, 0, 1} / 8 and ``cp``'s channel projections' weights
+    and biases in {-1, 0, 1} / 64 (set in place): every pre-activation is
+    a multiple of 2^-9 below 2^-2, exact in f32 in any summation order and
+    in bf16, so that a kernel and a plain version take the same relu
+    branches and round the same activations. (On normal tokens a relu
+    input within f32 rounding of zero takes the other branch on one side
+    and moves that token's gradient by a whole dr W^T: on the H100 up to
+    1.4e-2 of the largest ds at [8, 307200], beyond GRAD_TOL, with 0.05 %
+    of its elements differing.)"""
+    with torch.no_grad():
+        for i in (1, 2, 3):
+            lin = getattr(cp, f"channel_proj{i}")
+            lin.weight.copy_(_ternary(gen, tuple(lin.weight.shape), 1 / 64,
+                                      dtype, dev))
+            lin.bias.copy_(_ternary(gen, tuple(lin.bias.shape), 1 / 64,
+                                    dtype, dev))
+    return [_ternary(gen, (b, n, 64), 1 / 8, dtype, dev) for _ in range(3)]
+
+
+def _ffm_bwd_case(b, n, gen, dev):
+    """A CrossPath in bf16 on the card, dyadic tokens
+    (``_dyadic_crosspath``), cotangents and the forward's grams."""
+    from segmif_tpu_torch.models.fusion import CrossPath
+
+    cp = CrossPath(64).to(dev, torch.bfloat16)
+    xs = _dyadic_crosspath(cp, gen, b, n, torch.bfloat16, dev)
+    gs = [_randn(gen, (b, n, 64), torch.bfloat16, dev) for _ in range(2)]
+    w = {k: v.detach() for k, v in cp.folded_weights().items()}
+    ws = [w[k] for k in kffm.W_KEYS]
+    with torch.no_grad():
+        grams = crosspath_grams(*xs, *kffm.projections(w))
+    return xs, gs, ws, grams, cp
+
+
+def _ffm_bwd_plain(monkeypatch, fault=None):
+    """Route crosspath_backward's two passes to their plain versions on the
+    card; with ``fault``, planted in those: 'relu_mask_missing' (dpre is
+    bf16(dr) everywhere) or 'low_pieces_dropped' (dh and S multiplied as
+    their high bf16 piece alone, what the kernels compute without the mid
+    and low pieces)."""
+    if fault == "relu_mask_missing":
+        monkeypatch.setattr(kffm, "_relu_grad",
+                            lambda dr, r, dt: dr.to(dt).to(dr.dtype))
+    if fault == "low_pieces_dropped":
+        real = kffm._ln_grad
+
+        def high_piece(t, g, gamma):
+            dh, xhat = real(t, g, gamma)
+            return dh.to(torch.bfloat16).to(dh.dtype), xhat
+
+        monkeypatch.setattr(kffm, "_ln_grad", high_piece)
+
+    def reduce(x1, x2, s, g1, g2, wp, bp, mats, be, lnp, chunk=None):
+        return kffm._bwd_reduce_plain(
+            x1, x2, s, g1, g2, *kffm._bwd_operands(x1, wp, bp, mats, be, lnp),
+            chunk or x1.shape[1])
+
+    def rows(x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp, chunk=None):
+        if fault == "low_pieces_dropped":
+            sym = sym.to(torch.bfloat16).to(sym.dtype)
+        wp, bp, mats, be, lnp = kffm._bwd_operands(x1, wp, bp, mats, be, lnp)
+        return kffm._bwd_rows_plain(x1, x2, s, g1, g2, wp, bp, mats, sym, be,
+                                    lnp, chunk or x1.shape[1])
+
+    monkeypatch.setattr(kffm, "crosspath_bwd_reduce", reduce)
+    monkeypatch.setattr(kffm, "crosspath_bwd_rows", rows)
+
+
+def _ffm_bwd_held(got, want):
+    """(whether GRAD_TOL and FFM_BWD_SHARE hold, the worst error over the
+    largest magnitude, the largest share of a token gradient's elements
+    that differ)."""
+    ratio = max(_max_err(g, e) / e.float().abs().max().item()
+                for g, e in zip(got, want))
+    share = max((g != e).float().mean().item()
+                for g, e in zip(got[:3], want[:3]))
+    return (ratio <= GRAD_TOL[torch.bfloat16] and share <= FFM_BWD_SHARE,
+            ratio, share)
+
+
+@pytest.mark.parametrize("fault", [None, "relu_mask_missing",
+                                   "low_pieces_dropped"])
+@pytest.mark.parametrize("shape", [(2, 1000), (3, 4097), (8, 307200)])
+def test_ffm_backward_kernels_match_plain_passes(cuda, monkeypatch, shape,
+                                                 fault):
+    """The FFM's backward kernels in bf16 (crosspath_backward on the
+    forward's grams) against the same chain with the two passes' plain
+    versions on the card: GRAD_TOL and FFM_BWD_SHARE hold; two runs of the
+    kernels agree bit for bit (no atomics; partials summed in chunk
+    order); each planted fault, in the plain passes, fails the check."""
+    gen = torch.Generator().manual_seed(35)
+    xs, gs, ws, grams, cp = _ffm_bwd_case(*shape, gen, cuda)
+    args = (*xs, grams, ws, *gs, [True] * 20, cp.scale, cp.num_heads)
+    if fault is None:
+        got = kffm.crosspath_backward(*args)
+        again = kffm.crosspath_backward(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ffm_bwd_plain(monkeypatch)
+    want = kffm.crosspath_backward(*args)
+    if fault is not None:
+        monkeypatch.undo()
+        _ffm_bwd_plain(monkeypatch, fault)
+        got = kffm.crosspath_backward(*args)
+    ok, ratio, share = _ffm_bwd_held(got, want)
+    assert ok == (fault is None), (ratio, share)
+
+
+@pytest.mark.parametrize("fault", [None, "low_pieces_dropped"])
+@pytest.mark.parametrize("shape", [(2, 1000), (8, 307200)])
+def test_ffm_bwd_reduce_holds_f32_sums(cuda, monkeypatch, shape, fault):
+    """Pass A' on dyadic tokens (``_dyadic_crosspath``: the same
+    activations on both sides): the kernel's f32 sums (the context
+    matrices' gradients and the per-channel sums) within GRAD_TOL[float32]
+    of each one's largest magnitude against the plain version summed in
+    f64 (the f32 plain version's own sums over 10^5 tokens and more drift
+    by more than that); the plain version with dh taken at its high bf16
+    piece alone (the kernel without its mid and low pieces) fails it."""
+    gen = torch.Generator().manual_seed(36)
+    xs, gs, ws, grams, cp = _ffm_bwd_case(*shape, gen, cuda)
+    w = dict(zip(kffm.W_KEYS, ws))
+    wp, bp = kffm.projections(w)
+    mats, be, lnp = kffm.apply_args(grams, w, cp.scale, cp.num_heads)
+    if fault is None:
+        got = kffm.crosspath_bwd_reduce(*xs, *gs, wp, bp, mats, be, lnp)
+    f64 = torch.float64
+    ops = kffm._bwd_operands(xs[0], wp, bp, mats, be, lnp)
+    want = kffm._bwd_reduce_plain(*(t.to(f64) for t in (*xs, *gs, *ops)),
+                                  shape[1])
+    if fault is not None:
+        _ffm_bwd_plain(monkeypatch, fault)
+        got = kffm.crosspath_bwd_reduce(*xs, *gs, wp, bp, mats, be, lnp)
+    worst = max(_max_err(g, e) / e.abs().max().item()
+                for g, e in zip(got, want))
+    assert (worst <= GRAD_TOL[torch.float32]) == (fault is None), worst
 
 
 TRAIN_LEAF_RTOL = 1e-2

@@ -9,6 +9,14 @@ module passes, back to their leaves; the DRDB's x and 12 conv tensors.
 
 Small widths keep the finite differences cheap: attention D = 4, the FFM
 at C = 8 with 2 heads, the DRDB at 4 channels with growth 2.
+
+The FFM's kernel backward (``crosspath_backward``: pass A', the fold's
+gradient, pass B') on the CPU, where its two operators run their plain
+versions: in f64 against autograd's VJP of ``crosspath_folded_ref`` for
+the tokens and all 17 weights, and in bf16 against the plain VJP in bf16,
+which it must round where that rounds (dr and dM to bf16; dx_i as the sum
+of two bf16 gradients): a rounding point missed moves up to 26-53 % of a
+gradient's elements, f32 sums in another order a few.
 """
 import pytest
 import torch
@@ -18,8 +26,10 @@ from segmif_tpu_torch.kernels import _build
 from segmif_tpu_torch.kernels.attention import (_sr_attention_grad,
                                                 sr_attention_ref)
 from segmif_tpu_torch.kernels.drdb import _drdb_grad, drdb_chain
+from segmif_tpu_torch.kernels import ffm as kffm
 from segmif_tpu_torch.kernels.ffm import (W_KEYS, _crosspath_grad,
                                           crosspath_folded_ref)
+from segmif_tpu_torch.models.fusion import CrossPath
 
 F64 = torch.float64
 
@@ -95,6 +105,121 @@ def test_crosspath_function_gradcheck():
         list(leaves.values()), [torch.ones_like(o) for o in out])
     for name, a, b in zip(names, got, want):
         torch.testing.assert_close(a, b, msg=name)
+
+
+def _crosspath_case(b, n, dtype, seed):
+    """A CrossPath (C = 64, 8 heads: the fusion net's) in ``dtype``, its
+    weights moved off their initial values, the tokens, the cotangents and
+    the grams its forward saves. -> (tokens, weights in ``W_KEYS`` order,
+    cotangents, grams, module)."""
+    gen = torch.Generator().manual_seed(seed)
+    cp = CrossPath(64).to(dtype)
+    with torch.no_grad():
+        for p in cp.parameters():
+            p.add_((torch.randn(p.shape, generator=gen, dtype=F64) * 0.05
+                    ).to(dtype))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=F64).to(dtype)
+
+    xs = [randn(b, n, 64) for _ in range(3)]
+    gs = [randn(b, n, 64) for _ in range(2)]
+    w = {k: v.detach() for k, v in cp.folded_weights().items()}
+    acc = _build.acc_dtype(dtype)
+    grams = []   # as crosspath_folded_ref computes them: blocks of r^T r
+    for i, (x, half) in enumerate(zip(xs, (0, 0, 1))):
+        r = kffm._relu_proj(x, w[f"wp{i + 1}"].to(dtype).to(acc),
+                            w[f"bp{i + 1}"].to(dtype).to(acc))
+        sl = slice(64 * half, 64 * (half + 1))
+        grams.append((r.transpose(1, 2) @ r)[:, sl, sl])
+    return xs, [w[k] for k in W_KEYS], gs, torch.stack(grams, 1), cp
+
+
+def _plain_vjp(xs, ws, gs, needs, cp):
+    return _build.plain_vjp(
+        "bwd/crosspath",
+        lambda x1, x2, s, *ws: crosspath_folded_ref(
+            x1, x2, s, dict(zip(W_KEYS, ws)), cp.scale, cp.num_heads),
+        [*xs, *ws], needs, gs)
+
+
+NAMES = ("x1", "x2", "s") + W_KEYS
+NEEDS = {"all": NAMES, "tokens": NAMES[:3], "weights": NAMES[3:],
+         "some": ("x2", "bp2", "wkv3", "we1", "ln1_bias")}
+
+
+@pytest.mark.parametrize("needs", list(NEEDS))
+@pytest.mark.parametrize("b,n,chunk", [(1, 100, None), (3, 300, 128),
+                                       (1, 1, None)])
+def test_crosspath_backward_passes_match_autograd(b, n, chunk, needs):
+    """f64: the backward through the two passes' plain versions, with N
+    off the 64-token tiles, in several chunks of 128 with a ragged last
+    one, at B = 1 and 3, for each subset of the inputs needing a
+    gradient, equals autograd's VJP of ``crosspath_folded_ref`` (1e-10 of
+    each gradient's largest magnitude); the others get None."""
+    xs, ws, gs, grams, cp = _crosspath_case(b, n, F64, 3)
+    flags = [k in NEEDS[needs] for k in NAMES]
+    got = kffm.crosspath_backward(*xs, grams, ws, *gs, flags, cp.scale,
+                                  cp.num_heads, chunk)
+    want = _plain_vjp(xs, ws, gs, flags, cp)
+    for name, flag, g, e in zip(NAMES, flags, got, want):
+        if not flag:
+            assert g is None and e is None, name
+            continue
+        assert g.shape == e.shape and g.dtype == e.dtype, name
+        assert (g - e).abs().max() <= 1e-10 * e.abs().max(), name
+
+
+# the bf16 backward against the plain VJP in bf16: (largest share of a
+# token gradient's elements that may differ, of a weight gradient's)
+BF16_SHARE = (0.05, 0.2)
+
+
+@pytest.mark.parametrize("b,n,chunk", [(2, 1000, 256), (1, 300, 128)])
+def test_crosspath_backward_rounds_as_the_plain_vjp(b, n, chunk):
+    """bf16: the backward through the two passes' plain versions against
+    the plain VJP in bf16: every gradient within 2^-7 of its largest
+    magnitude (the CUDA tests' GRAD_TOL) and at most BF16_SHARE of its
+    elements different at all: dr and dM are rounded to bf16 where the
+    plain VJP's casts round them. Measured over five seeds and shapes: up
+    to 1.2 % of a token gradient's elements and 7.2 % of a weight
+    gradient's differ (f32 sums in chunks and in another order, a dM or
+    context matrix rounded on the other side of a bf16 step, carried
+    through the rest); with dr left unrounded up to 41 % and 34 %, with dM
+    left unrounded 26 % and 53 %."""
+    xs, ws, gs, grams, cp = _crosspath_case(b, n, torch.bfloat16, 4)
+    flags = [True] * len(NAMES)
+    got = kffm.crosspath_backward(*xs, grams, ws, *gs, flags, cp.scale,
+                                  cp.num_heads, chunk)
+    want = _plain_vjp(xs, ws, gs, flags, cp)
+    for i, (name, g, e) in enumerate(zip(NAMES, got, want)):
+        assert g.shape == e.shape and g.dtype == e.dtype, name
+        scale = e.float().abs().max()
+        assert (g.float() - e.float()).abs().max() <= 2 ** -7 * scale, name
+        share = (g != e).float().mean().item()
+        assert share <= BF16_SHARE[i >= 3], (name, share)
+
+
+def test_crosspath_function_routes_cpu_to_the_plain_vjp(monkeypatch):
+    """On CPU tensors (and in f32 or f64 on the card) the Function's
+    backward recomputes the plain VJP: the kernel chain is not called, and
+    the plain-VJP counter counts CUDA tensors only."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel backward ran on CPU tensors")
+
+    monkeypatch.setattr(kffm, "crosspath_backward", refuse)
+    xs, ws, gs, _, cp = _crosspath_case(1, 70, torch.bfloat16, 5)
+    xs = [x.requires_grad_(True) for x in xs]
+    assert not kffm.bwd_takes_kernels(*xs)
+    kffm._CrossPathFn.plain_backwards = 0
+    out = _crosspath_grad(*xs, dict(zip(W_KEYS, ws)), cp.scale,
+                          cp.num_heads)
+    got = torch.autograd.grad(out, xs, gs)
+    want = _plain_vjp([x.detach() for x in xs], ws, gs,
+                      [True] * 3 + [False] * 17, cp)[:3]
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert kffm._CrossPathFn.plain_backwards == 0
 
 
 def _drdb_leaves(gen, c, growth):

@@ -1,4 +1,4 @@
-"""The seven ``segmif::`` operators on the CPU, where each runs its
+"""The nine ``segmif::`` operators on the CPU, where each runs its
 kernel's plain version: ``torch.library.opcheck`` (schema, autograd
 registration, the fake (shape) function's shapes, dtypes and strides
 against the CPU version's, and tracing with dynamic shapes); each
@@ -14,8 +14,9 @@ from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 from segmif_tpu_torch import kernels  # noqa: F401 (registers the ops)
 from segmif_tpu_torch.kernels import attention, drdb, ffm, int8
 
-OPS = ("sr_attention", "ffm_grams", "ffm_apply", "drdb_growth", "drdb_tail",
-       "drdb_int8_growth", "drdb_int8_tail")
+OPS = ("sr_attention", "ffm_grams", "ffm_apply", "ffm_bwd_reduce",
+       "ffm_bwd_rows", "drdb_growth", "drdb_tail", "drdb_int8_growth",
+       "drdb_int8_tail")
 CL = torch.channels_last
 
 
@@ -64,6 +65,8 @@ def _cases():
     mats = torch.randn((2, 4, 64, 64), generator=gen) * 0.1
     be = torch.randn((2, 64), generator=gen)
     lnp = torch.randn((2, 2, 64), generator=gen)
+    g1, g2 = (torch.randn((2, 40, 64), generator=gen) for _ in range(2))
+    sym = torch.randn((2, 3, 64, 64), generator=gen) * 0.1
     dconvs, wb, bb = _convs(gen)
     x = _x(gen)
     buf = torch.ops.segmif.drdb_growth(x, *drdb.pack_growth(dconvs,
@@ -75,6 +78,9 @@ def _cases():
         "sr_attention": (q, k, v, 0.125),
         "ffm_grams": (x1, x2, s, wg, bgr),
         "ffm_apply": (x1, x2, s, wa, ba, mats, be, lnp),
+        # the backward passes: the cotangents, two chunks (the last ragged)
+        "ffm_bwd_reduce": (x1, x2, s, g1, g2, wp, bp, mats, be, lnp, 32),
+        "ffm_bwd_rows": (x1, x2, s, g1, g2, wp, bp, mats, sym, be, lnp, 32),
         "drdb_growth": (x, *drdb.pack_growth(dconvs, x.dtype)),
         "drdb_tail": (x, rs, *drdb.pack_tail(wb, bb, x.dtype)),
         "drdb_int8_growth": (xi, int8._q_list(qi)),
