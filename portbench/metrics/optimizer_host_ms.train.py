@@ -1,0 +1,17 @@
+"""Host ms per step spent in the port's ``step/optimizer`` span (the
+grouped AdamW's update of every leaf), by the port's host accounting
+over the window's steps outside the profiled stretch. None where the
+driver hands no span totals or the program opens no such span. Layer:
+the entry point, ``train/steps.py``."""
+UNIT = "ms"
+SPAN = "step/optimizer"
+
+
+def read(run):
+    if run is None or run.kind != "train":
+        return None
+    totals = getattr(run, "span_totals", None) or {}
+    steps = totals.get("step", (0, 0))[1]
+    if SPAN not in totals or not steps:
+        return None
+    return totals[SPAN][0] / 1e6 / steps

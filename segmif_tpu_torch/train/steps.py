@@ -77,6 +77,7 @@ recomputes the plain version. Nothing waits for the device.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Dict
 
@@ -272,6 +273,10 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
     loss does not reach) gets a zero one, so the optimizer still decays it,
     as optax's AdamW does in the JAX step.
 
+    The step opens the fusion step's spans: ``step`` around the call,
+    and inside it ``step/forward``, ``step/backward``, ``step/allreduce``
+    (under a shard only) and ``step/optimizer``, once each.
+
     ``device=None`` means ``cuda`` (raises when there is none);
     ``device="cpu"`` trains through the kernels' plain versions."""
     dev = resolve(device)
@@ -285,25 +290,34 @@ def make_seg_train_step(model, tx, ignore_index: int = 255,
             raise ValueError(f"the state is on {state.step.device}, the step "
                              f"on {dev}: create the state after "
                              "make_seg_train_step")
-        gen.manual_seed(fold_seed(seed, state.host_step))
-        image, label = batch["image"].to(dev), batch["label"].to(dev)
-        weights = {n: p.to(compute_dtype) for n, p in state.params.items()}
-        draws = gen if shard is None else shard.with_gen(gen)
-        logits = functional_call(seg, weights, (image,),
-                                 {"train": True, "gen": draws})
-        logits = resize_bilinear(logits.to(acc), label.shape[1:3])
-        loss = ce_share(logits, label, ignore_index, shard)
-        params = list(state.params.values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        grads, (loss,) = _sum_over_ranks(shard, grads, [loss.detach()])
-        grads = broadcast_whole(dict(zip(state.params, grads)),
-                                state.splits)
-        state.opt_state = tx.update(grads, state.opt_state, state.params)
-        state.step = state.step + 1
-        state.host_step += 1
-        return {"loss": loss.detach()}
+        with span("step"):
+            gen.manual_seed(fold_seed(seed, state.host_step))
+            image, label = batch["image"].to(dev), batch["label"].to(dev)
+            with span("step/forward"):
+                weights = {n: p.to(compute_dtype)
+                           for n, p in state.params.items()}
+                draws = gen if shard is None else shard.with_gen(gen)
+                logits = functional_call(seg, weights, (image,),
+                                         {"train": True, "gen": draws})
+                logits = resize_bilinear(logits.to(acc), label.shape[1:3])
+                loss = ce_share(logits, label, ignore_index, shard)
+            with span("step/backward"):
+                params = list(state.params.values())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+            with (span("step/allreduce") if shard is not None
+                  else contextlib.nullcontext()):
+                grads, (loss,) = _sum_over_ranks(shard, grads,
+                                                 [loss.detach()])
+                grads = broadcast_whole(dict(zip(state.params, grads)),
+                                        state.splits)
+            with span("step/optimizer"):
+                state.opt_state = tx.update(grads, state.opt_state,
+                                            state.params)
+            state.step = state.step + 1
+            state.host_step += 1
+            return {"loss": loss.detach()}
 
     return step
 
