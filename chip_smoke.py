@@ -60,6 +60,14 @@ the untimed 11 (b)-(e) and 12 (c)):
     [2, 102400, 64] against the plain VJP (dyadic tokens; every gradient
     within 2^-7 of its largest magnitude, a repeat bit for bit), each
     pass's ms, the whole backward's and the plain VJP's, and their bound;
+    sr-attention's bf16 backward (the dq pass, the dkv pass) at the four
+    MiT-B5 stage shapes of the seg cell ([8, N, H, 64], M = 1,024) and at
+    mit_b3's four at 480x640 (M = 300) against the plain VJP (every
+    gradient within 2^-7 of its largest magnitude and at most 5 % of its
+    elements differing, a repeat bit for bit; a backward with P's and dS's
+    lo halves dropped fails that check at mit_b3's stage 3), each pass's
+    ms, the whole backward's, the plain VJP's and the bound, and their
+    sums over a step's blocks;
  5. serve a few batch-8 bf16 480x640 requests through
     ``segmif_tpu_torch.serving.make_serving_fn`` with a seeded random
     mit_b3 ``JointPipeline``, in default mode (guide = VIS, re-encoded per
@@ -79,8 +87,9 @@ the untimed 11 (b)-(e) and 12 (c)):
  7. print pairs/s for the four serving modes, timed with CUDA events;
  8. fusion-phase training (``segmif_tpu_torch.train.steps.
     make_fusion_train_step``; the kernels' autograd.Functions recompute
-    their plain versions in the backward, but for the FFM's bf16 backward,
-    two kernels): (a) one round >= 2 step of a
+    their plain versions in the backward, but for the FFM's and
+    sr-attention's bf16 backwards, two kernels and two passes): (a) one
+    round >= 2 step of a
     mit_b3 model (weights at the reference modules' scale) in f32 on the
     card against the same step on the CPU, batch 2 at 240x320, every
     gradient leaf held to the CPU's, and a DRDB Function that returns a
@@ -89,7 +98,9 @@ the untimed 11 (b)-(e) and 12 (c)):
     AdamW (poly schedule): 6 round >= 2 steps on one batch, then a round-1
     step, with the kernel launches of every step counted (sr-attention 35
     or 7, FFM 2 + 2, DRDB 4 + 4, int8 0; in the backward the FFM's two
-    kernels 2 + 2 and no plain VJP of the FFM),
+    kernels 2 + 2, sr-attention's two passes 28 + 28 in rounds >= 2 (the
+    seg pass; the guide's taps carry no gradient) and 0 in round 1, and
+    no plain VJP of either),
     finite losses and loss_fusion falling from step 1 to step 5, and no
     synchronizing CUDA call in a step; (c) one bf16 step against one f32
     step on the card, beside an f32 step with the weights rounded to bf16:
@@ -119,9 +130,10 @@ the untimed 11 (b)-(e) and 12 (c)):
     images changed, the role checkpoints reloaded into a fresh port model
     giving the trainer's logits, each phase's seconds; (d) the seg step
     alone at 4x480x480 bf16 (drop-path and dropout on): ms per step over
-    steps 3-5 after two warm-ups, seg train pairs/s, the share in the
-    recompute backward, peak memory, and no synchronizing CUDA call in a
-    step of its own;
+    steps 3-5 after two warm-ups, seg train pairs/s, the share in
+    sr-attention's kernel backward (its two passes 28 + 28 launches a
+    step and no plain VJP), peak memory, and no synchronizing CUDA call in
+    a step of its own;
 10. disk to disk (``segmif_tpu_torch.disk_check``): (a) a train folder of
     16 and a val folder of 8 synthetic pairs written as uint8 PNGs at
     480x640 (Infrared / Visible / Mask2 / Label, ``frame<i>.png``; the val
@@ -989,9 +1001,13 @@ def kernel_checks(dev):
     return res
 
 
-# a bf16 fusion step's FFM backward: its two kernels once per round, no
-# plain VJP
-BWD_EXPECT = {"ffm_bwd_reduce": 2, "ffm_bwd_rows": 2, "plain_vjp": 0}
+# a bf16 fusion step's kernel backwards: the FFM's two kernels once per
+# round; sr-attention's two passes once per block of the seg pass that
+# carries a gradient (28 in rounds >= 2; the guide's taps run without
+# one); no plain VJP of either
+BWD_EXPECT = {r: {"ffm_bwd_reduce": 2, "ffm_bwd_rows": 2,
+                  "sr_attention_bwd_dq": sr, "sr_attention_bwd_dkv": sr,
+                  "plain_vjp": 0} for r, sr in (("r2", 28), ("r1", 0))}
 # the FFM's bf16 backward against the plain VJP in bf16, every gradient
 # within this share of its largest magnitude (tests/test_torch_cuda.py's
 # GRAD_TOL), on dyadic tokens and projections whose relu inputs no
@@ -1075,6 +1091,142 @@ def ffm_backward_checks(dev):
               f"{bd['bound_ms'] / (a_ms + b_ms):.3f} of it", flush=True)
         del got, want, xs, gs, grams, args
         torch.cuda.empty_cache()
+
+
+# sr-attention's bf16 backward against the plain VJP in bf16: every
+# gradient within this share of its largest magnitude (tests/test_torch_
+# cuda.py's GRAD_TOL), and at most this share of each gradient's elements
+# different at all (its SRA_BWD_SHARE: both sides carry every product and
+# sum in f32 and round dq, dk and dv once; P and dS taken at bf16 alone
+# move 40-44 % of the elements while the largest error stays near one
+# rounding)
+SRA_BWD_TOL = 2 ** -7
+SRA_BWD_SHARE = 0.05
+# the stage at which a backward with P's and dS's lo halves dropped is
+# held to the same limits, and must fail them: mit_b3's stage 3
+SRA_BWD_FAULT_AT = ("mit_b3 480x640", 1200)
+# [B, N, H] of each MiT stage, M and the blocks a step runs the stage:
+# SegFormer-B5 at 1024x1024 (the seg cell) and mit_b3 at 480x640 (the
+# fusion cells' seg pass)
+SRA_BWD_SHAPES = (
+    ("mit_b5 1024x1024", 1024, ((8, 65536, 1, 3), (8, 16384, 2, 6),
+                                (8, 4096, 5, 40), (8, 1024, 8, 3))),
+    ("mit_b3 480x640", 300, ((8, 19200, 1, 3), (8, 4800, 2, 4),
+                             (8, 1200, 5, 18), (8, 300, 8, 3))))
+
+
+def sr_attention_backward_checks(dev):
+    """Phase 4: sr-attention's bf16 backward (``sr_attention_backward``:
+    the dq pass, then the dkv pass and its reduce) at each MiT stage shape
+    of the seg cell and of mit_b3 at 480x640 against the plain VJP it
+    replaces: the errors, the share of elements that differ, a repeat bit
+    for bit, each pass's ms, the whole backward's beside the plain VJP's and
+    the bound of the function's five products (10 B N M H D FLOP) and bytes
+    (q, k, v, dO read, dq, dk, dv written, once each); then each model's
+    sum over the blocks of a step. At one stage a backward with P's and
+    dS's lo halves dropped must fail the same check."""
+    import torch
+
+    from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.kernels import attention as katt
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 23)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    for model, m, stages in SRA_BWD_SHAPES:
+        step = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
+        for b, n, h, blocks in stages:
+            d = 64
+            q, k, v = kv_halves(randn, b, n, m, h, d, bf16)
+            g = randn((b, n, h, d), bf16)
+            scale = d ** -0.5
+
+            def kernel():
+                return katt.sr_attention_backward(q, k, v, g, [True] * 3,
+                                                  scale)
+
+            def plain():
+                return _build.plain_vjp(
+                    "bwd/sr_attention",
+                    lambda q, k, v: katt.sr_attention_ref(q, k, v, scale),
+                    [q, k, v], [True] * 3, (g,))
+
+            got, want = kernel(), plain()
+            errs, share = sra_bwd_errors(got, want)
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= SRA_BWD_TOL and share <= SRA_BWD_SHARE,
+                  f"sr-attention backward error {errs}, share of elements "
+                  f"differing {share}")
+            if (model, n) == SRA_BWD_FAULT_AT:
+                f_errs, f_share = sra_bwd_errors(
+                    sra_bwd_lo_dropped(q, k, v, g, scale), want)
+                print(f"planted fault, sr_attention_backward {model} N={n}, "
+                      f"P and dS lo halves dropped: worst max|err|/max|ref| "
+                      f"{max(f_errs.values()):.3e}, share of elements "
+                      f"differing {f_share:.5f} (limits {SRA_BWD_TOL:g}, "
+                      f"{SRA_BWD_SHARE:g}; the check fails, as it must)",
+                      flush=True)
+                check(max(f_errs.values()) > SRA_BWD_TOL
+                      or f_share > SRA_BWD_SHARE,
+                      "the sr-attention backward check passes a backward "
+                      "with P's and dS's lo halves dropped")
+            check(all(torch.equal(a, c) for a, c in zip(got, kernel())),
+                  "the sr-attention backward is not deterministic")
+            ms, pms = time_pair(kernel, plain)
+            dq_out = katt.sr_attention_bwd_dq(q, k, v, g, scale)
+            dq_ms = time_fn(lambda: katt.sr_attention_bwd_dq(q, k, v, g,
+                                                             scale))
+            dkv_ms = time_fn(lambda: katt.sr_attention_bwd_dkv(
+                q, k, v, g, *dq_out[1:], scale))
+            bd = bound(10 * b * n * m * h * d, "bf16",
+                       nbytes(q, k, v, g, *got))
+            for key, val in (("kernel", ms), ("plain", pms),
+                             ("bound", bd["bound_ms"])):
+                step[key] += blocks * val
+            print(f"sr_attention_backward bfloat16 {model} B={b} N={n} "
+                  f"M={m} H={h} D={d}: against the plain VJP worst "
+                  f"max|err|/max|ref| {errs[worst]:.3e} ({worst}; limit "
+                  f"{SRA_BWD_TOL:g}), share of elements differing "
+                  f"{share:.5f} (limit {SRA_BWD_SHARE:g}), repeats bit for "
+                  f"bit; dq pass "
+                  f"{dq_ms:.4f} ms, dkv pass {dkv_ms:.4f} ms, the whole "
+                  f"backward {ms:.4f} ms, plain VJP {pms:.4f} ms; bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), the "
+                  f"backward at {bd['bound_ms'] / ms:.3f} of it", flush=True)
+            del got, want, dq_out, q, k, v, g
+            torch.cuda.empty_cache()
+        print(f"sr_attention_backward bfloat16 {model}, the "
+              f"{sum(s[3] for s in stages)} blocks of a step: backward "
+              f"{step['kernel']:.2f} ms, plain VJP {step['plain']:.2f} ms, "
+              f"bound {step['bound']:.3f} ms", flush=True)
+
+
+def sra_bwd_errors(got, want):
+    """({dq, dk, dv: max|got - want| / max|want|}, the largest share of a
+    gradient's elements that differ at all)."""
+    errs = {name: max_err(a, e) / e.float().abs().max().item()
+            for name, a, e in zip(("dq", "dk", "dv"), got, want)}
+    share = max((a != e).float().mean().item() for a, e in zip(got, want))
+    return errs, share
+
+
+def sra_bwd_lo_dropped(q, k, v, g, scale):
+    """sr-attention's backward in plain torch, f32, with P and dS entering
+    the dv, dq and dk products as their high bf16 halves alone."""
+    import torch
+
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale, -1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
+    ds = p * (dp - (p * dp).sum(-1, True))
+    p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, gf)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
 def drdb_inputs(gen, b, h, w, dtype, dev):
@@ -1693,6 +1845,7 @@ def train_checks(dev, counters, refs):
     import torch
 
     from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.kernels import attention as katt
     from segmif_tpu_torch.kernels import ffm as kffm
     from segmif_tpu_torch.train.compare import (bf16_rounded, leaf_cosines,
                                                 leaf_errors, step_grads)
@@ -1749,22 +1902,28 @@ def train_checks(dev, counters, refs):
     expect = {r: {"sr_attention": sr, "ffm_grams": 2, "ffm_apply": 2,
                   **float_drdb} for r, sr in (("r2", 35), ("r1", 7))}
 
-    # the FFM's backward: its two kernels once a round, no plain VJP
+    # the kernel backwards: the FFM's two kernels once a round,
+    # sr-attention's two passes once a seg block, no plain VJP
     bwd = {"ffm_bwd_reduce": kffm.crosspath_bwd_reduce,
-           "ffm_bwd_rows": kffm.crosspath_bwd_rows}
+           "ffm_bwd_rows": kffm.crosspath_bwd_rows,
+           "sr_attention_bwd_dq": katt.sr_attention_bwd_dq,
+           "sr_attention_bwd_dkv": katt.sr_attention_bwd_dkv}
 
     def counted(fn, which):
         for c in (*counters.values(), *bwd.values()):
             c.launches = 0
         kffm._CrossPathFn.plain_backwards = 0
+        katt._SrAttentionFn.plain_backwards = 0
         metrics = fn(state, full, TRAIN_FUSION_SCALE)
         counts = {k: c.launches for k, c in counters.items()}
         check(counts == expect[which], f"train step launches {counts}, "
                                        f"expected {expect[which]}")
         backward = {k: c.launches for k, c in bwd.items()}
-        backward["plain_vjp"] = kffm._CrossPathFn.plain_backwards
-        check(backward == BWD_EXPECT, f"train step FFM backward "
-                                      f"{backward}, expected {BWD_EXPECT}")
+        backward["plain_vjp"] = (kffm._CrossPathFn.plain_backwards +
+                                 katt._SrAttentionFn.plain_backwards)
+        check(backward == BWD_EXPECT[which],
+              f"train step kernel backwards {backward}, expected "
+              f"{BWD_EXPECT[which]}")
         return metrics
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1800,15 +1959,18 @@ def train_checks(dev, counters, refs):
             return out
         return fn
 
-    reals = (_build.plain_vjp, kffm.crosspath_backward)
-    _build.plain_vjp, kffm.crosspath_backward = map(timed, reals)
+    reals = (_build.plain_vjp, kffm.crosspath_backward,
+             katt.sr_attention_backward)
+    (_build.plain_vjp, kffm.crosspath_backward,
+     katt.sr_attention_backward) = map(timed, reals)
     try:
         ev[2].record()
         losses.append(counted(step, "r2"))
         ev[3].record()
         torch.cuda.synchronize()
     finally:
-        _build.plain_vjp, kffm.crosspath_backward = reals
+        (_build.plain_vjp, kffm.crosspath_backward,
+         katt.sr_attention_backward) = reals
     syncs = [w for w in syncs if "called a synchronizing" in str(w.message)]
     recompute_ms = sum(a.elapsed_time(b) for a, b in spans)
     inst_ms = ev[2].elapsed_time(ev[3])
@@ -1818,7 +1980,8 @@ def train_checks(dev, counters, refs):
           f"master weights, AdamW lr {TRAIN_LR:g}: 6 round >= 2 steps, "
           f"loss {' '.join(f'{v:.5f}' for v in tot)}, loss_fusion "
           f"{' '.join(f'{v:.5f}' for v in fus)}; launches per step "
-          f"{expect['r2']}, in the backward {BWD_EXPECT}", flush=True)
+          f"{expect['r2']}, in the backward {BWD_EXPECT['r2']}",
+          flush=True)
     check(all(math.isfinite(v) for v in tot + fus), "train losses not "
                                                    "finite")
     check(fus[4] < fus[0], "loss_fusion did not fall over 5 steps")
@@ -2210,6 +2373,13 @@ def trainer_run(dev, counters, totals):
         torch.cuda.empty_cache()
 
 
+# a bf16 mit_b3 seg step's sr-attention backward: both passes once per
+# block (3 + 4 + 18 + 3), no plain VJP
+SEG_BLOCKS = 28
+SEG_BWD_EXPECT = {"sr_attention_bwd_dq": SEG_BLOCKS,
+                  "sr_attention_bwd_dkv": SEG_BLOCKS, "plain_vjp": 0}
+
+
 def seg_step_timing(dev):
     """Phase 9 (d): the seg step alone at the seg phase's crops."""
     import warnings
@@ -2218,6 +2388,7 @@ def seg_step_timing(dev):
 
     from segmif_tpu_torch.config import OptimizerConfig
     from segmif_tpu_torch.kernels import _build
+    from segmif_tpu_torch.kernels import attention as katt
     from segmif_tpu_torch.models.network import (SegmentationNetwork,
                                                  init_params)
     from segmif_tpu_torch.train.optimizer import adamw_poly_grouped
@@ -2257,27 +2428,25 @@ def seg_step_timing(dev):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
     step_ms = ev[0].elapsed_time(ev[1]) / 3
-    real, spans = _build.plain_vjp, []
 
-    def timed_vjp(*a, **k):
-        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s_.record()
-        out = real(*a, **k)
-        e_.record()
-        spans.append((s_, e_))
-        return out
+    def timed(real, spans):
+        def fn(*a, **k):
+            s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s_.record()
+            out = real(*a, **k)
+            e_.record()
+            spans.append((s_, e_))
+            return out
+        return fn
 
-    real_update, updates = tx.update, []
-
-    def timed_update(*a, **k):
-        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s_.record()
-        out = real_update(*a, **k)
-        e_.record()
-        updates.append((s_, e_))
-        return out
-
-    _build.plain_vjp, tx.update = timed_vjp, timed_update
+    reals = (_build.plain_vjp, katt.sr_attention_backward)
+    recomputes, kernel_bwds, updates = [], [], []
+    _build.plain_vjp = timed(reals[0], recomputes)
+    katt.sr_attention_backward = timed(reals[1], kernel_bwds)
+    tx.update = timed(tx.update, updates)
+    for counter in (katt.sr_attention_bwd_dq, katt.sr_attention_bwd_dkv):
+        counter.launches = 0
+    katt._SrAttentionFn.plain_backwards = 0
     try:
         ev[2].record()
         t_host = time.perf_counter()
@@ -2286,9 +2455,13 @@ def seg_step_timing(dev):
         ev[3].record()
         torch.cuda.synchronize()
     finally:
-        _build.plain_vjp = real
+        _build.plain_vjp, katt.sr_attention_backward = reals
         del tx.update
-    recompute = sum(a.elapsed_time(e) for a, e in spans)
+    backward = {"sr_attention_bwd_dq": katt.sr_attention_bwd_dq.launches,
+                "sr_attention_bwd_dkv": katt.sr_attention_bwd_dkv.launches,
+                "plain_vjp": katt._SrAttentionFn.plain_backwards}
+    recompute = sum(a.elapsed_time(e) for a, e in recomputes)
+    kernel_bwd = sum(a.elapsed_time(e) for a, e in kernel_bwds)
     update_ms = sum(a.elapsed_time(e) for a, e in updates)
     inst = ev[2].elapsed_time(ev[3])
     vals = [v["loss"].item() for v in losses]
@@ -2298,15 +2471,21 @@ def seg_step_timing(dev):
           f"{step_ms:.2f} (steps 3-5 after two warm-up steps, CUDA events, "
           f"host-paced), {b * 1e3 / step_ms:.3f} seg train pairs/s; peak "
           f"device memory of steps 3-5 above the model and batch "
-          f"{peak / 2**30:.2f} GiB; step 6 {inst:.2f} ms of which the "
-          f"recompute backward {recompute:.2f} ms ({recompute / inst:.3f} "
-          f"of the step, {len(spans)} recomputes) and the AdamW update "
+          f"{peak / 2**30:.2f} GiB; step 6 {inst:.2f} ms of which "
+          f"sr-attention's kernel backward {kernel_bwd:.2f} ms "
+          f"({kernel_bwd / inst:.3f} of the step, {len(kernel_bwds)} calls;"
+          f" launches {backward}, expected {SEG_BWD_EXPECT}), the plain "
+          f"recompute backward {recompute:.2f} ms ({len(recomputes)} "
+          f"recomputes) and the AdamW update "
           f"{update_ms:.2f} ms ({update_ms / inst:.3f}); the host returned "
           f"from step 6 after {host_ms:.2f} ms (the step never waits for "
           f"the device, so a host time near the step's is a host-bound "
           f"step); synchronizing CUDA calls in step 2 "
           f"(torch.cuda.set_sync_debug_mode): {len(syncs)}", flush=True)
     check(all(math.isfinite(v) for v in vals), "seg losses not finite")
+    check(backward == SEG_BWD_EXPECT and len(kernel_bwds) == SEG_BLOCKS,
+          f"seg step kernel backwards {backward} in {len(kernel_bwds)} "
+          f"calls, expected {SEG_BWD_EXPECT} in {SEG_BLOCKS}")
     check(not syncs, f"the seg step waits for the device: "
                      f"{syncs[0].message if syncs else ''}")
     check(int(state.step.item()) == state.host_step == 6, "seg step counts")
@@ -5268,6 +5447,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = kernel_checks(dev)
     ffm_backward_checks(dev)
+    sr_attention_backward_checks(dev)
     with torch.inference_mode():
         kres.update(drdb_checks(dev))
         kres.update(drdb_int8_checks(dev))

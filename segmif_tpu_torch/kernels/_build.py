@@ -51,6 +51,26 @@ SIGNATURES = {
                             _i64, _i64, _i64,              # k strides
                             _i64, _i64, _i64,              # v strides
                             _f32, _i32, _vp],              # scale dtype stream
+    "segmif_sr_attention_bwd_dq": [_vp, _vp, _vp, _vp,     # q k v dO
+                                   _vp, _vp, _vp,          # dq lse2 delta
+                                   _i32, _i32, _i32, _i32,  # B N M H
+                                   _i32,                   # D
+                                   _i64, _i64, _i64,       # q strides b n h
+                                   _i64, _i64, _i64,       # k strides
+                                   _i64, _i64, _i64,       # v strides
+                                   _i64, _i64, _i64,       # dO strides
+                                   _f32, _vp],             # scale stream
+    "segmif_sr_attention_bwd_dkv": [_vp, _vp, _vp, _vp,    # q k v dO
+                                    _vp, _vp, _vp,         # lse2 delta
+                                                           # partial
+                                    _vp, _vp,              # dk dv
+                                    _i32, _i32, _i32, _i32,  # B N M H
+                                    _i32, _i32, _i32,      # D chunk nchunk
+                                    _i64, _i64, _i64,      # q strides b n h
+                                    _i64, _i64, _i64,      # k strides
+                                    _i64, _i64, _i64,      # v strides
+                                    _i64, _i64, _i64,      # dO strides
+                                    _f32, _vp],            # scale stream
     "segmif_ffm_grams": [_vp, _vp, _vp, _vp, _vp,          # x1 x2 s w b
                          _vp, _vp,                         # partial out
                          _i32, _i32, _i32, _i32,           # B N chunk nchunk

@@ -74,6 +74,14 @@ Tolerances (both sides compute in f32; TF32 is off for the plain side):
    missing relu mask or f32 operands taken at bf16 failing it; pass A''s
    f32 sums within 1e-5 of the plain maths summed in f64
    (test_ffm_bwd_reduce_holds_f32_sums), dh taken at bf16 failing it.
+   sr-attention's backward kernels against the same chain on their plain
+   passes (test_sr_attention_backward_kernels_match_plain_passes, at the
+   seg cell's stage shapes with B cut, mit_b3's M = 300 and ragged
+   shapes): GRAD_TOL and at most 5 % of each gradient's elements
+   differing (SRA_BWD_SHARE), bit for bit from run to run; P and dS taken
+   at their high bf16 halves alone, the D term left out, or a ragged key
+   tile's padding left in the softmax fail it (test_sr_attention_
+   backward_check_catches_a_fault).
  - a fusion-phase train step on the card in f32 against the CPU
    (test_train_step_card_matches_cpu): the losses within 1e-4 relative,
    every gradient leaf within TRAIN_LEAF_RTOL of its largest magnitude;
@@ -116,6 +124,7 @@ from segmif_tpu_torch.kernels.drdb import (
     drdb_tail,
     drdb_tail_ref,
 )
+from segmif_tpu_torch.kernels import attention as katt
 from segmif_tpu_torch.kernels import int8 as kint8
 from segmif_tpu_torch.kernels.ffm import (
     crosspath_apply_rows,
@@ -1109,18 +1118,20 @@ def _grad_case(kind, shape, dtype, device, gen):
 def test_function_gradients_match_plain(cuda, dtype, kind, shape):
     """Each kernel's autograd.Function on the card: the forward launches
     the kernel (each counter moves by one); the backward launches the
-    FFM's two backward kernels once each in bf16 and runs no plain VJP
-    there, and in f32 (and for the other Functions) launches none and
-    recomputes the plain version; every input's gradient equals that of
-    autograd through the plain version on the same inputs (GRAD_TOL of the
-    gradient's largest magnitude; the FFM on dyadic tokens,
-    ``_dyadic_crosspath``)."""
+    FFM's two backward kernels, or sr-attention's two backward passes,
+    once each in bf16 and runs no plain VJP there, and in f32 (and for the
+    DRDB's Function) launches none and recomputes the plain version; every
+    input's gradient equals that of autograd through the plain version on
+    the same inputs (GRAD_TOL of the gradient's largest magnitude; the FFM
+    on dyadic tokens, ``_dyadic_crosspath``)."""
     gen = torch.Generator().manual_seed(30)
     ins, kernel, plain, counters = _grad_case(kind, shape, dtype, cuda, gen)
     bwd = [kffm.crosspath_bwd_reduce, kffm.crosspath_bwd_rows]
-    for fn in counters + bwd:
+    sr_bwd = [katt.sr_attention_bwd_dq, katt.sr_attention_bwd_dkv]
+    for fn in counters + bwd + sr_bwd:
         fn.launches = 0
     kffm._CrossPathFn.plain_backwards = 0
+    katt._SrAttentionFn.plain_backwards = 0
     out = kernel()
     outs = (out,) if torch.is_tensor(out) else tuple(out)
     cot = [_randn(gen, o.shape, dtype, cuda) for o in outs]
@@ -1130,6 +1141,10 @@ def test_function_gradients_match_plain(cuda, dtype, kind, shape):
     kernels = int(kind == "ffm" and dtype == torch.bfloat16)
     assert [fn.launches for fn in bwd] == [kernels] * 2
     assert kffm._CrossPathFn.plain_backwards == int(kind == "ffm") - kernels
+    sr_kernels = int(kind == "sr_attention" and dtype == torch.bfloat16)
+    assert [fn.launches for fn in sr_bwd] == [sr_kernels] * 2
+    assert katt._SrAttentionFn.plain_backwards == (
+        int(kind == "sr_attention") - sr_kernels)
     ref = plain()
     want = torch.autograd.grad((ref,) if torch.is_tensor(ref) else ref,
                                ins, cot)
@@ -1293,6 +1308,122 @@ def test_ffm_bwd_reduce_holds_f32_sums(cuda, monkeypatch, shape, fault):
     worst = max(_max_err(g, e) / e.abs().max().item()
                 for g, e in zip(got, want))
     assert (worst <= GRAD_TOL[torch.float32]) == (fault is None), worst
+
+
+# sr-attention's backward passes against their plain versions on the card,
+# bf16: every gradient within GRAD_TOL of its largest magnitude, and at
+# most this share of each gradient's elements different at all. Both sides
+# carry every product and sum in f32 and round dq, dk and dv once, so only
+# sums in another order (and P and dS as hi + lo bf16 pairs, about 2^-17
+# of each) differ, moving some elements by one bf16 step.
+SRA_BWD_SHARE = 0.05
+SRA_BWD_SHAPES = [
+    (1, 65536, 1024, 1, 64),   # SegFormer-B5 stage 1 at 1024x1024, B cut
+    (1, 16384, 1024, 2, 64),   # stage 2
+    (2, 4096, 1024, 5, 64),    # stage 3
+    (2, 1024, 1024, 8, 64),    # stage 4
+    (2, 19200, 300, 1, 64),    # mit_b3 stage 1 at 480x640 (M = 300)
+    (2, 1200, 300, 5, 64),     # mit_b3 stage 3
+    (2, 300, 300, 8, 64),      # mit_b3 stage 4
+    (2, 70, 65, 2, 64),        # one key past a whole tile, N off the tiles
+    (1, 130, 1, 1, 32),        # one key, D = 32
+    (3, 100, 44, 2, 32),       # one ragged key tile, D = 32
+]
+
+
+def _sra_bwd_case(b, n, m, h, d, gen, dev):
+    q, k, v = _sr_inputs(0, b, n, m, h, d, torch.bfloat16, dev)
+    g = _randn(gen, (b, n, h, d), torch.bfloat16, dev)
+    return q, k, v, g, d ** -0.5
+
+
+def _sra_bwd_plain(q, k, v, g, scale):
+    """sr_attention_backward with its two passes' plain versions, on the
+    card."""
+    dq, lse2, delta = katt._bwd_dq_plain(q, k, v, g, scale)
+    dk, dv = katt._bwd_dkv_plain(q, k, v, g, lse2, delta, scale)
+    return dq, dk, dv
+
+
+def _sra_bwd_faulty(q, k, v, g, scale, fault):
+    """The backward in plain torch with a planted fault: 'lo_dropped' (P and
+    dS enter the dv, dq and dk products as their high bf16 halves alone),
+    'd_term_left_out' (dS = P dP), 'ragged_key_unmasked' (the keys
+    zero-padded to a whole 64-key tile take part in the softmax)."""
+    m = k.shape[1]
+    if fault == "ragged_key_unmasked":
+        pad = (0, 0, 0, 0, 0, (-m) % 64)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v,
+                                                                        pad)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale, -1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
+    delta = 0 if fault == "d_term_left_out" else (p * dp).sum(-1, True)
+    ds = p * (dp - delta)
+    if fault == "lo_dropped":
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf)[:, :m] * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, gf)[:, :m]
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _sra_bwd_held(got, want):
+    """(whether GRAD_TOL and SRA_BWD_SHARE hold, the worst error over the
+    largest magnitude, the largest share of a gradient's elements that
+    differ)."""
+    ratio = max(_max_err(g, e) / max(e.float().abs().max().item(), 1e-30)
+                for g, e in zip(got, want))
+    share = max((g != e).float().mean().item() for g, e in zip(got, want))
+    return (ratio <= GRAD_TOL[torch.bfloat16] and share <= SRA_BWD_SHARE,
+            ratio, share)
+
+
+@pytest.mark.parametrize("b,n,m,h,d", SRA_BWD_SHAPES)
+def test_sr_attention_backward_kernels_match_plain_passes(cuda, b, n, m, h,
+                                                          d):
+    """sr-attention's backward kernels in bf16 (``sr_attention_backward``:
+    three launches) against the same chain with the two passes' plain
+    versions on the card, at the seg cell's four stage shapes (B cut), at
+    mit_b3's M = 300 and at ragged shapes: GRAD_TOL and SRA_BWD_SHARE hold,
+    and two runs agree bit for bit (no atomics; partials summed in chunk
+    order)."""
+    gen = torch.Generator().manual_seed(37)
+    q, k, v, g, scale = _sra_bwd_case(b, n, m, h, d, gen, cuda)
+    katt.sr_attention_bwd_dq.launches = 0
+    katt.sr_attention_bwd_dkv.launches = 0
+    got = katt.sr_attention_backward(q, k, v, g, [True] * 3, scale)
+    again = katt.sr_attention_backward(q, k, v, g, [True] * 3, scale)
+    torch.cuda.synchronize()
+    assert (katt.sr_attention_bwd_dq.launches,
+            katt.sr_attention_bwd_dkv.launches) == (2, 2)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = _sra_bwd_plain(q, k, v, g, scale)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        assert a.is_contiguous()
+    ok, ratio, share = _sra_bwd_held(got, want)
+    assert ok, (ratio, share)
+
+
+@pytest.mark.parametrize("fault", ["lo_dropped", "d_term_left_out",
+                                   "ragged_key_unmasked"])
+@pytest.mark.parametrize("shape", [(2, 1200, 300, 5, 64),
+                                   (2, 70, 65, 2, 64)])
+def test_sr_attention_backward_check_catches_a_fault(cuda, shape, fault):
+    """The backward computed with a planted fault fails the check of
+    ``test_sr_attention_backward_kernels_match_plain_passes`` against the
+    plain passes (ragged key tiles: M = 300 and 65)."""
+    gen = torch.Generator().manual_seed(38)
+    q, k, v, g, scale = _sra_bwd_case(*shape, gen, cuda)
+    want = _sra_bwd_plain(q, k, v, g, scale)
+    got = _sra_bwd_faulty(q, k, v, g, scale, fault)
+    ok, ratio, share = _sra_bwd_held(got, want)
+    assert not ok, (ratio, share)
+    # and the same maths without the fault passes
+    ok, ratio, share = _sra_bwd_held(_sra_bwd_faulty(q, k, v, g, scale,
+                                                     None), want)
+    assert ok, (ratio, share)
 
 
 TRAIN_LEAF_RTOL = 1e-2

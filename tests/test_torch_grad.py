@@ -10,6 +10,13 @@ module passes, back to their leaves; the DRDB's x and 12 conv tensors.
 Small widths keep the finite differences cheap: attention D = 4, the FFM
 at C = 8 with 2 heads, the DRDB at 4 channels with growth 2.
 
+sr-attention's kernel backward (``sr_attention_backward``: the dq pass,
+then the dkv pass) on the CPU, where its two operators run their plain
+versions: in f64 against autograd's VJP of ``sr_attention_ref`` for q, k
+and v (k and v the strided halves of a kv projection), and in bf16
+against the plain VJP in bf16, which it must round where that rounds (dq,
+dk and dv once, from f32 sums).
+
 The FFM's kernel backward (``crosspath_backward``: pass A', the fold's
 gradient, pass B') on the CPU, where its two operators run their plain
 versions: in f64 against autograd's VJP of ``crosspath_folded_ref`` for
@@ -23,6 +30,7 @@ import torch
 
 from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 from segmif_tpu_torch.kernels import _build
+from segmif_tpu_torch.kernels import attention as katt
 from segmif_tpu_torch.kernels.attention import (_sr_attention_grad,
                                                 sr_attention_ref)
 from segmif_tpu_torch.kernels.drdb import _drdb_grad, drdb_chain
@@ -46,6 +54,107 @@ def test_sr_attention_function_gradcheck():
         lambda q, k, v: _sr_attention_grad(q, k, v, 0.5,
                                            forward=sr_attention_ref),
         (q, k, v))
+
+
+def _sr_case(b, n, m, h, d, dtype, seed):
+    """q [B, N, H, D], k and v the strided halves of one [B, M, 2 H D]
+    projection (as the MiT makes them), the cotangent, in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, dtype=F64).to(dtype)
+
+    q, kv, g = randn(b, n, h, d), randn(b, m, 2 * h * d), randn(b, n, h, d)
+    return (q, kv[..., :h * d].unflatten(-1, (h, d)),
+            kv[..., h * d:].unflatten(-1, (h, d)), g)
+
+
+def _sr_plain_vjp(q, k, v, g, needs):
+    scale = q.shape[-1] ** -0.5
+    return _build.plain_vjp(
+        "bwd/sr_attention", lambda q, k, v: sr_attention_ref(q, k, v, scale),
+        [q, k, v], needs, (g,))
+
+
+SR_NEEDS = {"all": "qkv", "q": "q", "k": "k", "v": "v", "kv": "kv",
+            "qv": "qv"}
+
+
+@pytest.mark.parametrize("needs", list(SR_NEEDS))
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (1, 70, 1, 1, 32),            # one key
+    (3, 130, 65, 5, 64),          # one key past a tile
+    (1, 100, 300, 5, 32),         # mit_b3's M = 300, a ragged key tile
+    (3, 50, 300, 1, 64),          # N under one tile
+])
+def test_sr_attention_backward_passes_match_autograd(b, n, m, h, d, needs):
+    """f64: the backward through the two passes' plain versions, with M
+    ragged, N off the 64-query tiles, D 32 and 64, H 1 and 5, B 1 and 3,
+    for each subset of q, k, v needing a gradient, equals autograd's VJP of
+    ``sr_attention_ref`` (1e-10 of each gradient's largest magnitude); the
+    others get None."""
+    q, k, v, g = _sr_case(b, n, m, h, d, F64, 7)
+    flags = [c in SR_NEEDS[needs] for c in "qkv"]
+    got = katt.sr_attention_backward(q, k, v, g, flags, d ** -0.5)
+    want = _sr_plain_vjp(q, k, v, g, flags)
+    for name, flag, a, e in zip("qkv", flags, got, want):
+        if not flag:
+            assert a is None and e is None, name
+            continue
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        assert (a - e).abs().max() <= 1e-10 * e.abs().max(), name
+
+
+# the bf16 backward against the plain VJP in bf16: the largest share of a
+# gradient's elements that may differ
+SR_BF16_SHARE = 0.05
+
+
+@pytest.mark.parametrize("b,n,m,h,d", [(2, 1000, 300, 2, 64),
+                                       (1, 300, 65, 5, 32)])
+def test_sr_attention_backward_rounds_as_the_plain_vjp(b, n, m, h, d):
+    """bf16: the backward through the two passes' plain versions against
+    the plain VJP in bf16: every gradient within 2^-7 of its largest
+    magnitude (the CUDA tests' GRAD_TOL) and at most SR_BF16_SHARE of its
+    elements different at all: both compute in f32 and round dq, dk and dv
+    once, so only f32 sums in another order (the log-sum-exp, D) move an
+    element by one bf16 step. Measured over three seeds and four
+    shapes (M 65-1,024): up to 0.08 % of a gradient's elements differ; P
+    taken at bf16 in both passes moves 40-44 %."""
+    q, k, v, g = _sr_case(b, n, m, h, d, torch.bfloat16, 8)
+    got = katt.sr_attention_backward(q, k, v, g, [True] * 3, d ** -0.5)
+    want = _sr_plain_vjp(q, k, v, g, [True] * 3)
+    for name, a, e in zip("qkv", got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        scale = e.float().abs().max()
+        assert (a.float() - e.float()).abs().max() <= 2 ** -7 * scale, name
+        share = (a != e).float().mean().item()
+        assert share <= SR_BF16_SHARE, (name, share)
+
+
+def test_sr_attention_function_routes_cpu_to_the_plain_vjp(monkeypatch):
+    """On CPU tensors (and in f32 or f64 on the card) the Function's
+    backward recomputes the plain VJP: the kernel chain is not called, no
+    backward operator runs, and the plain-VJP counter counts CUDA tensors
+    only."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel backward ran on CPU tensors")
+
+    monkeypatch.setattr(katt, "sr_attention_backward", refuse)
+    q, k, v, g = _sr_case(2, 70, 65, 2, 64, torch.bfloat16, 9)
+    q.requires_grad_(True)
+    assert not katt.bwd_takes_kernels(q, k, v)
+    katt._SrAttentionFn.plain_backwards = 0
+    katt.sr_attention_bwd_dq.launches = 0
+    katt.sr_attention_bwd_dkv.launches = 0
+    (got,) = torch.autograd.grad(_sr_attention_grad(q, k, v, 0.125), q, g)
+    want = _build.plain_vjp(
+        "bwd/sr_attention", lambda q, k, v: sr_attention_ref(q, k, v, 0.125),
+        [q.detach(), k, v], [True, False, False], (g,))[0]
+    assert torch.equal(got, want)
+    assert katt._SrAttentionFn.plain_backwards == 0
+    assert (katt.sr_attention_bwd_dq.launches,
+            katt.sr_attention_bwd_dkv.launches) == (0, 0)
 
 
 def _ffm_leaves(gen, c):

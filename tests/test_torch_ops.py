@@ -1,4 +1,4 @@
-"""The nine ``segmif::`` operators on the CPU, where each runs its
+"""The eleven ``segmif::`` operators on the CPU, where each runs its
 kernel's plain version: ``torch.library.opcheck`` (schema, autograd
 registration, the fake (shape) function's shapes, dtypes and strides
 against the CPU version's, and tracing with dynamic shapes); each
@@ -16,7 +16,7 @@ from segmif_tpu_torch.kernels import attention, drdb, ffm, int8
 
 OPS = ("sr_attention", "ffm_grams", "ffm_apply", "ffm_bwd_reduce",
        "ffm_bwd_rows", "drdb_growth", "drdb_tail", "drdb_int8_growth",
-       "drdb_int8_tail")
+       "drdb_int8_tail", "sr_attention_bwd_dq", "sr_attention_bwd_dkv")
 CL = torch.channels_last
 
 
@@ -74,6 +74,8 @@ def _cases():
     rs = [buf.permute(0, 3, 1, 2)[:, 32 * t:32 * (t + 1)] for t in range(5)]
     xi, qi = _int8_operands(gen)
     feat = int8.drdb_int8_growth_ref(xi, qi)
+    qb, kb, vb, gb = _sr_bwd_operands(gen)
+    lse2, delta = attention._bwd_dq_plain(qb, kb, vb, gb, 0.125)[1:]
     return {
         "sr_attention": (q, k, v, 0.125),
         "ffm_grams": (x1, x2, s, wg, bgr),
@@ -85,7 +87,21 @@ def _cases():
         "drdb_tail": (x, rs, *drdb.pack_tail(wb, bb, x.dtype)),
         "drdb_int8_growth": (xi, int8._q_list(qi)),
         "drdb_int8_tail": (xi, feat, int8._q_list(qi)),
+        # the backward passes: the cotangent; the dkv pass's chunk of 64
+        # queries (the card's; the CPU version takes one pass)
+        "sr_attention_bwd_dq": (qb, kb, vb, gb, 0.125),
+        "sr_attention_bwd_dkv": (qb, kb, vb, gb, lse2, delta, 0.125, 64),
     }
+
+
+def _sr_bwd_operands(gen):
+    """q, k and v (the strided halves of a kv projection) and dO, with N
+    over one 64-query chunk and M over one 64-key tile."""
+    q = torch.randn((2, 80, 2, 32), generator=gen)
+    kv = torch.randn((2, 70, 2 * 2 * 32), generator=gen)
+    g = torch.randn((2, 80, 2, 32), generator=gen)
+    return (q, kv[..., :64].unflatten(-1, (2, 32)),
+            kv[..., 64:].unflatten(-1, (2, 32)), g)
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +180,19 @@ def test_unpack_inverts_the_packings(dtype):
     # the biases keep the arithmetic type: f64 stays f64
     assert bu.dtype == (torch.float64 if dtype == torch.float64
                         else torch.float32)
+
+
+def test_backward_wrappers_compute_the_plain_passes():
+    """sr-attention's backward wrappers on CPU tensors (through the
+    operators) give their plain passes' results bit for bit, with the
+    dkv pass's chunk ignored there."""
+    q, k, v, g = _sr_bwd_operands(_gen(7))
+    got = attention.sr_attention_bwd_dq(q, k, v, g, 0.125)
+    want = attention._bwd_dq_plain(q, k, v, g, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dkv = attention.sr_attention_bwd_dkv(q, k, v, g, *want[1:], 0.125)
+    plain = attention._bwd_dkv_plain(q, k, v, g, *want[1:], 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(dkv, plain))
 
 
 def _op_names(t):
